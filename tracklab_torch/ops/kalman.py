@@ -1,0 +1,170 @@
+"""OC-SORT's Kalman filter in PyTorch (counterpart of
+tracklab_tpu.ops.kalman.XYSRFilter).
+
+Functions take any number of leading batch dimensions: ``x (..., 7)``,
+``P (..., 7, 7)``, ``z (..., 4)``, so each one is also the JAX package's
+``*_batch`` form. The other filters come with their trackers.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+__all__ = ["XYSRFilter"]
+
+
+def _inv4(m):
+    """Closed-form 4x4 inverse (adjugate / det) over leading batch dims."""
+    a = lambda i, j: m[..., i, j]  # noqa: E731
+    s0 = a(0, 0) * a(1, 1) - a(1, 0) * a(0, 1)
+    s1 = a(0, 0) * a(1, 2) - a(1, 0) * a(0, 2)
+    s2 = a(0, 0) * a(1, 3) - a(1, 0) * a(0, 3)
+    s3 = a(0, 1) * a(1, 2) - a(1, 1) * a(0, 2)
+    s4 = a(0, 1) * a(1, 3) - a(1, 1) * a(0, 3)
+    s5 = a(0, 2) * a(1, 3) - a(1, 2) * a(0, 3)
+    c5 = a(2, 2) * a(3, 3) - a(3, 2) * a(2, 3)
+    c4 = a(2, 1) * a(3, 3) - a(3, 1) * a(2, 3)
+    c3 = a(2, 1) * a(3, 2) - a(3, 1) * a(2, 2)
+    c2 = a(2, 0) * a(3, 3) - a(3, 0) * a(2, 3)
+    c1 = a(2, 0) * a(3, 2) - a(3, 0) * a(2, 2)
+    c0 = a(2, 0) * a(3, 1) - a(3, 0) * a(2, 1)
+    det = s0 * c5 - s1 * c4 + s2 * c3 + s3 * c2 - s4 * c1 + s5 * c0
+    inv_det = 1.0 / det
+    b = [
+        [a(1, 1) * c5 - a(1, 2) * c4 + a(1, 3) * c3,
+         -a(0, 1) * c5 + a(0, 2) * c4 - a(0, 3) * c3,
+         a(3, 1) * s5 - a(3, 2) * s4 + a(3, 3) * s3,
+         -a(2, 1) * s5 + a(2, 2) * s4 - a(2, 3) * s3],
+        [-a(1, 0) * c5 + a(1, 2) * c2 - a(1, 3) * c1,
+         a(0, 0) * c5 - a(0, 2) * c2 + a(0, 3) * c1,
+         -a(3, 0) * s5 + a(3, 2) * s2 - a(3, 3) * s1,
+         a(2, 0) * s5 - a(2, 2) * s2 + a(2, 3) * s1],
+        [a(1, 0) * c4 - a(1, 1) * c2 + a(1, 3) * c0,
+         -a(0, 0) * c4 + a(0, 1) * c2 - a(0, 3) * c0,
+         a(3, 0) * s4 - a(3, 1) * s2 + a(3, 3) * s0,
+         -a(2, 0) * s4 + a(2, 1) * s2 - a(2, 3) * s0],
+        [-a(1, 0) * c3 + a(1, 1) * c1 - a(1, 2) * c0,
+         a(0, 0) * c3 - a(0, 1) * c1 + a(0, 2) * c0,
+         -a(3, 0) * s3 + a(3, 1) * s1 - a(3, 2) * s0,
+         a(2, 0) * s3 - a(2, 1) * s1 + a(2, 2) * s0],
+    ]
+    rows = [torch.stack(rw, dim=-1) for rw in b]
+    return torch.stack(rows, dim=-2) * inv_det[..., None, None]
+
+
+def _where(cond, a, b):
+    """``torch.where`` with ``cond`` broadcast over trailing dims of a."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (a.dim()
+                                                         - cond.dim())), a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(dtype, device):
+    F = torch.eye(7, dtype=dtype)
+    F[0, 4] = F[1, 5] = F[2, 6] = 1.0
+    H = torch.eye(4, 7, dtype=dtype)
+    # ocsort.py:80-84: R[2:,2:]*=10; P[4:,4:]*=1000; P*=10;
+    # Q[-1,-1]*=0.01; Q[4:,4:]*=0.01
+    R = torch.diag(torch.tensor([1.0, 1.0, 10.0, 10.0], dtype=dtype))
+    P0 = torch.diag(torch.tensor([10.0, 10.0, 10.0, 10.0, 1e4, 1e4, 1e4],
+                                 dtype=dtype))
+    Q = torch.diag(torch.tensor([1.0, 1.0, 1.0, 1.0, 0.01, 0.01, 1e-4],
+                                dtype=dtype))
+    return tuple(m.to(device) for m in (F, H, R, P0, Q))
+
+
+class XYSRFilter:
+    """OC-SORT 7-dim filter. State: [x, y, s, r, vx, vy, vs]."""
+
+    @staticmethod
+    def constants(dtype=torch.float32, device=None):
+        """(F, H, R, P0, Q), built once per dtype and device: a tensor made
+        from Python numbers on the card is a host-to-device copy, which
+        waits for the stream, so per-frame code must not rebuild them.
+        Callers must not modify them in place."""
+        return _constants(dtype, torch.device(device or "cpu"))
+
+    @staticmethod
+    def predict(x, P):
+        """Predict with the OC-SORT negative-area guard (ocsort.py:154-157:
+        if x[6] + x[2] <= 0 then vs := 0). F = I + E, so F x and F P F' are
+        slice-adds, in the JAX package's order."""
+        _, _, _, _, Q = XYSRFilter.constants(x.dtype, x.device)
+        vs = torch.where(x[..., 6] + x[..., 2] <= 0, 0.0, x[..., 6])
+        x = torch.cat([x[..., :6], vs[..., None]], dim=-1)
+        x = torch.cat([x[..., :3] + x[..., 4:7], x[..., 3:]], dim=-1)
+        Pn = P.clone()
+        Pn[..., :3, :] += P[..., 4:7, :]
+        M = P[..., :, 4:7].clone()
+        M[..., :3, :] += P[..., 4:7, 4:7]
+        Pn[..., :, :3] += M
+        return x, Pn + Q
+
+    @staticmethod
+    def update(x, P, z):
+        """Joseph-form update specialized for H = [I4 | 0] and diagonal R,
+        with S = P[:4, :4] + R inverted in closed form."""
+        _, _, R, _, _ = XYSRFilter.constants(x.dtype, x.device)
+        r = torch.diagonal(R)
+        y = z - x[..., :4]
+        PHT = P[..., :, :4]                                   # (..., 7, 4)
+        S = P[..., :4, :4] + R
+        K = PHT @ _inv4(S)                                    # (..., 7, 4)
+        x_new = x + (K @ y[..., None])[..., 0]
+        A = P - K @ P[..., :4, :]
+        Kt = K.transpose(-1, -2)
+        P_new = A - A[..., :, :4] @ Kt + (K * r) @ Kt
+        return x_new, P_new
+
+    @staticmethod
+    def oru_replay_batch(x_frozen, P_frozen, z_prev, z_new, gap, need):
+        """Observation-centric re-update (kalmanfilter.py:390-432), batched
+        over track slots: rewind to the frozen state and replay a linearly
+        interpolated virtual trajectory from ``z_prev`` to ``z_new`` (xysr,
+        interpolated in x, y, w, h), to the largest gap needed this frame.
+
+        Host sync: the loop bound is data dependent, so reading it costs one
+        ``.item()`` per call (one per tracker frame). Shapes: x (T, 7),
+        P (T, 7, 7), z (T, 4), gap (T,) int, need (T,) bool.
+        """
+        dtype = x_frozen.dtype
+        x1, y1, s1, r1 = z_prev.unbind(-1)
+        x2, y2, s2, r2 = z_new.unbind(-1)
+        w1 = torch.sqrt(torch.clamp(s1 * r1, min=1e-12))
+        h1 = torch.sqrt(torch.clamp(s1 / torch.clamp(r1, min=1e-12),
+                                    min=1e-12))
+        w2 = torch.sqrt(torch.clamp(s2 * r2, min=1e-12))
+        h2 = torch.sqrt(torch.clamp(s2 / torch.clamp(r2, min=1e-12),
+                                    min=1e-12))
+        tg = torch.clamp(gap, min=1).to(dtype)
+        dx, dy = (x2 - x1) / tg, (y2 - y1) / tg
+        dw, dh = (w2 - w1) / tg, (h2 - h1) / tg
+        max_steps = int(torch.where(need, gap, 0).max())   # the host sync
+        x, P = x_frozen, P_frozen
+        for i in range(max_steps):
+            active = need & (i < gap)
+            t = float(i + 1)
+            vx = x1 + t * dx
+            vy = y1 + t * dy
+            vw = w1 + t * dw
+            vh = h1 + t * dh
+            vz = torch.stack([vx, vy, vw * vh,
+                              vw / torch.clamp(vh, min=1e-12)], dim=1)
+            x_u, P_u = XYSRFilter.update(x, P, vz)
+            do_pred = active & (i < gap - 1)
+            x_p, P_p = XYSRFilter.predict(x_u, P_u)
+            x_next = _where(do_pred, x_p, x_u)
+            P_next = _where(do_pred, P_p, P_u)
+            x = _where(active, x_next, x)
+            P = _where(active, P_next, P)
+        return x, P
+
+    @staticmethod
+    def to_ltrb(x):
+        """State -> ltrb box (ocsort.py:36-46 convert_x_to_bbox)."""
+        w = torch.sqrt(x[..., 2] * x[..., 3])
+        h = x[..., 2] / w
+        return torch.stack([x[..., 0] - w / 2.0, x[..., 1] - h / 2.0,
+                            x[..., 0] + w / 2.0, x[..., 1] + h / 2.0], dim=-1)
+
