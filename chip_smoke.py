@@ -3,18 +3,35 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the CUDA kernels from tracklab_torch/csrc (one nvcc per source);
-  2. K1 (JV assignment) against its plain version: identical col2row on
-     random and tie-heavy costs, and a batched launch with mixed
+  1. build the CUDA kernels from tracklab_torch/csrc (one nvcc per source,
+     all started together);
+  2. K1 (square JV assignment) against its plain version: identical col2row
+     on random and tie-heavy costs, and a batched launch with mixed
      k_eff/active;
-  3. K3 (fused CSPLayer) against the plain layer at the seven YOLOX-s 640
+  3. K2 (batched rectangular JV assignment) against its plain version:
+     identical col2row on random problems at (8, 64, 128) and at V = 5
+     over (4, 9), (8, 16), (16, 16), (13, 40), on tie-heavy costs and on a
+     batch with mixed active flags; then timed on random (8, 64, 128)
+     costs (phase 8 times it on the path's own problems);
+  4. K3 (fused CSPLayer) against the plain layer at the seven YOLOX-s 640
      shapes, batch 8: f32 rel <= 1e-4 (TF32 off); bf16 rel <= 3e-2 and no
      farther from f32 than the plain bf16 layer; then timed at batch 128;
-  4. OC-SORT on the card (through K1) against OC-SORT on the CPU on a
+  5. OC-SORT on the card (through K1) against OC-SORT on the CPU on a
      200-frame, 20-object stream, id for id;
-  5. the main path: YOLOX-s 640 bf16 (seeded random weights) -> NMS ->
+  6. multi-video trackers at 128 tracks / 64 dets: OC-SORT over V = 8
+     60-frame streams in both batched modes, and ByteTrack in batched mode,
+     each equal to the 8 single-video runs on the card id for id (boxes
+     within 1e-4); one ByteTrack stream equal to the CPU's;
+  7. the main path: YOLOX-s 640 bf16 (seeded random weights) -> NMS ->
      OC-SORT over 4 chunks of 128 quasi-static uint8 frames, with the
-     kernels' launch counters read around it.
+     kernels' launch counters read around it;
+  8. the multi-video path: 8 videos x 128 frames -> YOLOX-s 640 bf16 -> NMS
+     (~20 detections per frame, 64 slots, min_confidence 0.4 as a mask) ->
+     OC-SORT with batched=True stepping the 8 videos at once (K2), with
+     the launch counters read around it and 16 tracker steps profiled;
+     then an untimed pass that records the ORU replay's trips per step and
+     K2's last inputs, on which K2 is checked against its plain version
+     and timed.
 
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times, and {"ok": true, "device": ...}.
@@ -103,8 +120,8 @@ def phase_k1(torch, dev):
     cost = -torch.rand(32, 64, generator=g)
     rm = torch.rand(32, generator=g) < 0.75
     cm = torch.rand(64, generator=g) < 0.65
-    sq, _ = _forced_prep(cost, rm, cm)
-    sq = sq.to(dev)
+    sq, _ = _forced_prep(cost[None], rm[None], cm[None])
+    sq = sq[0].to(dev)
     stats = {}
     want = jv._solve_square_plain(sq, stats)
     kk = one(S)
@@ -125,7 +142,52 @@ def phase_k1(torch, dev):
                 bound_by=b_by, library_ms=None)
 
 
-# ---------------------------------------------------------------- phase 3: K3
+# ---------------------------------------------------------------- phase 3: K2
+def phase_k2(torch, dev):
+    from tracklab_torch.kernels.jv_rect import (solve_rect_batched,
+                                                solve_rect_batched_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    cases = [("random (8, 64, 128)", torch.randn(8, 64, 128, generator=g),
+              None)]
+    cases += [(f"random (5, {r}, {c})", torch.randn(5, r, c, generator=g),
+               None) for r, c in ((4, 9), (8, 16), (16, 16), (13, 40))]
+    tie = torch.zeros(2, 6, 20)
+    tie[0, :4, :3] = -2.0          # absorbing block with ties
+    tie[1] = 1.0                   # fully degenerate
+    cases.append(("tie-heavy (2, 6, 20)", tie, None))
+    cases.append(("mixed active (6, 64, 128)",
+                  torch.randn(6, 64, 128, generator=g),
+                  torch.tensor([1, 0, 1, 1, 0, 1], dtype=torch.bool)))
+    for name, c, act in cases:
+        c = c.to(dev)
+        act = None if act is None else act.to(dev)
+        got = solve_rect_batched(c, act)
+        want = solve_rect_batched_plain(c, act)
+        check(torch.equal(got, want), f"K2 {name}: col2row differs")
+    log(f"K2: {len(cases)} batches identical to the plain version")
+
+    c = cases[0][1].to(dev)
+    V, R, C = c.shape
+    stats = {}
+    solve_rect_batched_plain(c, stats=stats)
+    ms = cuda_ms(lambda: solve_rect_batched(c), 200)
+    plain_ms = cuda_ms(lambda: solve_rect_batched_plain(c), 1, warmup=1)
+    # each shortest-path step: ~6 f32 ops per column (2 sub, cmp, select,
+    # argmin, dual update)
+    ops = stats["steps"] * 6 * C
+    b_ms, b_by = bound_ms(V * R * C * 4 + V * C * 4, ops, PEAK["f32"])
+    log(f"K2 timing at (8, 64, 128): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}), "
+        f"{stats['steps']} path steps")
+    return dict(name="K2 jv_rect_solve_batched", route="cuda",
+                source="tracklab_torch/csrc/jv_rect.cu",
+                replaces="tracklab_tpu/ops/assignment_pallas.py:302",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+# ---------------------------------------------------------------- phase 4: K3
 # (name, H=W, cin, cout, n, shortcut) of YOLOX-s at 640x640
 CSP_SHAPES = [("dark3__1", 80, 128, 128, 3, True),
               ("dark4__1", 40, 256, 256, 3, True),
@@ -233,7 +295,7 @@ def phase_k3(torch, dev, time_batch):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-# ----------------------------------------------------------- phase 4: tracker
+# ----------------------------------------------------------- phase 5: tracker
 def synth_stream(seed, n_frames=200, n_obj=20, drop=0.15, fp_rate=0.5,
                  img=(1920, 1080)):
     """Linear-motion objects with noisy detections, dropouts and false
@@ -298,7 +360,90 @@ def phase_tracker(torch, dev):
         f"{t_cpu / len(frames) * 1e3:.2f} ms/frame on cpu")
 
 
-# -------------------------------------------------------- phase 5: main path
+def _pad_videos(torch, streams, capacity, dev):
+    """Per-video padded detections stacked to (V, F, D) on ``dev``."""
+    from tracklab_torch.trackers.common import Detections, pad_detections
+
+    vids = []
+    for frames in streams:
+        per = [pad_detections(f[:, :4], f[:, 4], f[:, 5],
+                              f[:, 6].astype(int), capacity=capacity,
+                              device="cpu") for f in frames]
+        vids.append(Detections(*(torch.stack(x) for x in zip(*per))))
+    return Detections(*(torch.stack(x).to(dev) for x in zip(*vids)))
+
+
+def _same_tracks(torch, got, want, what):
+    """valid and track ids equal, boxes within 1e-4; returns the largest
+    box difference."""
+    got = type(got)(*(x.cpu() for x in got))
+    want = type(want)(*(x.cpu() for x in want))
+    check(torch.equal(got.valid, want.valid), f"{what}: valid differs")
+    v = want.valid
+    check(torch.equal(got.track_id[v], want.track_id[v]),
+          f"{what}: track ids differ")
+    d = (got.ltrb[v] - want.ltrb[v]).abs().max().item() if v.any() else 0.0
+    check(d <= 1e-4, f"{what}: boxes differ by {d}")
+    return d
+
+
+# ------------------------------------------------ phase 6: batched trackers
+def phase_batched_trackers(torch, dev, n_videos=8, n_frames=60):
+    """OC-SORT (both modes) and ByteTrack (batched) over a video axis on the
+    card against each stream run alone through the single-video tracker on
+    the card; one ByteTrack stream against the CPU."""
+    from dataclasses import replace
+
+    from tracklab_torch.kernels.jv import solve_square_batched
+    from tracklab_torch.kernels.jv_rect import solve_rect_batched
+    from tracklab_torch.trackers.bytetrack import (ByteTrackConfig,
+                                                   bytetrack_scan,
+                                                   bytetrack_scan_videos)
+    from tracklab_torch.trackers.common import Detections
+    from tracklab_torch.trackers.ocsort import (OCSortConfig, ocsort_scan,
+                                                ocsort_scan_videos)
+
+    streams = [synth_stream(10 + v, n_frames=n_frames, n_obj=20)
+               for v in range(n_videos)]
+    dets = _pad_videos(torch, streams, 64, dev)
+    one = [Detections(*(x[v] for x in dets)) for v in range(n_videos)]
+    runs = [("OC-SORT", OCSortConfig(max_tracks=128, max_dets=64),
+             ocsort_scan, ocsort_scan_videos),
+            ("ByteTrack", ByteTrackConfig(max_tracks=128, max_dets=64),
+             bytetrack_scan, bytetrack_scan_videos)]
+    for name, cfg, scan, scan_videos in runs:
+        t0 = time.perf_counter()
+        singles = [scan(cfg, d)[1] for d in one]
+        torch.cuda.synchronize()
+        log(f"{name} single video, default mode: "
+            f"{(time.perf_counter() - t0) / n_videos / n_frames * 1e3:.2f} "
+            "ms per frame step")
+        modes = (True, False) if name == "OC-SORT" else (True,)
+        for batched in modes:
+            k1, k2 = solve_square_batched.launches, solve_rect_batched.launches
+            t0 = time.perf_counter()
+            _, out = scan_videos(replace(cfg, batched=batched), dets)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            k1 = solve_square_batched.launches - k1
+            k2 = solve_rect_batched.launches - k2
+            check(k2 > 0 if batched else k1 > 0,
+                  f"{name} batched={batched}: no solve launched")
+            d = max(_same_tracks(torch, type(out)(*(x[v] for x in out)),
+                                 singles[v],
+                                 f"{name} batched={batched} video {v}")
+                    for v in range(n_videos))
+            n_box = int(out.valid.sum())
+            log(f"{name} batched={batched} over V={n_videos}: {n_box} boxes "
+                f"equal {n_videos} single-video runs id for id (max box "
+                f"diff {d:.2e}); K1 {k1}, K2 {k2} launches; "
+                f"{dt / n_frames * 1e3:.2f} ms per frame step")
+    cpu = bytetrack_scan(runs[1][1], Detections(*(x.cpu() for x in one[0])))
+    _same_tracks(torch, singles[0], cpu[1], "ByteTrack cuda vs cpu")
+    log("ByteTrack video 0: cuda equals cpu id for id")
+
+
+# -------------------------------------------------------- phase 7: main path
 def profile_window(torch, fn, n_frames):
     """Run ``fn`` under torch.profiler: host ms, device-busy ms (sum of
     kernel times) and kernel launches, each per frame, and the device's
@@ -421,6 +566,180 @@ def phase_main(torch, dev, n_chunks=4, chunk=128, size=640):
                           tracker=trk)
 
 
+# ---------------------------------------------------- phase 8: multi-video
+def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
+                 max_dets=64, min_confidence=0.4):
+    """The multi-video path: V videos of uint8 frames -> YOLOX-s 640 bf16
+    -> NMS -> per-video padded Detections (V, F, D) -> OC-SORT with
+    ``batched=True`` stepping all V videos at once (one K2 launch per
+    association stage)."""
+    from tracklab_torch.engine.fused import make_yolox_detect_fn
+    from tracklab_torch.kernels.csp import fused_csplayer
+    from tracklab_torch.kernels.jv import solve_square_batched
+    from tracklab_torch.kernels.jv_rect import solve_rect_batched
+    from tracklab_torch.models.yolox import YOLOX
+    from tracklab_torch.trackers.common import Detections, repeat_state
+    from tracklab_torch.trackers.ocsort import (OCSortConfig, ocsort_init,
+                                                ocsort_scan_videos,
+                                                ocsort_step)
+
+    cfg = OCSortConfig(batched=True, max_tracks=128, max_dets=max_dets)
+    model = YOLOX(num_classes=1, variant="s", dtype=torch.bfloat16,
+                  device=dev).randomize_(0)
+    videos = []
+    for v in range(n_videos):
+        g = torch.Generator(device=dev).manual_seed(100 + v)
+        base = torch.randint(0, 235, (1, size, size, 3), generator=g,
+                             device=dev, dtype=torch.uint8)
+        videos.append(base + torch.randint(0, 20, (n_frames, size, size, 3),
+                                           generator=g, device=dev,
+                                           dtype=torch.uint8))
+
+    cal = make_yolox_detect_fn(model, conf_threshold=0.3, max_dets=max_dets,
+                               compute_dtype=torch.bfloat16)(videos[0])
+    s = cal.conf[0][cal.valid[0]].sort(descending=True).values.cpu().numpy()
+    conf = float(round((s[19] + s[20]) / 2, 6)) if s.size >= 21 else 0.3
+    detect = make_yolox_detect_fn(model, conf_threshold=conf,
+                                  max_dets=max_dets,
+                                  compute_dtype=torch.bfloat16)
+    log(f"multi-video: calibrated conf {conf} ({s.size} NMS survivors on "
+        "frame 0 at 0.3)")
+
+    def detect_all():
+        per = [detect(video) for video in videos]      # one chunk each
+        d = Detections(*(torch.stack(x) for x in zip(*per)))
+        # the tracker wrapper's min_confidence pre-filter, as a mask
+        return d._replace(valid=d.valid & (d.conf > min_confidence))
+
+    # warm-up on 16 frames, counting host syncs per frame step
+    n_prof = min(16, n_frames)
+    warm = Detections(*(x[:, :n_prof] for x in detect_all()))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ocsort_scan_videos(cfg, warm)
+        torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught) / n_prof
+
+    solve_square_batched.launches = 0
+    solve_rect_batched.launches = 0
+    fused_csplayer.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dets = detect_all()
+    torch.cuda.synchronize()
+    t_det = time.perf_counter() - t0
+    _, out = ocsort_scan_videos(cfg, dets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": solve_square_batched.launches,
+                "K2": solve_rect_batched.launches,
+                "K3": fused_csplayer.launches}
+    F = n_frames
+    fps = n_videos * F / wall
+    trk_ms = (wall - t_det) / F * 1e3
+    per_frame = out.valid.sum(-1).float().mean().item()
+    log(f"multi-video: {n_videos} videos x {F} frames in {wall:.3f} s = "
+        f"{fps:.2f} frames/s; detector {t_det * 1e3:.1f} ms; tracker "
+        f"{trk_ms:.2f} ms per frame step ({n_videos} videos); launches "
+        f"{launches} ({launches['K2'] / F:.2f} K2 per step); {syncs:.3f} "
+        f"host syncs per step; {per_frame:.2f} tracks per frame")
+    check(launches["K2"] > 0, "K2 never launched on the multi-video path")
+    check(launches["K3"] == 7 * n_videos,
+          f"K3 launches {launches['K3']} != 7 per video chunk")
+    check(out.valid.shape == (n_videos, F, cfg.max_tracks), "output shape")
+    check(out.valid.any().item(), "tracker emitted no tracks")
+    check(torch.isfinite(out.ltrb[out.valid]).all().item(),
+          "non-finite track boxes")
+
+    # device idle share of 16 tracker steps under the profiler
+    frames = [Detections(*(x[:, f] for x in dets)) for f in range(n_prof)]
+    init = repeat_state(ocsort_init(cfg, device=dev), n_videos)
+
+    def track():
+        st = init
+        for d in frames:
+            st, _ = ocsort_step(cfg, st, d)
+
+    track()
+    trk = profile_window(torch, track, len(frames))
+    log(f"multi-video tracker steps (V={n_videos}): {trk}")
+    k2, trips = _k2_on_path(torch, cfg, dets)
+    return launches, k2, dict(fps=fps, videos=n_videos, frames_per_video=F,
+                          detector_ms_per_video_chunk=t_det * 1e3
+                          / n_videos,
+                          tracker_ms_per_step=trk_ms,
+                          k2_launches_per_step=launches["K2"] / F,
+                          syncs_per_step=syncs,
+                          tracks_per_frame=per_frame, tracker=trk,
+                          oru_replay_trips_per_step=dict(
+                              mean=sum(trips) / len(trips), max=max(trips)))
+
+
+def _k2_on_path(torch, cfg, dets, n_keep=8):
+    """A second, untimed pass of the multi-video tracker that records the
+    ORU replay's trip count per step and keeps the last ``n_keep`` K2
+    inputs; K2 is then checked against its plain version and timed on
+    those inputs, the problems the path gives it."""
+    import tracklab_torch.ops.assignment as A
+    from tracklab_torch.kernels.jv_rect import (solve_rect_batched,
+                                                solve_rect_batched_plain)
+    from tracklab_torch.ops.kalman import XYSRFilter
+    from tracklab_torch.trackers.ocsort import ocsort_scan_videos
+
+    replay = XYSRFilter.oru_replay_batch
+    trips, inputs = [], []
+
+    def record_replay(x, P, z_prev, z_new, gap, need):
+        trips.append(int(torch.where(need, gap, 0).max()))
+        return replay(x, P, z_prev, z_new, gap, need)
+
+    def record_k2(cost, active=None):
+        inputs.append((cost, active))
+        del inputs[:-n_keep]
+        return solve_rect_batched(cost, active)
+
+    XYSRFilter.oru_replay_batch = staticmethod(record_replay)
+    A.solve_rect_batched = record_k2
+    try:
+        ocsort_scan_videos(cfg, dets)
+    finally:
+        XYSRFilter.oru_replay_batch = staticmethod(replay)
+        A.solve_rect_batched = solve_rect_batched
+    torch.cuda.synchronize()
+    for c, a in inputs:
+        check(torch.equal(solve_rect_batched(c, a),
+                          solve_rect_batched_plain(c, a)),
+              "K2 differs from its plain version on a path input")
+
+    def run_all():
+        for c, a in inputs:
+            solve_rect_batched(c, a)
+
+    ms = cuda_ms(run_all, 20) / len(inputs)
+    stats = {}
+    t_plain = 0.0
+    for c, a in inputs[-2:]:          # the last step's two stages
+        t_plain += cuda_ms(lambda: solve_rect_batched_plain(c, a, stats), 1,
+                           warmup=0)
+    steps = stats["steps"] / 2
+    V, R, C = inputs[-1][0].shape
+    b_ms, b_by = bound_ms(V * R * C * 4 + V * C * 4, steps * 6 * C,
+                          PEAK["f32"])
+    log(f"K2 on the multi-video path's own problems ({len(inputs)} launches "
+        f"of {(V, R, C)}, identical to the plain version): kernel {ms:.4f} ms"
+        f" per launch, plain {t_plain / 2:.3f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}), {steps:.0f} path steps per launch; ORU replay trips per "
+        f"step: mean {sum(trips) / len(trips):.2f}, max {max(trips)}")
+    return dict(name="K2 jv_rect_solve_batched", route="cuda",
+                source="tracklab_torch/csrc/jv_rect.cu",
+                replaces="tracklab_tpu/ops/assignment_pallas.py:302",
+                max_abs_err=0.0, ms=ms, plain_ms=t_plain / 2, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None), trips
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -443,14 +762,26 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     k1 = phase_k1(torch, dev)
+    k2_random = phase_k2(torch, dev)
     k3 = phase_k3(torch, dev, time_batch=128)
     phase_tracker(torch, dev)
+    phase_batched_trackers(torch, dev)
     launches, main_stats = phase_main(torch, dev)
+    v_launches, k2, videos_stats = phase_videos(torch, dev)
+    # each kernel's launches on the path that carries it: K1 and K3 on the
+    # single-video main path, K2 on the multi-video path (timed there on the
+    # path's own problems; the random-cost timing is kept beside it)
     k1["launches"], k3["launches"] = launches["K1"], launches["K3"]
+    k2["launches"] = v_launches["K2"]
+    videos_stats["k2_random_costs"] = {
+        k: k2_random[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
-    print(json.dumps({"main_path": main_stats}))
+    print(json.dumps({"main_path": main_stats,
+                      "multi_video_path": videos_stats,
+                      "launches": {"main_path": launches,
+                                   "multi_video_path": v_launches}}))
     print(smi)
-    print(json.dumps({"kernels": [k1, k3]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,6 +3,8 @@
 Conventions:
   - ``ltrb``: [x1, y1, x2, y2]
   - ``xywh``: [center-x, center-y, w, h]
+  - ``ltwh``: [x1, y1, w, h]
+  - ``xyah``: [center-x, center-y, w/h, h] (DeepSORT/ByteTrack KF)
   - ``xysr``: [center-x, center-y, scale=area, ratio=w/h] (OC-SORT KF)
 
 Pairwise functions return an (..., N, M) matrix for boxes1 (..., N, 4) x
@@ -15,14 +17,27 @@ import math
 
 import torch
 
-__all__ = ["xywh_to_ltrb", "ltrb_to_xysr", "xysr_to_ltrb", "iou_matrix",
-           "pairwise_iou", "giou_matrix", "diou_matrix", "ciou_matrix"]
+__all__ = ["xywh_to_ltrb", "ltrb_to_ltwh", "ltwh_to_xyah", "ltrb_to_xysr",
+           "xysr_to_ltrb", "iou_matrix", "pairwise_iou", "giou_matrix",
+           "diou_matrix", "ciou_matrix"]
 
 
 def xywh_to_ltrb(b):
     cx, cy, w, h = b.unbind(-1)
     hw, hh = w * 0.5, h * 0.5
     return torch.stack([cx - hw, cy - hh, cx + hw, cy + hh], dim=-1)
+
+
+def ltrb_to_ltwh(b):
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1)
+
+
+def ltwh_to_xyah(b):
+    """DeepSORT measurement space: center-x, center-y, w/h, h
+    (byte_tracker.py:119-128 tlwh_to_xyah)."""
+    l, t, w, h = b.unbind(-1)
+    return torch.stack([l + w * 0.5, t + h * 0.5, w / h, h], dim=-1)
 
 
 def ltrb_to_xysr(b, eps: float = 1e-6):

@@ -1,9 +1,10 @@
-"""OC-SORT's Kalman filter in PyTorch (counterpart of
-tracklab_tpu.ops.kalman.XYSRFilter).
+"""Kalman filters in PyTorch (counterpart of tracklab_tpu.ops.kalman):
+OC-SORT's ``XYSRFilter`` and the DeepSORT/ByteTrack ``XYAHFilter``.
 
-Functions take any number of leading batch dimensions: ``x (..., 7)``,
-``P (..., 7, 7)``, ``z (..., 4)``, so each one is also the JAX package's
-``*_batch`` form. The other filters come with their trackers.
+Functions take any number of leading batch dimensions (track slots, and
+videos before them): ``x (..., n)``, ``P (..., n, n)``, ``z (..., 4)``, so
+each one is also the JAX package's ``*_batch`` form. The other filters come
+with their trackers.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import functools
 
 import torch
 
-__all__ = ["XYSRFilter"]
+__all__ = ["XYSRFilter", "XYAHFilter"]
 
 
 def _inv4(m):
@@ -150,7 +151,7 @@ class XYSRFilter:
             vw = w1 + t * dw
             vh = h1 + t * dh
             vz = torch.stack([vx, vy, vw * vh,
-                              vw / torch.clamp(vh, min=1e-12)], dim=1)
+                              vw / torch.clamp(vh, min=1e-12)], dim=-1)
             x_u, P_u = XYSRFilter.update(x, P, vz)
             do_pred = active & (i < gap - 1)
             x_p, P_p = XYSRFilter.predict(x_u, P_u)
@@ -168,3 +169,78 @@ class XYSRFilter:
         return torch.stack([x[..., 0] - w / 2.0, x[..., 1] - h / 2.0,
                             x[..., 0] + w / 2.0, x[..., 1] + h / 2.0], dim=-1)
 
+
+
+def _diag(std):
+    """diag(std**2) over leading dims: (..., n) -> (..., n, n)."""
+    return torch.diag_embed(std * std)
+
+
+def _shift4_predict(x, P, Q):
+    """x' = F x, P' = F P F' + Q for the 8-dim constant-velocity F = I + E
+    (E[i, i+4] = 1, i < 4), as slice-adds in the JAX package's order."""
+    x = torch.cat([x[..., :4] + x[..., 4:], x[..., 4:]], dim=-1)
+    Pn = P.clone()
+    Pn[..., :4, :] += P[..., 4:, :]
+    M = P[..., :, 4:].clone()
+    M[..., :4, :] += P[..., 4:, 4:]
+    Pn[..., :, :4] += M
+    return x, Pn + Q
+
+
+def _proj4_update(x, P, z, pc):
+    """Kalman update for H = [I4 | 0] given the projected innovation
+    covariance pc = P[:4, :4] + R: K = P[:, :4] pc^-1, P' = P - K pc K'."""
+    K = P[..., :, :4] @ _inv4(pc)
+    x_new = x + (K @ (z - x[..., :4])[..., None])[..., 0]
+    P_new = P - K @ pc @ K.transpose(-1, -2)
+    return x_new, P_new
+
+
+class XYAHFilter:
+    """DeepSORT/ByteTrack 8-dim filter. State: [x, y, a, h, vx, vy, va, vh].
+    Noise stds scale with the box height h (byte_track/kalman_filter.py)."""
+
+    WP = 1.0 / 20
+    WV = 1.0 / 160
+
+    @staticmethod
+    def initiate(z):
+        """Measurement (..., 4) xyah -> mean (..., 8), covariance."""
+        h = z[..., 3]
+        one = torch.ones_like(h)
+        x = torch.cat([z, torch.zeros_like(z)], dim=-1)
+        std = torch.stack([
+            2 * XYAHFilter.WP * h, 2 * XYAHFilter.WP * h, 1e-2 * one,
+            2 * XYAHFilter.WP * h,
+            10 * XYAHFilter.WV * h, 10 * XYAHFilter.WV * h, 1e-5 * one,
+            10 * XYAHFilter.WV * h], dim=-1)
+        return x, _diag(std)
+
+    @staticmethod
+    def _motion_cov(x):
+        h = x[..., 3]
+        one = torch.ones_like(h)
+        std = torch.stack([
+            XYAHFilter.WP * h, XYAHFilter.WP * h, 1e-2 * one,
+            XYAHFilter.WP * h,
+            XYAHFilter.WV * h, XYAHFilter.WV * h, 1e-5 * one,
+            XYAHFilter.WV * h], dim=-1)
+        return _diag(std)
+
+    @staticmethod
+    def predict(x, P):
+        return _shift4_predict(x, P, XYAHFilter._motion_cov(x))
+
+    @staticmethod
+    def _innovation_cov(x):
+        h = x[..., 3]
+        std = torch.stack([XYAHFilter.WP * h, XYAHFilter.WP * h,
+                           1e-1 * torch.ones_like(h), XYAHFilter.WP * h],
+                          dim=-1)
+        return _diag(std)
+
+    @staticmethod
+    def update(x, P, z):
+        pc = P[..., :4, :4] + XYAHFilter._innovation_cov(x)
+        return _proj4_update(x, P, z, pc)

@@ -3,7 +3,10 @@
 
 Trackers keep fixed-capacity slot tensors plus active masks; births claim
 free slots in detection order (the reference's id-assignment order) and
-deaths clear the mask. Every function here is free of host syncs.
+deaths clear the mask. Tracker steps are written for a leading video axis
+(state fields (V, T, ...), detections (V, D, ...)); ``single_video`` runs
+them on one video and ``scan_videos`` over V videos' frames. Every
+function here is free of host syncs.
 """
 from __future__ import annotations
 
@@ -15,13 +18,14 @@ import torch
 from tracklab_torch.device import resolve_device
 
 __all__ = ["Detections", "pad_detections", "cumsum_rank", "claim_slots",
-           "birth_scatter", "reset_wrapped_step", "stack_frames",
-           "concat_resets"]
+           "birth_scatter", "reset_wrapped_step", "take_rows",
+           "invert_match", "repeat_state", "single_video", "scan_frames",
+           "scan_videos", "stack_frames", "concat_resets"]
 
 
 class Detections(NamedTuple):
     """One frame of detections, padded to a fixed capacity D (or a stack
-    of frames with a leading axis).
+    with leading frame and/or video axes).
 
     ltrb:  (D, 4) float boxes
     conf:  (D,) float scores
@@ -60,62 +64,122 @@ def pad_detections(ltrb, conf, cls=None, ref=None, capacity=64,
 
 
 def cumsum_rank(mask):
-    """Rank of each True element among True elements (0-based), int32."""
-    return torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    """Rank of each True element among True elements along the last axis
+    (0-based), int32."""
+    return torch.cumsum(mask.to(torch.int32), -1, dtype=torch.int32) - 1
 
 
 def claim_slots(free_slots, want):
     """Assign free track slots to birth candidates in detection order.
 
-    free_slots: (T,) bool; want: (D,) bool. Returns det2slot (D,) int32,
-    -1 where out of capacity.
+    free_slots: (..., T) bool; want: (..., D) bool, with the same leading
+    (video) axes. Returns det2slot (..., D) int32, -1 where out of
+    capacity.
     """
-    T = free_slots.shape[0]
+    T = free_slots.shape[-1]
     dev = free_slots.device
+    lead = free_slots.shape[:-1]
     slot_rank = cumsum_rank(free_slots)
-    nth_free = torch.full((T + 1,), -1, dtype=torch.int32, device=dev)
+    nth_free = torch.full(lead + (T + 1,), -1, dtype=torch.int32, device=dev)
     tgt = torch.where(free_slots, slot_rank, T).long()
-    nth_free.scatter_(0, tgt, torch.arange(T, dtype=torch.int32, device=dev))
-    n_free = free_slots.sum(dtype=torch.int32)
+    nth_free.scatter_(-1, tgt, torch.arange(T, dtype=torch.int32,
+                                            device=dev).expand(lead + (T,)))
+    n_free = free_slots.sum(dim=-1, keepdim=True, dtype=torch.int32)
     want_rank = cumsum_rank(want)
     ok = want & (want_rank < n_free)
-    return torch.where(ok, nth_free[torch.clamp(want_rank, 0, T).long()], -1)
+    picked = nth_free.gather(-1, torch.clamp(want_rank, 0, T).long())
+    return torch.where(ok, picked, -1)
 
 
 def birth_scatter(det2slot, birth, arr, val):
-    """Write ``val[d]`` into ``arr[det2slot[d]]`` for each birth det, as a
-    one-hot masked sum. Slots are claimed at most once, so the one-hot rows
-    are disjoint and the sum is exact for every dtype (bool via any)."""
-    T = arr.shape[0]
-    sel = ((det2slot[:, None]
-            == torch.arange(T, dtype=torch.int32, device=arr.device)[None, :])
-           & birth[:, None])                                   # (D, T)
-    claimed = sel.any(dim=0)
-    sel_e = sel.reshape(sel.shape + (1,) * (arr.dim() - 1))
-    val_e = val[:, None]
-    if arr.dtype == torch.bool:
-        picked = (sel_e & val_e).any(dim=0)
-    else:
-        picked = torch.where(sel_e, val_e.to(arr.dtype),
-                             torch.zeros((), dtype=arr.dtype,
-                                         device=arr.device)).sum(dim=0)
-    cl = claimed.reshape(claimed.shape + (1,) * (arr.dim() - 1))
-    return torch.where(cl, picked.to(arr.dtype), arr)
+    """Write ``val[..., d]`` into ``arr[..., det2slot[..., d]]`` for each
+    birth det. ``det2slot``/``birth`` (..., D), ``arr`` (..., T, *rest),
+    ``val`` (..., D, *rest) with the same leading (video) axes. Slots are
+    claimed at most once, so one scatter is exact for every dtype; the
+    other dets write into a spare slot that is dropped."""
+    n_lead = det2slot.dim() - 1
+    T = arr.shape[n_lead]
+    rest = arr.shape[n_lead + 1:]
+    idx = torch.where(birth, det2slot, T).long()
+    idx = idx.reshape(idx.shape + (1,) * len(rest)).expand(
+        idx.shape + rest)
+    ext = torch.cat([arr, arr.narrow(n_lead, 0, 1)], dim=n_lead)
+    ext.scatter_(n_lead, idx, val.to(arr.dtype).expand(idx.shape))
+    return ext.narrow(n_lead, 0, T)
 
 
 def reset_wrapped_step(step_fn, init_state):
     """Wrap a tracker step with a per-frame state reset: the returned step
     takes ``(x, reset)`` and re-initializes the carry where ``reset`` (a
-    bool scalar tensor) is True, selected on the device."""
+    bool scalar tensor, or one per video for a state with a leading video
+    axis) is True, selected on the device."""
 
     def step(carry, inp):
         x, reset = inp
         carry = type(carry)(*(
-            torch.where(reset.reshape((1,) * c.dim()), i, c)
+            torch.where(reset.reshape(reset.shape + (1,) * (c.dim()
+                                                            - reset.dim())),
+                        i, c)
             for i, c in zip(init_state, carry)))
         return step_fn(carry, x)
 
     return step
+
+
+def take_rows(x, idx):
+    """Per video, the detection rows ``idx`` (V, T) of ``x`` (V, D, ...):
+    ``x[v, idx[v, t]]``, shape (V, T, ...)."""
+    idx = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2))
+    return x.gather(1, idx.expand(idx.shape[:2] + x.shape[2:]))
+
+
+def invert_match(det2trk, n_tracks: int):
+    """det->trk map (V, D) to trk->det map (V, T), -1 where no det holds
+    the track; matched tracks are unique, so the first holder is the one."""
+    sel = det2trk[:, :, None] == torch.arange(n_tracks, dtype=torch.int32,
+                                              device=det2trk.device)
+    first = torch.argmax(sel.to(torch.int32), dim=1).to(torch.int32)
+    return torch.where(sel.any(dim=1), first, -1)
+
+
+def repeat_state(state, n_videos: int):
+    """A tracker state for one video repeated along a new leading video
+    axis (each field its own copy)."""
+    return type(state)(*(x.expand((n_videos,) + x.shape).clone()
+                         for x in state))
+
+
+def single_video(step_fn, cfg, state, det):
+    """Run ``step_fn(cfg, state, det)``, written for a leading video axis,
+    on one video's state and detections: the axis is added and dropped."""
+    st, out = step_fn(cfg, type(state)(*(x[None] for x in state)),
+                      Detections(*(x[None] for x in det)))
+    return type(st)(*(x[0] for x in st)), type(out)(*(x[0] for x in out))
+
+
+def scan_frames(step_fn, init, dets, resets=None):
+    """Step one video over its frames: ``dets`` fields have a leading frame
+    axis. Returns the final state and the outputs with a leading frame
+    axis. ``resets`` (F,) bool re-initializes the carry at marked frames."""
+    step = step_fn if resets is None else reset_wrapped_step(step_fn, init)
+    st, outs = init, []
+    for f in range(dets.ltrb.shape[0]):
+        d = Detections(*(x[f] for x in dets))
+        st, out = step(st, d if resets is None else (d, resets[f]))
+        outs.append(out)
+    return st, stack_frames(outs)
+
+
+def scan_videos(step_fn, cfg, init, dets):
+    """Step V videos at once over their frames: every field of ``dets``
+    has leading (V, F) axes and ``init`` a leading V axis. Returns the
+    final state and the outputs with leading (V, F) axes, the counterpart
+    of ``jax.vmap(lambda d: scan(cfg, d))``."""
+    st, outs = init, []
+    for f in range(dets.ltrb.shape[1]):
+        st, out = step_fn(cfg, st, Detections(*(x[:, f] for x in dets)))
+        outs.append(out)
+    return st, type(outs[0])(*(torch.stack(f, dim=1) for f in zip(*outs)))
 
 
 def stack_frames(items):
