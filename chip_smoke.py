@@ -33,6 +33,30 @@ Phases (any failure exits non-zero):
      K2's last inputs, on which K2 is checked against its plain version
      and timed.
 
+Phases 9-11 run before 7 and 8, phase 12 after them:
+  9. K4 (ViT attention) against its plain version at (384, 193, 12, 64)
+     and at (8, 256, 12, 64) with n_valid 193, in f32 (1e-5 abs) and bf16
+     (2e-2 of the output's scale, and no farther from the f32 plain result
+     than the plain bf16 version, x1.5), on q, k, v views of one packed
+     qkv tensor; then timed in bf16 at B = 384 beside the plain version and
+     SDPA (a yardstick only: the port never calls it);
+ 10. the ViT-B KPR (bf16, erfpoly GELU, seeded weights) at batch 64 through
+     K4 and through the plain attention: embeddings within 5e-2 of their
+     scale, flipped binary visibility bits counted;
+ 11. BPBReID-StrongSORT (64 tracks, 32 dets, 6 x 512 part features) on the
+     card against the CPU on one 40-frame synthetic stream (IoU and OKS
+     motion, and the bot_sort strategy), and V = 8
+     streams over the video axis in both batched modes (K1, then K2)
+     against 8 single-video runs on the card, id for id;
+ 12. the parts path: 8 chunks of 16 quasi-static uint8 640 frames ->
+     YOLOX-s bf16 -> NMS (~20 detections per frame, 32 slots) -> device
+     crops -> KPR ViT-B bf16 part features (buckets 24, 32) ->
+     BPBReID-StrongSORT (min_confidence 0.4), with the launch counters read
+     around it and the host syncs of one warmed chunk counted; then the
+     first chunk split into detector, KPR (K4 and the top kernels within
+     it, from the profiler) and 16 profiled tracker steps, and K4 checked
+     and timed on the path's own layer-0 q, k, v.
+
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times, and {"ok": true, "device": ...}.
 """
@@ -376,8 +400,8 @@ def _pad_videos(torch, streams, capacity, dev):
 def _same_tracks(torch, got, want, what):
     """valid and track ids equal, boxes within 1e-4; returns the largest
     box difference."""
-    got = type(got)(*(x.cpu() for x in got))
-    want = type(want)(*(x.cpu() for x in want))
+    got = type(got)(*(None if x is None else x.cpu() for x in got))
+    want = type(want)(*(None if x is None else x.cpu() for x in want))
     check(torch.equal(got.valid, want.valid), f"{what}: valid differs")
     v = want.valid
     check(torch.equal(got.track_id[v], want.track_id[v]),
@@ -740,6 +764,418 @@ def _k2_on_path(torch, cfg, dets, n_keep=8):
                 bound_by=b_by, library_ms=None), trips
 
 
+# ---------------------------------------------------------------- phase 9: K4
+K4_SHAPES = [((384, 193, 12, 64), None), ((8, 256, 12, 64), 193)]
+
+
+def _packed_qkv(torch, shape, dtype, dev, seed):
+    """q, k, v as the (B, N, H, Dh) views of one packed (B, N, 3, H, Dh)
+    tensor, as the ViT's qkv projection gives them."""
+    B, N, H, Dh = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qkv = torch.randn((B, N, 3, H, Dh), generator=g).to(dev, dtype)
+    return qkv.unbind(2)
+
+
+def _check_k4(torch, q, k, v, n_valid, what):
+    """K4 against its plain version on the same inputs: f32 within 1e-5
+    abs; bf16 within 2e-2 of the output's scale and no farther from the
+    f32 plain result than the plain bf16 version is (x1.5). Returns the
+    largest absolute difference from the plain version."""
+    from tracklab_torch.kernels.vit_attention import (vit_attention,
+                                                      vit_attention_plain)
+
+    got = vit_attention(q, k, v, n_valid)
+    want = vit_attention_plain(q, k, v, n_valid)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"K4 {what}: shape or dtype")
+    err = (got.float() - want.float()).abs().max().item()
+    if q.dtype == torch.float32:
+        log(f"K4 {what} f32: max abs err {err:.3e} (tol 1e-5)")
+        check(err <= 1e-5, f"K4 {what} f32: max abs err {err} > 1e-5")
+        return err
+    scale = want.float().abs().max().item()
+    truth = vit_attention_plain(q.float(), k.float(), v.float(), n_valid)
+    k_truth = (got.float() - truth).abs().max().item()
+    p_truth = (want.float() - truth).abs().max().item()
+    log(f"K4 {what} bf16: max abs err {err:.3e} = {err / scale:.3e} of "
+        f"the output's scale (tol 2e-2); vs f32: kernel {k_truth:.3e}, "
+        f"plain bf16 {p_truth:.3e}")
+    check(err <= 2e-2 * scale, f"K4 {what} bf16: err {err} > 2e-2 * {scale}")
+    check(k_truth <= 1.5 * p_truth,
+          f"K4 {what} bf16: {k_truth} from f32, plain bf16 {p_truth}")
+    return err
+
+
+def _k4_bound(torch, q):
+    B, N, H, Dh = q.shape
+    return bound_ms(4 * B * N * H * Dh * q.element_size(),
+                    4 * B * H * N * N * Dh, PEAK["bf16"])
+
+
+def phase_k4(torch, dev):
+    from tracklab_torch.kernels.vit_attention import (vit_attention,
+                                                      vit_attention_plain)
+
+    max_abs = 0.0
+    for i, (shape, n_valid) in enumerate(K4_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _packed_qkv(torch, shape, dtype, dev, seed=40 + i)
+            err = _check_k4(torch, q, k, v, n_valid,
+                            f"{shape} n_valid={n_valid}")
+            if dtype == torch.bfloat16:
+                max_abs = max(max_abs, err)
+    q, k, v = _packed_qkv(torch, K4_SHAPES[0][0], torch.bfloat16, dev, 40)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    with torch.no_grad():
+        ms = cuda_ms(lambda: vit_attention(q, k, v), 20)
+        plain_ms = cuda_ms(lambda: vit_attention_plain(q, k, v), 5)
+        lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt), 20)
+    b_ms, b_by = _k4_bound(torch, q)
+    log(f"K4 timing at {tuple(q.shape)} bf16: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA (yardstick) {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return dict(name="K4 vit_attention", route="cuda",
+                source="tracklab_torch/csrc/vit_attention.cu",
+                replaces="tracklab_tpu/ops/vit_attention_pallas.py:91",
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+# ------------------------------------------------------ phase 10: KPR model
+def phase_kpr(torch, dev, batch=64):
+    """The ViT-B KPR (bf16, erfpoly GELU, seeded weights) at batch 64 on the
+    card, once through K4 and once through the plain attention: embeddings
+    within 5e-2 of their scale (bf16 rounding compounds over 12 layers),
+    and the flipped binary visibility bits counted."""
+    import tracklab_torch.models.kpr as kpr_mod
+    from tracklab_torch.kernels.vit_attention import (vit_attention,
+                                                      vit_attention_plain)
+    from tracklab_torch.models.kpr import KPR, extract_test_embeddings
+
+    model = KPR(dtype=torch.bfloat16, gelu="erfpoly",
+                device=dev).randomize_(3)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn((batch, 384, 128, 3), generator=g).to(dev, torch.bfloat16)
+    prompts = torch.zeros((batch, 384, 128, 7), dtype=torch.bfloat16,
+                          device=dev)
+    before = vit_attention.launches
+    out_k = model(x, prompts)
+    check(vit_attention.launches - before == 12,
+          "KPR did not launch K4 once per layer")
+    kpr_mod.vit_attention = vit_attention_plain    # the plain attention
+    try:
+        out_p = model(x, prompts)
+    finally:
+        kpr_mod.vit_attention = vit_attention
+    torch.cuda.synchronize()
+    (ek, vk), (ep, vp) = (extract_test_embeddings(o) for o in (out_k, out_p))
+    check(ek.shape == (batch, 6, 512) and torch.isfinite(ek.float()).all()
+          .item(), "KPR embeddings: shape or non-finite")
+    scale = ep.float().abs().max().item()
+    err = (ek.float() - ep.float()).abs().max().item()
+    flips = int((vk != vp).sum())
+    log(f"KPR ViT-B bf16 at batch {batch}: embeddings K4 vs plain max abs "
+        f"{err:.3e} = {err / scale:.3e} of scale (tol 5e-2); "
+        f"{flips} of {vk.numel()} binary visibility bits flipped; "
+        f"visible share {vk.float().mean().item():.3f}")
+    check(err <= 5e-2 * scale, f"KPR embeddings differ by {err} (scale "
+          f"{scale})")
+    return dict(max_abs=err, scale=scale, flipped_visibility=flips,
+                visibility_bits=vk.numel())
+
+
+# ------------------------------------------------- phase 11: BPBReID tracker
+def synth_parts_stream(seed, n_frames=40, n_obj=20, D=32, P=6, E=512,
+                       K=17, img=(1920, 1080)):
+    """Objects in linear motion with part features (a base per object plus
+    noise), visibilities, keypoints and 15 % dropouts, as
+    tests/test_bpbreid_oks.py builds them, in (F, D) padded numpy arrays."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(n_obj, P, E))
+    pos = rng.uniform([100, 100], [img[0] - 300, img[1] - 300], (n_obj, 2))
+    vel = rng.uniform(-4, 4, (n_obj, 2))
+    size = rng.uniform(40, 160, (n_obj, 2))
+    ltrb = np.zeros((n_frames, D, 4), np.float32)
+    conf = np.zeros((n_frames, D), np.float32)
+    valid = np.zeros((n_frames, D), bool)
+    feat = np.zeros((n_frames, D, P, E), np.float32)
+    vis = np.zeros((n_frames, D, P), np.float32)
+    kps = np.zeros((n_frames, D, K, 3), np.float32)
+    for f in range(n_frames):
+        pos = pos + vel
+        slot = 0
+        for k in range(n_obj):
+            if rng.uniform() < 0.15 or slot == D:
+                continue
+            c = pos[k] + rng.normal(0, 2, 2)
+            ltrb[f, slot] = [c[0], c[1], c[0] + size[k, 0],
+                             c[1] + size[k, 1]]
+            conf[f, slot] = rng.uniform(0.5, 1.0)
+            valid[f, slot] = True
+            feat[f, slot] = base[k] + rng.normal(0, 0.05, (P, E))
+            vis[f, slot] = rng.uniform(size=P) < 0.8
+            kps[f, slot, :, 0] = c[0] + np.linspace(5, size[k, 0] - 5, K)
+            kps[f, slot, :, 1] = c[1] + np.linspace(10, size[k, 1] - 10, K)
+            kps[f, slot, :, 2] = 1.0
+            slot += 1
+    return ltrb, conf, valid, feat, vis, kps
+
+
+def _parts_inputs(torch, arrays, dev):
+    from tracklab_torch.trackers.common import Detections
+
+    ltrb, conf, valid, feat, vis, kps = (torch.from_numpy(a).to(dev)
+                                         for a in arrays)
+    lead = conf.shape
+    D = lead[-1]
+    dets = Detections(ltrb, conf, torch.ones_like(conf),
+                      torch.arange(D, dtype=torch.int32,
+                                   device=dev).expand(lead).contiguous(),
+                      valid)
+    return dets, feat, vis, kps
+
+
+def phase_bpbreid(torch, dev, n_videos=8, n_frames=40):
+    """BPBReID-StrongSORT (64 tracks, 32 dets, 6 parts x 512) on the card
+    against the CPU for one stream, id for id, with IoU and OKS motion and
+    the bot_sort strategy; then V = 8 streams over the video axis in both
+    modes against 8 single-video runs on the card."""
+    from dataclasses import replace
+
+    from tracklab_torch.kernels.jv import solve_square_batched
+    from tracklab_torch.kernels.jv_rect import solve_rect_batched
+    from tracklab_torch.trackers.bpbreid_strongsort import (
+        BPBReIDStrongSortConfig, bpbreid_scan, bpbreid_scan_videos)
+    from tracklab_torch.trackers.common import Detections
+
+    cfg = BPBReIDStrongSortConfig(n_parts=6, embed_dim=512, n_init=1,
+                                  max_tracks=64, max_dets=32)
+    streams = [synth_parts_stream(60 + v, n_frames) for v in range(n_videos)]
+    one = [_parts_inputs(torch, s, dev) for s in streams]
+    k1 = solve_square_batched.launches
+    t0 = time.perf_counter()
+    singles = [bpbreid_scan(cfg, *x)[1] for x in one]
+    torch.cuda.synchronize()
+    t_single = (time.perf_counter() - t0) / n_videos / n_frames
+    k1 = solve_square_batched.launches - k1
+    check(k1 > 0, "BPBReID never launched K1")
+    log(f"BPBReID single video: {t_single * 1e3:.2f} ms per frame step on "
+        f"cuda; {k1} K1 launches over {n_videos} x {n_frames} steps")
+    cpu_in = _parts_inputs(torch, streams[0], "cpu")
+    for kw in ({}, {"motion_criterium": "oks"},
+               {"matching_strategy": "bot_sort"}):
+        c = replace(cfg, **kw)
+        got = singles[0] if not kw else bpbreid_scan(c, *one[0])[1]
+        cpu = bpbreid_scan(c, *cpu_in)[1]
+        d = _same_tracks(torch, got, cpu, f"BPBReID {kw} cuda vs cpu")
+        log(f"BPBReID {kw or 'iou, strong_sort'} video 0: cuda equals cpu "
+            f"id for id ({int(cpu.valid.sum())} boxes, max box diff "
+            f"{d:.2e})")
+    dets = Detections(*(torch.stack(x) for x in zip(*(o[0] for o in one))))
+    feats = [torch.stack(x) for x in list(zip(*one))[1:]]
+    for batched in (False, True):
+        k2 = solve_rect_batched.launches
+        t0 = time.perf_counter()
+        _, out = bpbreid_scan_videos(replace(cfg, batched=batched), dets,
+                                     *feats)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n_frames
+        k2 = solve_rect_batched.launches - k2
+        check(not batched or k2 > 0, "batched mode never ran K2")
+        d = max(_same_tracks(torch, type(out)(*(None if x is None else x[v]
+                                                for x in out)),
+                             singles[v], f"BPBReID batched={batched} "
+                             f"video {v}") for v in range(n_videos))
+        log(f"BPBReID batched={batched} over V={n_videos}: "
+            f"{int(out.valid.sum())} boxes equal {n_videos} single-video "
+            f"runs id for id (max box diff {d:.2e}); {k2} K2 launches; "
+            f"{dt * 1e3:.2f} ms per frame step")
+
+
+# -------------------------------------------------- phase 12: the parts path
+def phase_parts(torch, dev, n_chunks=8, chunk=16, size=640):
+    """uint8 frames -> YOLOX-s 640 bf16 -> NMS (~20 detections per frame,
+    32 slots) -> device crops -> KPR ViT-B bf16 part features (buckets 24,
+    32) -> BPBReID-StrongSORT (min_confidence 0.4), as bench.py's
+    detect_parts_track."""
+    import tracklab_torch.models.kpr as kpr_mod
+    from tracklab_torch.engine.fused import (_bucketed_embed,
+                                             fused_detect_parts_track,
+                                             make_kpr_embed_fn,
+                                             make_yolox_detect_fn)
+    from tracklab_torch.kernels.csp import fused_csplayer
+    from tracklab_torch.kernels.jv import solve_square_batched
+    from tracklab_torch.kernels.jv_rect import solve_rect_batched
+    from tracklab_torch.kernels.vit_attention import vit_attention
+    from tracklab_torch.models.kpr import KPR
+    from tracklab_torch.models.yolox import YOLOX
+    from tracklab_torch.trackers.bpbreid_strongsort import (
+        BPBReIDStrongSortConfig, bpbreid_init, bpbreid_step)
+
+    cfg = BPBReIDStrongSortConfig(motion_criterium="iou", n_parts=6,
+                                  embed_dim=512, n_init=1, max_tracks=64,
+                                  max_dets=32)
+    det_model = YOLOX(num_classes=1, variant="s", dtype=torch.bfloat16,
+                      device=dev).randomize_(0)
+    kpr = KPR(dtype=torch.bfloat16, gelu="erfpoly", device=dev).randomize_(3)
+    F = n_chunks * chunk
+    g = torch.Generator(device=dev).manual_seed(1)
+    base = torch.randint(0, 235, (1, size, size, 3), generator=g,
+                         device=dev, dtype=torch.uint8)
+    video = base + torch.randint(0, 20, (F, size, size, 3), generator=g,
+                                 device=dev, dtype=torch.uint8)
+
+    cal = make_yolox_detect_fn(det_model, conf_threshold=0.3, max_dets=32,
+                               compute_dtype=torch.bfloat16)(video[:chunk])
+    s = cal.conf[0][cal.valid[0]].sort(descending=True).values.cpu().numpy()
+    conf = float(round((s[19] + s[20]) / 2, 6)) if s.size >= 21 else 0.3
+    log(f"parts path: calibrated conf {conf} ({s.size} NMS survivors on "
+        "frame 0 at 0.3)")
+    detect = make_yolox_detect_fn(det_model, conf_threshold=conf,
+                                  max_dets=32, compute_dtype=torch.bfloat16)
+    embed = make_kpr_embed_fn(kpr, crop_size=(384, 128), n_prompt_ch=7,
+                              compute_dtype=torch.bfloat16)
+    step = partial(bpbreid_step, cfg)
+    run = partial(fused_detect_parts_track, detect, embed, chunk=chunk,
+                  min_confidence=0.4, n_parts=6, embed_dim=512,
+                  n_keypoints=17, embed_buckets=(24, 32),
+                  return_detections=False)
+
+    # warm-up on the first chunk, which records its tracker inputs, then
+    # the second chunk with its host syncs counted
+    inputs = []
+
+    def rec_step(st, x):
+        inputs.append(x)
+        return step(st, x)
+
+    run(step_fn=rec_step, init_state=bpbreid_init(cfg, device=dev),
+        frames=video[:chunk])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run(step_fn=step, init_state=bpbreid_init(cfg, device=dev),
+            frames=video[chunk:2 * chunk])
+        torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("default")
+    syncs_per_frame = sum("synchroniz" in str(w.message)
+                          for w in caught) / chunk
+
+    for fn in (solve_square_batched, solve_rect_batched, fused_csplayer,
+               vit_attention):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, _, _, out = run(step_fn=step,
+                          init_state=bpbreid_init(cfg, device=dev),
+                          frames=video)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": solve_square_batched.launches,
+                "K2": solve_rect_batched.launches,
+                "K3": fused_csplayer.launches, "K4": vit_attention.launches}
+    fps = F / wall
+    per_frame = out.valid.sum(1).float().mean().item()
+    log(f"parts path: {F} frames in {wall:.3f} s = {fps:.2f} frames/s, "
+        f"{per_frame:.2f} tracks/frame, launches {launches}, "
+        f"{syncs_per_frame:.3f} host syncs/frame (second chunk)")
+    check(launches["K4"] == 12 * n_chunks,
+          f"K4 launches {launches['K4']} != 12 per chunk")
+    check(launches["K3"] == 7 * n_chunks,
+          f"K3 launches {launches['K3']} != 7 per chunk")
+    check(launches["K1"] > 0, "K1 never launched on the parts path")
+    check(out.valid.shape == (F, cfg.max_tracks), "output shape")
+    check(out.valid.any().item(), "tracker emitted no tracks")
+    check(torch.isfinite(out.ltrb[out.valid]).all().item(),
+          "non-finite track boxes")
+
+    # where the time goes, on the first chunk: detector, KPR (K4 inside it
+    # from the profiler), then the 16 recorded tracker steps
+    frames = video[:chunk]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    dets, det_ms = timed(lambda: detect(frames))
+    kpr_call = partial(_bucketed_embed, embed, frames, dets.ltrb, dets.valid,
+                       (24, 32))
+    _, kpr_ms = timed(kpr_call)
+    k4_ms, kpr_top = _kernel_ms_in(torch, kpr_call, "vit_attention")
+    init = bpbreid_init(cfg, device=dev)
+
+    def track():
+        st = init
+        for x in inputs:
+            st, _ = step(st, x)
+
+    track()
+    _, trk_ms = timed(track)
+    trk = profile_window(torch, track, len(inputs))
+    log(f"parts path split (chunk of {chunk}): detector {det_ms:.1f} ms, "
+        f"KPR {kpr_ms:.1f} ms (K4 {k4_ms:.2f} ms of it, "
+        f"{int(dets.valid.sum(1).max())} live slots), tracker "
+        f"{trk_ms / len(inputs):.2f} ms per frame; KPR's top kernels "
+        f"(ms per chunk) {kpr_top}; tracker under the profiler {trk}")
+
+    # K4 on the path's own inputs: layer 0 of the first chunk
+    path_qkv = []
+
+    def record(q, k, v, n_valid=None):
+        if not path_qkv:
+            path_qkv.append((q.clone(), k.clone(), v.clone(), n_valid))
+        return vit_attention(q, k, v, n_valid)
+
+    kpr_mod.vit_attention = record
+    try:
+        kpr_call()
+    finally:
+        kpr_mod.vit_attention = vit_attention
+    q, k, v, n_valid = path_qkv[0]
+    err = _check_k4(torch, q, k, v, n_valid, f"path layer 0 {tuple(q.shape)}")
+    with torch.no_grad():
+        k4_path_ms = cuda_ms(lambda: vit_attention(q, k, v, n_valid), 10)
+    b_ms, b_by = _k4_bound(torch, q)
+    log(f"K4 on the path's layer-0 inputs {tuple(q.shape)}: kernel "
+        f"{k4_path_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return launches, dict(
+        fps=fps, frames=F, chunk=chunk, syncs_per_frame=syncs_per_frame,
+        tracks_per_frame=per_frame, detector_ms_per_chunk=det_ms,
+        kpr_ms_per_chunk=kpr_ms, k4_ms_per_chunk=k4_ms,
+        kpr_top_kernels_ms_per_chunk=kpr_top,
+        tracker_ms_per_frame=trk_ms / len(inputs), tracker=trk,
+        k4_path=dict(shape=list(q.shape), ms=k4_path_ms, bound_ms=b_ms,
+                     max_abs_err=err))
+
+
+def _kernel_ms_in(torch, fn, name, top=8):
+    """Device time of the kernels whose name contains ``name`` during one
+    call of ``fn``, and the ``top`` kernels by device time (name, ms), from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    ms = sum(e.self_device_time_total for e in kernels if name in e.key)
+    return ms / 1e3, [(e.key[:72], e.self_device_time_total / 1e3)
+                      for e in kernels[:top]]
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -766,22 +1202,30 @@ def main() -> int:
     k3 = phase_k3(torch, dev, time_batch=128)
     phase_tracker(torch, dev)
     phase_batched_trackers(torch, dev)
+    k4 = phase_k4(torch, dev)
+    kpr_stats = phase_kpr(torch, dev)
+    phase_bpbreid(torch, dev)
     launches, main_stats = phase_main(torch, dev)
     v_launches, k2, videos_stats = phase_videos(torch, dev)
+    p_launches, parts_stats = phase_parts(torch, dev)
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
-    # path's own problems; the random-cost timing is kept beside it)
+    # path's own problems; the random-cost timing is kept beside it), K4 on
+    # the parts path
     k1["launches"], k3["launches"] = launches["K1"], launches["K3"]
     k2["launches"] = v_launches["K2"]
+    k4["launches"] = p_launches["K4"]
     videos_stats["k2_random_costs"] = {
         k: k2_random[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
     print(json.dumps({"main_path": main_stats,
                       "multi_video_path": videos_stats,
+                      "parts_path": parts_stats, "kpr_check": kpr_stats,
                       "launches": {"main_path": launches,
-                                   "multi_video_path": v_launches}}))
+                                   "multi_video_path": v_launches,
+                                   "parts_path": p_launches}}))
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

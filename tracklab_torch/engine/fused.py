@@ -1,22 +1,36 @@
-"""Fused detect -> NMS -> track over a whole video (counterpart of the main
-path of tracklab_tpu.engine.fused).
+"""Fused detector -> NMS -> tracker paths over a whole video (counterpart
+of tracklab_tpu.engine.fused).
+
+Two paths: detect -> NMS -> track (:func:`make_yolox_detect_fn`,
+:func:`fused_detect_track`, :func:`fused_detect_track_concat`), and the
+promptless KPR parts path, detect -> NMS -> device crops -> KPR part
+features -> BPBReID-StrongSORT (:func:`make_kpr_embed_fn`,
+:func:`fused_detect_parts_track`, with :func:`_bucketed_embed`'s
+live-prefix compaction).
 
 The JAX package runs the video as one program: a ``lax.scan`` over frame
-chunks whose body runs the batched detector, then the tracker's per-frame
-scan. Here the chunk scan is a Python loop over chunks and, inside it, a
-loop over frames that carries the tracker state. Detections stay on the
-device between the stages; boxes can be unletterboxed on the device.
+chunks whose body runs the batched detector (and the ReID model), then the
+tracker's per-frame scan. Here the chunk scan is a Python loop over chunks
+and, inside it, a loop over frames that carries the tracker state.
+Detections stay on the device between the stages; boxes can be
+unletterboxed on the device.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from tracklab_torch.models.kpr import (extract_test_embeddings,
+                                       gaussian_prompt_maps)
+from tracklab_torch.models.preprocess import (IMAGENET_MEAN, IMAGENET_STD,
+                                              crop_resize)
 from tracklab_torch.ops.nms import postprocess_detections
 from tracklab_torch.trackers.common import (Detections, concat_resets,
                                             reset_wrapped_step, stack_frames)
 
 __all__ = ["make_yolox_detect_fn", "fused_detect_track",
-           "fused_detect_track_concat"]
+           "fused_detect_track_concat", "make_kpr_embed_fn",
+           "fused_detect_parts_track"]
 
 
 def make_yolox_detect_fn(model, conf_threshold: float = 0.4,
@@ -149,3 +163,203 @@ def fused_detect_track_concat(detect_fn, step_fn, init_state, videos,
     if return_detections:
         dets = Detections(*(split(x) for x in dets))
     return final, dets, outs
+
+
+def make_kpr_embed_fn(model, crop_size=(384, 128), n_prompt_ch: int = 6,
+                      test_embeddings=("bn_foreg", "parts"),
+                      binary_visibility: bool = True,
+                      vis_thresh: float = 0.3,
+                      compute_dtype=torch.float32):
+    """Build ``embed_fn(frames, boxes, keypoints=None) -> dict`` for a KPR
+    model (``models.kpr.KPR``): crop-and-resize every detection slot on the
+    device, ImageNet-normalise, one batched forward. With ``keypoints``
+    (B, D, K, 3) in the frame of ``boxes`` the cck6 gaussian prompt maps
+    are drawn on the device; without them the prompts are zero
+    (``n_prompt_ch`` channels).
+
+    ``frames`` (B, H, W, 3), ``boxes`` (B, D, 4). Returns ``embeddings``
+    (B, D, P', E) and ``visibility`` (B, D, P'), both f32, in the
+    test-embeddings part layout (:func:`extract_test_embeddings`)."""
+    ch, cw = crop_size
+    consts = {}
+
+    def embed(frames, boxes, keypoints=None):
+        dev = frames.device
+        if dev not in consts:
+            # built once per device: a tensor made from Python numbers on
+            # the card is a host-to-device copy, which waits for the stream
+            consts[dev] = tuple(torch.tensor(c, dtype=torch.float32,
+                                             device=dev)
+                                for c in (IMAGENET_MEAN, IMAGENET_STD))
+        mean, std = consts[dev]
+        crops = crop_resize(frames, boxes, ch, cw)      # (B, D, ch, cw, 3)
+        B, D = crops.shape[0], crops.shape[1]
+        x = ((crops.reshape(B * D, ch, cw, 3) - mean) / std).to(
+            compute_dtype)
+        if keypoints is None:
+            prompts = torch.zeros((B * D, ch, cw, n_prompt_ch),
+                                  dtype=compute_dtype, device=dev)
+        else:
+            prompts = gaussian_prompt_maps(keypoints, boxes, (ch, cw),
+                                           vis_thresh=vis_thresh)
+            prompts = prompts.reshape(B * D, ch, cw, -1).to(compute_dtype)
+        out = model(x, prompts)
+        emb, vis = extract_test_embeddings(out, test_embeddings,
+                                           binary_visibility)
+        return {"embeddings": emb.float().reshape(B, D, emb.shape[1], -1),
+                "visibility": vis.float().reshape(B, D, -1)}
+
+    return embed
+
+
+def _bucketed_embed(embed_fn, frames, boxes, valid, buckets):
+    """Run ``embed_fn`` on only the live slot prefix of the chunk, at the
+    smallest width of ``buckets`` (ascending, last == D) that covers the
+    chunk's largest live count, and zero-pad the outputs back to D. NMS
+    slots are score-descending, so ``valid`` is a prefix per frame.
+
+    The JAX package picks the width with ``lax.switch`` on the device; here
+    the live count is read on the host: one sync per chunk."""
+    D = boxes.shape[1]
+    if not buckets or buckets[-1] != D or list(buckets) != sorted(buckets):
+        raise ValueError(
+            f"embed_buckets must be ascending and end at max_dets "
+            f"({D}); got {buckets}")
+    d_live = int(valid.sum(dim=1).max())              # the host sync
+    d_eff = next(b for b in buckets if b >= d_live)
+    return _pad_slots(embed_fn(frames, boxes[:, :d_eff]), D)
+
+
+def _pad_slots(x, D):
+    """Zero-pad axis 1 (detection slots) of every tensor of a nested dict
+    to D."""
+    if isinstance(x, dict):
+        return {k: _pad_slots(v, D) for k, v in x.items()}
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, D - x.shape[1]))
+
+
+def fused_detect_parts_track(detect_fn, embed_fn, step_fn, init_state,
+                             frames, chunk: int, meta=None, crop_meta=None,
+                             warps=None, frame_valid=None,
+                             min_confidence: float = 0.0, n_parts: int = 5,
+                             embed_dim: int = 512, n_keypoints: int = 17,
+                             pose_fn=None, embed_buckets=None,
+                             return_detections: bool = True,
+                             return_embeddings: bool = False):
+    """Detector -> NMS -> device crops [-> top-down pose] -> KPR part
+    features -> BPBReID-StrongSORT over a whole video.
+
+    ``step_fn`` is the part-based tracker step ``(state, (Detections, feat
+    (D, P, E), vis (D, P), kps (D, K, 3), warp (2, 3))) -> (state, out)``
+    (``partial(bpbreid_step, cfg)``). The ReID output's part layout
+    (P', E') is cut or zero-padded to the tracker's (``n_parts``,
+    ``embed_dim``). ``pose_fn(frames, boxes) -> (B, D, K, 3)`` keypoints,
+    when given, prompt the ReID model, feed the tracker's OKS motion input
+    in original-image coordinates and are returned; without it prompts and
+    tracker keypoints are zero. ``min_confidence`` (applied only when > 0)
+    masks the tracker's detections. ``embed_buckets``: optional live-prefix
+    widths for the pose + ReID stage (:func:`_bucketed_embed`).
+    ``crop_meta`` (``scale`` (F, 2), ``pad`` (F, 2)) maps boxes from the
+    original image into ``frames``; ``warps`` (F, 2, 3) are camera warps.
+
+    Returns ``(final_state, dets | None, reid | None, kp | None, outs)``
+    with a leading frame axis F.
+    """
+    F_ = frames.shape[0]
+    if F_ % chunk:
+        raise ValueError(f"frames ({F_}) must be a multiple of chunk "
+                         f"({chunk}); pad with frame_valid=False")
+    state, outs = init_state, []
+    all_dets, all_reid, all_kp = [], [], []
+    for base in range(0, F_, chunk):
+        sl = slice(base, base + chunk)
+        m = None if meta is None else {k: v[sl] for k, v in meta.items()}
+        fr = frames[sl]
+        dets = detect_fn(fr, m)
+        D = dets.ref.shape[1]
+        dev = dets.ref.device
+        frame_idx = base + torch.arange(chunk, dtype=torch.int32, device=dev)
+        dets = dets._replace(
+            ref=frame_idx[:, None] * D
+            + torch.arange(D, dtype=torch.int32, device=dev)[None, :])
+        if frame_valid is not None:
+            dets = dets._replace(valid=dets.valid & frame_valid[sl][:, None])
+
+        boxes = dets.ltrb
+        if crop_meta is not None:
+            s = crop_meta["scale"][sl][:, None, :]
+            p = crop_meta["pad"][sl][:, None, :]
+            boxes = torch.cat([boxes[..., 0:2] * s + p,
+                               boxes[..., 2:4] * s + p], dim=-1)
+
+        # prompts are crop-relative: frame-coordinate keypoints and boxes
+        # give the same maps as the original-coordinate pair
+        def stage(f, bx):
+            if pose_fn is None:
+                return {"reid": embed_fn(f, bx)}
+            kpf = pose_fn(f, bx)
+            return {"reid": embed_fn(f, bx, kpf), "kp": kpf}
+
+        if embed_buckets is not None:
+            st_out = _bucketed_embed(stage, fr, boxes, dets.valid,
+                                     tuple(embed_buckets))
+        else:
+            st_out = stage(fr, boxes)
+        reid, kp_frame = st_out["reid"], st_out.get("kp")
+
+        kp_orig = None
+        if kp_frame is not None:
+            kp_orig = kp_frame
+            if crop_meta is not None:
+                s = crop_meta["scale"][sl][:, None, None, :]
+                p = crop_meta["pad"][sl][:, None, None, :]
+                kp_orig = torch.cat([(kp_frame[..., 0:2] - p) / s,
+                                     kp_frame[..., 2:3]], dim=-1)
+            kp_orig = kp_orig * dets.valid[..., None, None]
+        reid = {k: v * dets.valid.reshape(dets.valid.shape
+                                          + (1,) * (v.dim() - 2))
+                for k, v in reid.items()}
+        emb, vis = reid["embeddings"], reid["visibility"]
+
+        # part-layout fit: cut to (P, E), zero-pad the rest
+        P, E = n_parts, embed_dim
+        feat = emb[:, :, :P, :E]
+        feat = F.pad(feat, (0, E - feat.shape[3], 0, P - feat.shape[2]))
+        visf = vis[:, :, :P]
+        visf = F.pad(visf, (0, P - visf.shape[2]))
+
+        trk_dets = dets
+        if min_confidence > 0:
+            trk_dets = dets._replace(
+                valid=dets.valid & (dets.conf > min_confidence))
+        feat = feat * trk_dets.valid[..., None, None]
+        visf = visf * trk_dets.valid[..., None]
+        if kp_orig is None:
+            kps = torch.zeros((chunk, D, n_keypoints, 3),
+                              dtype=torch.float32, device=dev)
+        else:
+            kps = kp_orig[:, :, :n_keypoints]
+            kps = F.pad(kps, (0, 0, 0, n_keypoints - kps.shape[2]))
+            kps = kps * trk_dets.valid[..., None, None]
+        warp = (torch.eye(2, 3, dtype=torch.float32, device=dev).expand(
+            chunk, 2, 3) if warps is None else warps[sl])
+        for f in range(chunk):
+            state, out = step_fn(state, (
+                Detections(*(x[f] for x in trk_dets)), feat[f], visf[f],
+                kps[f], warp[f]))
+            outs.append(out)
+        if return_detections:
+            all_dets.append(dets)
+        if return_embeddings:
+            all_reid.append(reid)
+        if kp_orig is not None:
+            all_kp.append(kp_orig)
+
+    outs = stack_frames(outs)
+    dets = (Detections(*(torch.cat(f) for f in zip(*all_dets)))
+            if return_detections else None)
+    reid = ({k: torch.cat([r[k] for r in all_reid]) for k in all_reid[0]}
+            if return_embeddings else None)
+    kp = torch.cat(all_kp) if all_kp else None
+    return state, dets, reid, kp, outs
+

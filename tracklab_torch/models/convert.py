@@ -4,7 +4,9 @@ in tracklab_tpu.models.convert, kept as the port's own copy).
 ``yolox_from_flax`` takes a YOLOX ``{"params", "batch_stats"}`` tree (nested
 dicts of numpy arrays, as the JAX package's ``model.init`` gives after
 ``np.asarray``) and returns the Megvii-layout state dict that
-``models.yolox.YOLOX`` loads with ``strict=True``.
+``models.yolox.YOLOX`` loads with ``strict=True``; ``kpr_from_flax`` does
+the same for the KPR ``{"params", "batch_stats"}`` tree and
+``models.kpr.KPR``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 __all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
-           "state_dict_from_flax"]
+           "state_dict_from_flax", "kpr_from_flax", "kpr_torch_key"]
 
 _LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var"}
@@ -65,3 +67,31 @@ def state_dict_from_flax(variables, key_fn=module_torch_key) -> dict:
 def yolox_from_flax(variables) -> dict:
     """Flax YOLOX variables -> the Megvii-layout torch state dict."""
     return state_dict_from_flax(variables, yolox_torch_key)
+
+
+_KPR_BARE = ("cls_token", "pos_embed", "sie_embed")
+
+
+def kpr_torch_key(path) -> str:
+    """Flax path (collection, *modules, leaf) of the KPR tree -> the port's
+    key (the names of the JAX package's ``_kpr_torch_key``): module names
+    spell '.' as '__'; the bare parameters cls_token, pos_embed and
+    sie_embed keep their own names."""
+    _, *mods, leaf = path
+    comps = []
+    for m in mods:
+        comps.extend(m.split("__"))
+    return ".".join(comps + [leaf if leaf in _KPR_BARE else _LEAF_MAP[leaf]])
+
+
+def kpr_from_flax(variables) -> dict:
+    """Flax KPR variables -> the state dict ``models.kpr.KPR`` loads with
+    ``strict=True``: conv kernels HWIO -> OIHW, Dense kernels (in, out) ->
+    Linear weights (out, in), bare parameters as they are."""
+    out = {}
+    for path, leaf in _flatten(variables):
+        t = np.asarray(leaf, dtype=np.float32)
+        if path[-1] == "kernel":
+            t = t.transpose(3, 2, 0, 1) if t.ndim == 4 else t.T
+        out[kpr_torch_key(path)] = torch.tensor(np.ascontiguousarray(t))
+    return out

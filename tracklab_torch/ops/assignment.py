@@ -36,8 +36,8 @@ from tracklab_torch.kernels.jv_rect import (_solve_rect_plain,
                                             solve_rect_batched)
 
 __all__ = ["solve_square", "solve_rect", "matching_forced", "matching_limit",
-           "greedy_unique_match", "_solve_square_plain", "_solve_rect_plain",
-           "_col2row_to_row2col"]
+           "min_cost_matching", "greedy_unique_match", "_solve_square_plain",
+           "_solve_rect_plain", "_col2row_to_row2col"]
 
 
 def _one_or_many(fn):
@@ -396,6 +396,39 @@ def _unique_partial_matching(sub):
                  & torch.all(counts_c <= 1, dim=1))
     row2col = torch.where(sub.any(dim=2), _argmax_first(sub, 2), -1)
     return is_unique, row2col
+
+
+@_one_or_many
+def min_cost_matching(cost, row_mask, col_mask, max_distance: float,
+                      batched=False):
+    """DeepSORT-family ``min_cost_matching`` semantics
+    (strong_sort/sort/linear_assignment.py:55-73): clamp costs above
+    ``max_distance`` to max + 1e-5, run forced matching, drop matched pairs
+    whose true cost exceeds the threshold. Returns row2col int32, -1 where
+    unmatched.
+
+    Default mode: when a problem's sub-threshold candidate graph has at
+    most one candidate per row and per column, that partial matching is
+    the exact answer; it is selected on the device, and the problems that
+    need the forced solve share one K1 launch (``need`` flags the others,
+    whose solve exits at once). ``batched=True``: the cond-free form, one
+    rectangular solve per problem (K2)."""
+    valid = (row_mask[:, :, None] & col_mask[:, None, :]
+             & torch.isfinite(cost))
+    sub = valid & (cost <= max_distance)
+    need = None
+    if not batched:
+        is_unique, fast_r2c = _unique_partial_matching(sub)
+        need = ~is_unique
+    clamped = torch.clamp(cost, max=max_distance + 1e-5)
+    d2t = matching_forced(clamped, row_mask, col_mask, need, batched=batched)
+    got = d2t >= 0
+    safe = torch.where(got, d2t, 0).long()
+    keep = got & (_take_cols(cost, safe) <= max_distance)
+    slow = torch.where(keep, d2t, -1)
+    if batched:
+        return slow
+    return torch.where(is_unique[:, None], fast_r2c, slow)
 
 
 @_one_or_many

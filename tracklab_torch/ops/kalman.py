@@ -1,5 +1,6 @@
 """Kalman filters in PyTorch (counterpart of tracklab_tpu.ops.kalman):
-OC-SORT's ``XYSRFilter`` and the DeepSORT/ByteTrack ``XYAHFilter``.
+OC-SORT's ``XYSRFilter``, the DeepSORT/ByteTrack ``XYAHFilter`` and
+BPBReID-StrongSORT's ``XYAHNSAHFilter`` with its Mahalanobis gating.
 
 Functions take any number of leading batch dimensions (track slots, and
 videos before them): ``x (..., n)``, ``P (..., n, n)``, ``z (..., 4)``, so
@@ -12,7 +13,13 @@ import functools
 
 import torch
 
-__all__ = ["XYSRFilter", "XYAHFilter"]
+__all__ = ["XYSRFilter", "XYAHFilter", "XYAHNSAHFilter", "CHI2INV95_4D",
+           "CHI2INV95_2D"]
+
+# 0.95 quantiles of the chi-square distribution with 4 and 2 degrees of
+# freedom (the DeepSORT gating thresholds)
+CHI2INV95_4D = 9.4877
+CHI2INV95_2D = 5.9915
 
 
 def _inv4(m):
@@ -52,6 +59,24 @@ def _inv4(m):
     ]
     rows = [torch.stack(rw, dim=-1) for rw in b]
     return torch.stack(rows, dim=-2) * inv_det[..., None, None]
+
+
+def _inv2(m):
+    """Closed-form 2x2 inverse over leading batch dims."""
+    det = m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
+    adj = torch.stack([torch.stack([m[..., 1, 1], -m[..., 0, 1]], dim=-1),
+                       torch.stack([-m[..., 1, 0], m[..., 0, 0]], dim=-1)],
+                      dim=-2)
+    return adj / det[..., None, None]
+
+
+def _mahalanobis(pm, pc, zs):
+    """Squared Mahalanobis distances of measurements ``zs`` (..., N, k) from
+    Gaussians ``pm`` (..., k), ``pc`` (..., k, k) through the closed-form
+    2x2/4x4 inverses; returns (..., N)."""
+    inv = _inv4(pc) if pc.shape[-1] == 4 else _inv2(pc)
+    d = zs - pm[..., None, :]
+    return ((d @ inv) * d).sum(dim=-1)
 
 
 def _where(cond, a, b):
@@ -244,3 +269,63 @@ class XYAHFilter:
     def update(x, P, z):
         pc = P[..., :4, :4] + XYAHFilter._innovation_cov(x)
         return _proj4_update(x, P, z, pc)
+
+
+def _xyah_mats(dtype=torch.float32, device=None):
+    """The 8-dim constant-velocity transition F = I + E (E[i, i+4] = 1) and
+    the projection H = [I4 | 0]."""
+    F = torch.eye(8, dtype=dtype, device=device)
+    F[:4, 4:] += torch.eye(4, dtype=dtype, device=device)
+    return F, torch.eye(4, 8, dtype=dtype, device=device)
+
+
+class XYAHNSAHFilter:
+    """BPBReID-StrongSORT NSA Kalman filter on [x, y, a, h, v*]: every noise
+    std, the aspect ratio's included, scales with the box height h, and the
+    measurement noise shrinks with the detection confidence (NSA)."""
+
+    WP = 1.0 / 20
+    WV = 1.0 / 160
+
+    @staticmethod
+    def _std8(h, wp, wv):
+        p, v = wp * h, wv * h
+        return torch.stack([p, p, p, p, v, v, v, v], dim=-1)
+
+    @staticmethod
+    def initiate(z):
+        """Measurement (..., 4) xyah -> mean (..., 8), covariance."""
+        x = torch.cat([z, torch.zeros_like(z)], dim=-1)
+        std = XYAHNSAHFilter._std8(z[..., 3], 2 * XYAHNSAHFilter.WP,
+                                   10 * XYAHNSAHFilter.WV)
+        return x, _diag(std)
+
+    @staticmethod
+    def predict(x, P):
+        Q = _diag(XYAHNSAHFilter._std8(x[..., 3], XYAHNSAHFilter.WP,
+                                       XYAHNSAHFilter.WV))
+        return _shift4_predict(x, P, Q)
+
+    @staticmethod
+    def project(x, P, confidence=0.0):
+        """(H x, H P H' + R) with R's stds scaled by (1 - confidence)."""
+        p = XYAHNSAHFilter.WP * x[..., 3]
+        std = torch.stack([p, p, p, p], dim=-1) * (1.0 - confidence)
+        return x[..., :4], P[..., :4, :4] + _diag(std)
+
+    @staticmethod
+    def update(x, P, z, confidence=0.0):
+        """``confidence`` is a number or a tensor over the leading dims."""
+        if isinstance(confidence, torch.Tensor):
+            confidence = confidence[..., None]
+        _, pc = XYAHNSAHFilter.project(x, P, confidence)
+        return _proj4_update(x, P, z, pc)
+
+    @staticmethod
+    def gating_distance(x, P, zs, only_position=False):
+        """Squared Mahalanobis distance of each measurement ``zs`` (..., D,
+        4) from each track ``x`` (..., T, 8): returns (..., T, D)."""
+        pm, pc = XYAHNSAHFilter.project(x, P)
+        if only_position:
+            pm, pc, zs = pm[..., :2], pc[..., :2, :2], zs[..., :2]
+        return _mahalanobis(pm, pc, zs[..., None, :, :])

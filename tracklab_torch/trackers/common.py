@@ -149,12 +149,25 @@ def repeat_state(state, n_videos: int):
                          for x in state))
 
 
+def _map_tensors(fn, x):
+    """Apply ``fn`` to every tensor of a (nested) tuple or NamedTuple;
+    None stays None."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        items = [_map_tensors(fn, i) for i in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return fn(x)
+
+
 def single_video(step_fn, cfg, state, det):
     """Run ``step_fn(cfg, state, det)``, written for a leading video axis,
-    on one video's state and detections: the axis is added and dropped."""
-    st, out = step_fn(cfg, type(state)(*(x[None] for x in state)),
-                      Detections(*(x[None] for x in det)))
-    return type(st)(*(x[0] for x in st)), type(out)(*(x[0] for x in out))
+    on one video's state and inputs (Detections, or a tuple of inputs): the
+    axis is added and dropped."""
+    st, out = step_fn(cfg, _map_tensors(lambda x: x[None], state),
+                      _map_tensors(lambda x: x[None], det))
+    return (_map_tensors(lambda x: x[0], st),
+            _map_tensors(lambda x: x[0], out))
 
 
 def scan_frames(step_fn, init, dets, resets=None):
@@ -179,12 +192,14 @@ def scan_videos(step_fn, cfg, init, dets):
     for f in range(dets.ltrb.shape[1]):
         st, out = step_fn(cfg, st, Detections(*(x[:, f] for x in dets)))
         outs.append(out)
-    return st, type(outs[0])(*(torch.stack(f, dim=1) for f in zip(*outs)))
+    return st, stack_frames(outs, dim=1)
 
 
-def stack_frames(items):
-    """Stack a list of per-frame NamedTuples along a new leading axis."""
-    return type(items[0])(*(torch.stack(f) for f in zip(*items)))
+def stack_frames(items, dim: int = 0):
+    """Stack a list of per-frame NamedTuples along a new axis ``dim``;
+    fields that are None stay None."""
+    return type(items[0])(*(None if f[0] is None else torch.stack(f, dim)
+                            for f in zip(*items)))
 
 
 def concat_resets(n_videos: int, n_frames: int, device=None):
