@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from tracklab_tpu.ops.vit_attention_pallas import vit_attention as jax_vit
-from tracklab_torch.kernels.vit_attention import (vit_attention,
+from tracklab_torch.kernels.vit_attention import (MAX_HEAD_DIM, MAX_TOKENS,
+                                                  _aligned, route,
+                                                  vit_attention,
                                                   vit_attention_plain)
 
 CASES = [((3, 33, 4, 16), None), ((2, 40, 4, 16), 20)]
@@ -73,3 +75,52 @@ def test_wrapper_runs_plain_on_cpu_and_checks_shapes():
         vit_attention(q, k[:, :4], v)
     with pytest.raises(ValueError):
         vit_attention(q, k, v, n_valid=0)
+
+
+def test_route_by_dtype_and_shape():
+    """bf16 runs the tensor-core kernel and needs Dh % 16 == 0; f32 runs the
+    CUDA-core kernel; shapes neither takes raise, with no fallback."""
+    assert route(torch.bfloat16, 193, 64) == "tl_vit_attention_bf16_mma"
+    assert route(torch.bfloat16, 256, 128) == "tl_vit_attention_bf16_mma"
+    assert route(torch.float32, 193, 64) == "tl_vit_attention_f32"
+    assert route(torch.float32, 37, 24) == "tl_vit_attention_f32"
+    for N, Dh in [(193, 24), (193, 8), (50, 72)]:
+        with pytest.raises(ValueError):
+            route(torch.bfloat16, N, Dh)
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError):
+            route(dt, MAX_TOKENS + 1, 64)
+        with pytest.raises(ValueError):
+            route(dt, 193, MAX_HEAD_DIM + 16)
+    with pytest.raises(TypeError):
+        route(torch.float16, 193, 64)
+
+
+def test_packed_qkv_views_are_read_in_place():
+    """The q, k, v slices of a packed bf16 qkv tensor start every row on 16
+    bytes, so the tensor-core kernel's 16-byte copies read them in place; a
+    view that does not is copied first."""
+    qkv = torch.zeros(2, 193, 3, 12, 64, dtype=torch.bfloat16)
+    assert all(_aligned(a) for a in qkv.unbind(2))
+    odd = torch.zeros(2, 9, 3, 3, 20, dtype=torch.bfloat16).unbind(2)[1]
+    assert not _aligned(odd)                 # head stride 20: 40 bytes
+    assert _aligned(odd.float())             # f32 needs only stride(3) == 1
+    assert not _aligned(qkv.unbind(2)[0].transpose(2, 3))
+
+
+def test_division_step_matches_ieee_division():
+    """K4 divides by the row sum as q = e * r, q + (e - q d) r with
+    r = RN(1 / d) (one residual correction, each step rounded to f32, the
+    residual exact as an FMA). For the kernel's range (0 <= e <= 1 <= d <=
+    256) this is the correctly rounded e / d."""
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    d = rng.uniform(1.0, 256.0, 200000).astype(f32)
+    e = rng.uniform(0.0, 1.0, 200000).astype(f32) * \
+        rng.choice([1.0, 1e-3, 1e-9, 1e-30], 200000).astype(f32)
+    r = (f32(1.0) / d).astype(f32)
+    q = (e * r).astype(f32)
+    # an FMA's residual is exact: compute it in float64, round once
+    res = (e.astype(np.float64) - q.astype(np.float64) * d).astype(f32)
+    got = (res.astype(np.float64) * r + q).astype(f32)
+    np.testing.assert_array_equal(got, (e / d).astype(f32))

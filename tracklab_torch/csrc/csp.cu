@@ -15,24 +15,55 @@
 // in space: one CTA per (frame, TH x TW output tile) loads its input with an
 // n-pixel halo, computes both projections over the haloed region, and each
 // 3x3 shrinks the valid region by one pixel. `a` and `t` stay in shared
-// memory (`s` reuses `t`'s buffer once the bottlenecks are done); weights
-// stream from global memory through L1/L2; only the tile's output is
-// written. Pixels of the region outside the image get t = 0, which is the
-// 3x3 conv's zero padding.
+// memory (`s` reuses `t`'s buffer once the bottlenecks are done); only the
+// tile's output is written. Pixels of the region outside the image get
+// t = 0, which is the 3x3 conv's zero padding.
 //
 // What bounds it: operations. The seven YOLOX-s CSPLayers at 640x640 do
 // ~9.1 GFLOP per frame against ~3.3 MB of input+output at the largest
-// (dark3), ~600 FLOP/B, above the H100's ~295 FLOP/B balance point. This
-// first version does the products as f32 FMAs on CUDA cores (each thread a
-// block of 8 pixels x 4 channels, weights read as 4-wide vectors) and pays
-// the halo's recomputation; tensor-core MMA (mma.sync / wgmma) is later work.
+// (dark3), ~600 FLOP/B, above the H100's ~295 FLOP/B balance point; the
+// halo's recomputation adds to the operations (the projections and the
+// first bottlenecks run over the haloed region: ~1.4x the layer's own work
+// for a 16x16 tile at n = 3), which kernels/csp.py's tile planner weighs
+// against shared memory.
 //
-// Template on the storage type: float (held tightly against the plain
-// layer) and __nv_bfloat16 (the main path). Accumulation is always f32.
+// bf16 (every path): csp_mma_kernel, on the tensor cores. Each stage is a
+// GEMM on mma.sync m16n8k16 (bf16 in, f32 accumulate): M = the pixels of the
+// stage's rectangle, N = output channels, K = input channels. A CTA tile is
+// 256 x 64 (wide ring): sixteen warps of 32 x 32, four to a scheduler, since
+// the region's buffers leave room for one CTA per SM. The A rows come from
+// ldmatrix with one row address per lane, so a row is any pixel of the
+// region: the 3x3 conv is nine shifted gathers of `t` and the shrinking
+// valid rectangle costs nothing. `a` and `t` have a row stride of ch + 8
+// elements (conflict-free ldmatrix; the 8 pad columns are zero, so a K tail
+// of 8 reads zeros). The weights, packed [out, in] (K-contiguous, the
+// col-major B operand), and for the projections the input x of the CTA
+// tile's rows (zero-filled outside the image), stream through a cp.async
+// ring in K chunks, one __syncthreads per chunk, the next chunks in flight
+// while one is multiplied. The ring is the wide one (three slots, 76,800 B)
+// unless the haloed buffers leave no room for it at any tile: then a compact
+// one (two slots of 16- and 32-wide K chunks, a 64 x 64 CTA tile of four
+// warps, 12,288 B), which lets the n = 9 layer of YOLOX-l and the ch = 640
+// layers of YOLOX-x fuse. The epilogue works on each accumulator fragment:
+// bias, SiLU in f32, the residual, rounding, zero outside the image, then
+// the write to shared memory or to the NHWC output.
+//
+// Measured on the H100, the tensor pipe is not what limits this design:
+// instruction issue and latency are. So the chunk stream advances cursors
+// (no integer division), a whole chunk runs without guards (the next k
+// step's ldmatrix can be hoisted), the bias is loaded before the K loop, a
+// row's pixel is a multiply-high, and the SiLU uses the fast exp and
+// division intrinsics (the result is rounded to bf16 right after).
+//
+// f32: csp_kernel on CUDA cores (f32 on tensor cores would be TF32): each
+// thread a block of 8 pixels x 4 channels, weights [in, out] read from
+// global memory as 4-wide vectors.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,25 +79,8 @@ __device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
   o[3] = v.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  o[0] = lo.x;
-  o[1] = lo.y;
-  o[2] = hi.x;
-  o[3] = hi.y;
-}
-
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  uint2 u;
-  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v[0], v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
@@ -236,12 +250,360 @@ __global__ void __launch_bounds__(kThreads) csp_kernel(CspArgs<T> A) {
                        A.bf, A.cout);
 }
 
+// ------------------------------------------------ bf16 on the tensor cores
+typedef __nv_bfloat16 bf16;
+
+constexpr int kMT = 2;              // m16 tiles per warp (warp tile 16 kMT x 32)
+constexpr int kBN = 64;             // CTA tile channels: 2 warps of 32
+constexpr size_t kMaxSmem = 232448;  // bytes one Hopper CTA may use
+
+// A cp.async ring: WARPS_M warps along M (CTA tile rows kBM), K chunks of KX
+// for the x-fed projections and KW for the stages fed from a and t, SLOTS
+// slots (SLOTS - 1 chunks in flight). A slot holds a kBM x KX chunk of x and
+// a kBN x KX chunk of weights, or a kBN x KW chunk of weights, rows padded
+// by 8 elements.
+template <int WARPS_M, int KX, int KW, int SLOTS>
+struct Ring {
+  static constexpr int kWarpsM = WARPS_M, kKX = KX, kKW = KW, kSlots = SLOTS;
+  static constexpr int kThreads = WARPS_M * 2 * 32;
+  static constexpr int kBM = WARPS_M * 16 * kMT;
+  static constexpr int kSlotBytes = (kBM + kBN) * (KX + 8) * 2 > kBN * (KW + 8) * 2
+                                        ? (kBM + kBN) * (KX + 8) * 2
+                                        : kBN * (KW + 8) * 2;
+  static constexpr size_t kBytes = (size_t)SLOTS * kSlotBytes;
+};
+// the wide ring (76,800 B), and the compact one (12,288 B) for layers whose
+// haloed buffers leave too little room for it (e.g. YOLOX-l dark3, n = 9)
+using Wide = Ring<8, 32, 64, 3>;
+using Compact = Ring<2, 16, 32, 2>;
+
+__host__ __device__ inline size_t mma_smem_bytes(int th, int tw, int n, int ch, int ring) {
+  return 2 * (size_t)(th + 2 * n) * (tw + 2 * n) * (ch + 8) * sizeof(bf16) +
+         (ring ? Compact::kBytes : Wide::kBytes);
+}
+
+__host__ __device__ inline size_t f32_smem_bytes(int th, int tw, int n, int ch) {
+  return 2 * (size_t)(th + 2 * n) * (tw + 2 * n) * ch * sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; zero-fills the destination when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// SiLU of the tensor-core kernel's epilogue, with the fast exp and division
+// intrinsics (a few ulp of f32; the result is rounded to bf16 next)
+__device__ __forceinline__ float silu_fast(float x) {
+  return __fdividef(x, 1.0f + __expf(-x));
+}
+
+// Position in a stage's stream of K chunks: CTA tile (mb, nb), K segment
+// seg, chunk offset k0 within the segment. Advanced one chunk at a time, so
+// the stream needs no integer division.
+struct Cursor {
+  int mb, nb, seg, k0;
+  __device__ __forceinline__ bool tile_start() const { return seg == 0 && k0 == 0; }
+  __device__ __forceinline__ void next(int KC, int K, int segs, int nnb) {
+    k0 += KC;
+    if (k0 < K) return;
+    k0 = 0;
+    if (++seg < segs) return;
+    seg = 0;
+    if (++nb == nnb) {
+      nb = 0;
+      ++mb;
+    }
+  }
+};
+
+// One stage over the region rectangle [r0, r1) x [c0, c1) (region pixel
+// (r, q) is image pixel (gy0 + r, gx0 + q)) and N output channels, as a GEMM
+// whose CTA tiles (C::kBM rows x 64 channels) and K chunks run as one stream
+// through the cp.async ring C, C::kSlots - 1 chunks ahead. w is packed
+// [out, in]; for the 3x3 the nine taps and for the final 1x1 the [a; s]
+// halves are the K segments.
+template <typename C, int STAGE>
+__device__ void mma_stage(const CspArgs<bf16>& A, const bf16* __restrict__ xb, bf16* sm_a,
+                          bf16* sm_t, unsigned char* ring, bf16* __restrict__ outb, int r0,
+                          int r1, int c0, int c1, int gy0, int gx0,
+                          const bf16* __restrict__ w, const float* __restrict__ bias, int N) {
+  constexpr int kWarpsM = C::kWarpsM, kMmaThreads = C::kThreads, kBM = C::kBM;
+  constexpr int kKX = C::kKX, kSlots = C::kSlots, kSlotBytes = C::kSlotBytes;
+  constexpr bool kX = STAGE == kProjA || STAGE == kProjS;
+  constexpr int KC = kX ? kKX : C::kKW;
+  constexpr int kSegs = STAGE == kBottle3x3 ? 9 : (STAGE == kFinal ? 2 : 1);
+  constexpr int kPieces = KC / 8;              // 16-byte pieces in a chunk row
+  constexpr int kBPieces = kBN * kPieces, kXPieces = kBM * (kKX / 8);
+  constexpr int kBPasses = (kBPieces + kMmaThreads - 1) / kMmaThreads;
+  constexpr int kXPasses = (kXPieces + kMmaThreads - 1) / kMmaThreads;
+  constexpr uint32_t kBOff = kX ? kBM * (kKX + 8) * 2 : 0;  // B within a slot
+  const int RW = A.tw + 2 * A.n;
+  const int LD = A.ch + 8;
+  const int K = kX ? A.cin : A.ch;             // per segment
+  const int ldw = STAGE == kFinal ? 2 * A.ch : K;
+  const int seg_w = STAGE == kBottle3x3 ? A.ch * A.ch : A.ch;
+  const int cols = c1 - c0;
+  const int M = (r1 - r0) * cols;
+  // m / cols as a multiply-high: exact for m, cols < 2^16 (m % cols >= 1
+  // keeps the quotient's error below the next integer)
+  const uint32_t cmagic = 0xffffffffu / cols + 1;
+  auto divc = [&](int m) { return (int)__umulhi((uint32_t)m, cmagic); };
+  const int nnb = (N + kBN - 1) / kBN;
+  const int total = (M + kBM - 1) / kBM * nnb * kSegs * ((K + KC - 1) / KC);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  constexpr int kWM = 16 * kMT;                // warp tile rows
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const uint32_t ring_s = smem_u32(ring);
+
+  // this thread's copies: pieces tid + j * kMmaThreads of the weight chunk
+  // (row-major, kPieces a row) and of the x chunk (kKX / 8 a row)
+  int xoff[kXPasses];  // x element offset of each A row, -1: zero-fill
+  Cursor lc = {0, 0, 0, 0};
+  int lslot = 0;
+  auto load = [&]() {
+    const uint32_t slot = ring_s + (uint32_t)lslot * kSlotBytes;
+    const bf16* wseg = w + lc.seg * seg_w;
+#pragma unroll
+    for (int j = 0; j < kBPasses; ++j) {
+      const int i = tid + j * kMmaThreads;
+      if (kBPieces % kMmaThreads && i >= kBPieces) break;
+      const int nl = i / kPieces, kp_b = (i % kPieces) * 8;
+      const int nn = lc.nb * kBN + nl, k = lc.k0 + kp_b;
+      const bool ok = nn < N && k < K;
+      cp_async16(slot + kBOff + (uint32_t)(nl * (KC + 8) + kp_b) * 2,
+                 ok ? wseg + nn * ldw + k : w, ok);
+    }
+    if (kX) {
+      if (lc.tile_start()) {
+#pragma unroll
+        for (int j = 0; j < kXPasses; ++j) {
+          const int m = lc.mb * kBM + (tid + j * kMmaThreads) / (kKX / 8);
+          xoff[j] = -1;
+          if (m < M) {
+            const int qm = divc(m);
+            const int gy = gy0 + r0 + qm, gx = gx0 + c0 + m - qm * cols;
+            if (gy >= 0 && gy < A.H && gx >= 0 && gx < A.W) xoff[j] = (gy * A.W + gx) * A.cin;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kXPasses; ++j) {
+        const int i = tid + j * kMmaThreads;
+        if (kXPieces % kMmaThreads && i >= kXPieces) break;
+        const int kp_a = (i % (kKX / 8)) * 8, k = lc.k0 + kp_a;
+        const bool ok = xoff[j] >= 0 && k < K;
+        cp_async16(slot + (uint32_t)(i / (kKX / 8) * (kKX + 8) + kp_a) * 2,
+                   ok ? xb + xoff[j] + k : xb, ok);
+      }
+    }
+    lc.next(KC, K, kSegs, nnb);
+    lslot = lslot == kSlots - 1 ? 0 : lslot + 1;
+  };
+
+  float acc[kMT][4][4];
+  float2 bv[4];  // bias of this lane's output channels in the CTA tile
+  uint32_t arow[kMT];  // shared address of this lane's A row (smem-fed), per m16 tile
+  Cursor cc = {0, 0, 0, 0};
+  int cslot = 0;
+  constexpr int kAhead = kSlots - 1;  // chunks in flight
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < total) load();
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int gi = 0; gi < total; ++gi) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead - 1) : "memory");
+    __syncthreads();  // chunk gi landed; the slot of chunk gi - 1 is free
+    if (gi + kAhead < total) load();
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    const int mw = cc.mb * kBM + wm * kWM;  // this warp's first row
+    const int nw = cc.nb * kBN + wn * 32;  // this warp's first channel
+    if (cc.tile_start()) {
+#pragma unroll
+      for (int a = 0; a < kMT; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
+      if (!kX) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          int m = mw + mt * 16 + (lane & 15);
+          if (m >= M) m = 0;  // a valid row; its result is not stored
+          const int qm = divc(m);
+          arow[mt] = smem_u32(sm_a + ((r0 + qm) * RW + c0 + m - qm * cols) * LD +
+                              (lane >> 4) * 8);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        bv[nt] = nw + nt * 8 < N ? *reinterpret_cast<const float2*>(bias + nw + nt * 8 + 2 * t)
+                                 : make_float2(0.f, 0.f);
+    }
+    const uint32_t slot = ring_s + (uint32_t)cslot * kSlotBytes;
+    const int ksteps = (min(KC, K - cc.k0) + 15) / 16;
+    uint32_t abase[kMT];
+    if (!kX) {
+      // the segment's source (t for the 3x3 and the s half of the final 1x1)
+      // and the 3x3 tap's pixel shift, as a byte offset from the a row
+      const bool from_t = STAGE == kBottle3x3 || (STAGE == kFinal && cc.seg == 1);
+      const int shift = STAGE == kBottle3x3 ? (cc.seg / 3 - 1) * RW + (cc.seg % 3 - 1) : 0;
+      const uint32_t off =
+          (uint32_t)(((from_t ? (sm_t - sm_a) : 0) + shift * LD + cc.k0) * 2);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) abase[mt] = arow[mt] + off;
+    }
+    // a whole chunk of a whole warp tile runs without guards, so the next
+    // step's ldmatrix can be hoisted above this step's mma
+    auto chunk = [&](auto whole) {
+      constexpr bool kWhole = decltype(whole)::value;
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        if (!kWhole && kk >= ksteps) break;
+        uint32_t af[kMT][4], bfr[2][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          if (!kWhole && mw + mt * 16 >= M) continue;
+          const uint32_t addr =
+              kX ? slot + (uint32_t)((wm * kWM + mt * 16 + (lane & 15)) * (kKX + 8) + kk * 16 +
+                                     (lane >> 4) * 8) * 2
+                 : abase[mt] + kk * 32;
+          ldsm_x4(addr, af[mt]);
+        }
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          if (!kWhole && nw + np * 16 >= N) continue;
+          ldsm_x4(slot + kBOff + (uint32_t)((wn * 32 + np * 16 + (mi >> 1) * 8 + mr) * (KC + 8) +
+                                            kk * 16 + (mi & 1) * 8) * 2,
+                  bfr[np]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          if (!kWhole && mw + mt * 16 >= M) continue;
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            if (!kWhole && nw + np * 16 >= N) continue;
+            mma_bf16(acc[mt][2 * np], af[mt], bfr[np][0], bfr[np][1]);
+            mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[np][2], bfr[np][3]);
+          }
+        }
+      }
+    };
+    if (ksteps == KC / 16 && mw + kWM <= M && nw + 32 <= N)
+      chunk(std::true_type{});
+    else
+      chunk(std::false_type{});
+
+    const bool tile_end = cc.seg == kSegs - 1 && cc.k0 + KC >= K;
+    cc.next(KC, K, kSegs, nnb);
+    cslot = cslot == kSlots - 1 ? 0 : cslot + 1;
+    if (tile_end) {  // epilogue of this CTA tile
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int m = mw + mt * 16 + g + half * 8;
+          if (m >= M) continue;
+          const int qm = divc(m);
+          const int r = r0 + qm, q = c0 + m - qm * cols;
+          const int gy = gy0 + r, gx = gx0 + q;
+          const bool inside = gy >= 0 && gy < A.H && gx >= 0 && gx < A.W;
+          bf16* dst = STAGE == kFinal ? outb + (gy * A.W + gx) * A.cout + nw + 2 * t
+                                      : (STAGE == kProjA || STAGE == kBottle3x3 ? sm_a : sm_t) +
+                                            (r * RW + q) * LD + nw + 2 * t;
+          if (STAGE == kFinal && !inside) continue;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if (nw + nt * 8 >= N) continue;
+            float v0 = silu_fast(acc[mt][nt][2 * half] + bv[nt].x);
+            float v1 = silu_fast(acc[mt][nt][2 * half + 1] + bv[nt].y);
+            __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst + nt * 8);
+            if (STAGE == kBottle3x3 && A.shortcut) {
+              const float2 old = __bfloat1622float2(*d);  // residual in f32
+              v0 += old.x;
+              v1 += old.y;
+            }
+            if ((STAGE == kProjA || STAGE == kBottle1x1 || STAGE == kProjS) && !inside)
+              v0 = v1 = 0.f;  // t = 0 outside the image: the 3x3's zero padding
+            *d = __floats2bfloat162_rn(v0, v1);
+          }
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <typename C>
+__global__ void __launch_bounds__(C::kThreads) csp_mma_kernel(CspArgs<bf16> A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int RH = A.th + 2 * A.n, RW = A.tw + 2 * A.n;
+  const int LD = A.ch + 8;
+  bf16* sm_a = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sm_t = sm_a + (size_t)RH * RW * LD;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sm_t + (size_t)RH * RW * LD);
+  const int b = blockIdx.y;
+  const int ty = blockIdx.x / A.tiles_x, tx = blockIdx.x % A.tiles_x;
+  const int gy0 = ty * A.th - A.n, gx0 = tx * A.tw - A.n;
+  const bf16* xb = A.x + (size_t)b * A.H * A.W * A.cin;
+  bf16* outb = A.out + (size_t)b * A.H * A.W * A.cout;
+  const int ch = A.ch, n = A.n;
+
+  // the 8 pad columns of every row of a and t are zero (a K tail reads them)
+  for (int i = threadIdx.x; i < 2 * RH * RW; i += blockDim.x)
+    *reinterpret_cast<uint4*>(sm_a + (size_t)i * LD + ch) = make_uint4(0, 0, 0, 0);
+
+  mma_stage<C, kProjA>(A, xb, sm_a, sm_t, ring, outb, 0, RH, 0, RW, gy0, gx0, A.wm, A.bm, ch);
+  __syncthreads();
+  for (int i = 0; i < n; ++i) {
+    mma_stage<C, kBottle1x1>(A, xb, sm_a, sm_t, ring, outb, i, RH - i, i, RW - i, gy0, gx0,
+                             A.w1 + (size_t)i * ch * ch, A.b1 + (size_t)i * ch, ch);
+    __syncthreads();
+    mma_stage<C, kBottle3x3>(A, xb, sm_a, sm_t, ring, outb, i + 1, RH - i - 1, i + 1,
+                             RW - i - 1, gy0, gx0, A.w3 + (size_t)i * 9 * ch * ch,
+                             A.b3 + (size_t)i * ch, ch);
+    __syncthreads();
+  }
+  mma_stage<C, kProjS>(A, xb, sm_a, sm_t, ring, outb, n, n + A.th, n, n + A.tw, gy0, gx0, A.ws,
+                       A.bs, ch);
+  __syncthreads();
+  mma_stage<C, kFinal>(A, xb, sm_a, sm_t, ring, outb, n, n + A.th, n, n + A.tw, gy0, gx0, A.wf,
+                       A.bf, A.cout);
+}
+
 template <typename T>
 int launch(const void* x, void* out, const void* wm, const float* bm, const void* ws,
            const float* bs, const void* w1, const float* b1, const void* w3,
            const float* b3, const void* wf, const float* bf, int B, int H, int W, int cin,
-           int ch, int cout, int n, int shortcut, int th, int tw, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || n < 1 || th < 1 || tw < 1 || cin % 4 || ch % 4 || cout % 4)
+           int ch, int cout, int n, int shortcut, int th, int tw, int ring, void* stream) {
+  constexpr bool kMma = sizeof(T) == 2;
+  constexpr int kMult = kMma ? 8 : 4;  // channel counts must be multiples
+  if (B < 1 || H < 1 || W < 1 || n < 1 || th < 1 || tw < 1 || cin % kMult ||
+      ch % kMult || cout % kMult || ring < 0 || ring > (kMma ? 1 : 0))
     return (int)cudaErrorInvalidValue;
   CspArgs<T> A;
   A.x = static_cast<const T*>(x);
@@ -267,30 +629,54 @@ int launch(const void* x, void* out, const void* wm, const float* bm, const void
   A.tw = tw;
   A.tiles_x = (W + tw - 1) / tw;
   const int tiles_y = (H + th - 1) / th;
-  const size_t smem = 2 * (size_t)(th + 2 * n) * (tw + 2 * n) * ch * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      csp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem =
+      kMma ? mma_smem_bytes(th, tw, n, ch, ring) : f32_smem_bytes(th, tw, n, ch);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  void (*kern)(CspArgs<T>);
+  int threads = kThreads;
+  if constexpr (kMma) {
+    kern = ring ? csp_mma_kernel<Compact> : csp_mma_kernel<Wide>;
+    threads = ring ? Compact::kThreads : Wide::kThreads;
+  } else {
+    kern = csp_kernel<T>;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(A.tiles_x * tiles_y, B);
-  csp_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(A);
+  kern<<<grid, threads, smem, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (B, H, W, cin) and out (B, H, W, cout) NHWC; wm, ws (cin, ch); w1 (n, ch,
-// ch); w3 (n, 9, ch, ch) with tap = dy * 3 + dx; wf (2 ch, cout), rows [a; s];
-// biases f32. All contiguous on the device. Returns cudaGetLastError() after
-// the launch.
+// x (B, H, W, cin) and out (B, H, W, cout) NHWC, th x tw output tiles.
+// Weights in the storage type, biases f32, all contiguous on the device:
+//   f32 (CUDA cores): [in, out]: wm, ws (cin, ch); w1 (n, ch, ch); w3 (n, 9,
+//     ch, ch) with tap = dy * 3 + dx; wf (2 ch, cout), rows [a; s];
+//   bf16 (tensor cores): [out, in]: wm, ws (ch, cin); w1 (n, ch, ch); w3 (n,
+//     9, ch, ch); wf (cout, 2 ch), columns [a; s].
+// ring: for bf16, 0 the wide cp.async ring, 1 the compact one; 0 for f32.
+// Channel counts must be multiples of 4 (f32) or 8 (bf16). Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for shapes the
+// kernel does not take or a plan over the shared-memory limit.
 #define TL_CSP_ENTRY(NAME, T)                                                        \
   extern "C" int NAME(const void* x, void* out, const void* wm, const float* bm,     \
                       const void* ws, const float* bs, const void* w1, const float* b1, \
                       const void* w3, const float* b3, const void* wf, const float* bf, \
                       int B, int H, int W, int cin, int ch, int cout, int n,          \
-                      int shortcut, int th, int tw, void* stream) {                  \
+                      int shortcut, int th, int tw, int ring, void* stream) {        \
     return launch<T>(x, out, wm, bm, ws, bs, w1, b1, w3, b3, wf, bf, B, H, W, cin, ch, \
-                     cout, n, shortcut, th, tw, stream);                             \
+                     cout, n, shortcut, th, tw, ring, stream);                       \
   }
 
 TL_CSP_ENTRY(tl_csp_f32, float)
-TL_CSP_ENTRY(tl_csp_bf16, __nv_bfloat16)
+TL_CSP_ENTRY(tl_csp_bf16_mma, __nv_bfloat16)
+
+// The shared memory a launch with th x tw tiles asks for: mma = 1 for the
+// bf16 tensor-core kernel with the given ring, 0 for the f32 kernel.
+// kernels/csp.py's smem_bytes plans the same sum.
+extern "C" long long tl_csp_smem_bytes(int th, int tw, int n, int ch, int mma, int ring) {
+  return (long long)(mma ? mma_smem_bytes(th, tw, n, ch, ring)
+                         : f32_smem_bytes(th, tw, n, ch));
+}

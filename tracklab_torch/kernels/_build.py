@@ -23,7 +23,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
+__all__ = ["SOURCES", "build_all", "library", "load", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -46,6 +46,13 @@ def _lib_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
     return _BUILD / f"{name}-{digest}.so"
+
+
+def library(name: str) -> Path:
+    """The shared library built from ``csrc/<name>.cu`` (built first if
+    needed), e.g. for ``cuobjdump -sass``."""
+    build_all((name,))
+    return _lib_path(name)
 
 
 def _start(name: str):

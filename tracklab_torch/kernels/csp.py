@@ -1,32 +1,43 @@
-"""K3: the fused CSPLayer kernel (``csrc/csp.cu``), its weight packing and
-its dispatch.
+"""K3: the fused CSPLayer kernel (``csrc/csp.cu``), its weight packing,
+its tile planner and its dispatch.
 
 Replaces the Pallas TPU kernel ``tracklab_tpu/ops/csp_pallas.py``
-(``_make_kernel`` behind ``fused_csplayer``). The CUDA kernel runs one CTA
-per (frame, spatial tile) with an n-pixel halo and keeps the layer's
-intermediates in shared memory; it is bound by operations (~600 FLOP/B at
-YOLOX-s 640). See the source note in ``csrc/csp.cu``.
+(``_make_kernel`` behind ``fused_csplayer``). The CUDA kernels run one CTA
+per (frame, spatial tile) with an n-pixel halo and keep the layer's
+intermediates in shared memory; they are bound by operations (~600 FLOP/B
+at YOLOX-s 640). bf16 runs on the tensor cores (``mma.sync`` with
+``ldmatrix`` and a ``cp.async`` ring), f32 on CUDA cores; see the source
+note in ``csrc/csp.cu``.
 
 The plain version is the unfused layer, ``CSPLayer.forward_plain``
 (``models/yolox.py``). :func:`fused_csplayer` runs it for CPU tensors and
-launches the kernel for CUDA tensors; its ``launches`` attribute counts
-kernel launches.
+launches the kernel :func:`route` names for CUDA tensors, with the plan
+:func:`choose_tile` gives; a layer either refuses raises ValueError. Its
+``launches`` attribute counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from tracklab_torch.models.yolox import BN_EPS
 
-__all__ = ["fold_convbn", "pack_csplayer", "choose_tile", "fused_csplayer",
-           "SMEM_LIMIT"]
+__all__ = ["fold_convbn", "pack_csplayer", "smem_bytes", "choose_tile",
+           "route", "fused_csplayer", "SMEM_LIMIT"]
 
 SMEM_LIMIT = 232448    # bytes of shared memory one Hopper CTA may use
-_TILES = (16, 10, 8, 5, 4, 2, 1)
-_DTYPES = {torch.float32: "tl_csp_f32", torch.bfloat16: "tl_csp_bf16"}
+# the tensor-core kernel's two cp.async rings (csrc/csp.cu: Wide, Compact):
+# (CTA tile rows, ring bytes); each slot holds a rows x KX chunk of x and a
+# 64 x KX chunk of weights, rows padded by 8 elements
+_RINGS = ((256, 3 * (256 + 64) * (32 + 8) * 2),    # KX 32, three slots
+          (64, 2 * (64 + 64) * (16 + 8) * 2))      # KX 16, two slots
+_MMA_BN = 64          # CTA tile channels of both rings
+# the CUDA-core kernel's work item: 8 pixels x 4 channels
+_FMA_TILE = (8, 4)
+_ITEM = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def fold_convbn(m):
@@ -40,13 +51,15 @@ def fold_convbn(m):
 
 
 def pack_csplayer(layer, dtype) -> dict:
-    """Fold and lay out a CSPLayer's weights for the kernel: ``wm``/``ws``
-    (cin, ch), ``w1`` (n, ch, ch), ``w3`` (n, 9, ch, ch) with tap
-    dy * 3 + dx, ``wf`` (2 ch, cout) with rows [main; short], all [in, out]
-    in ``dtype``; biases f32."""
+    """Fold a CSPLayer's weights and lay them out for the kernel of
+    ``dtype``, in ``dtype``; biases f32. bf16 (tensor cores) takes them
+    K-contiguous, [out, in] (the col-major B operand): ``wm``/``ws`` (ch,
+    cin), ``w1`` (n, ch, ch), ``w3`` (n, 9, ch, ch) with tap dy * 3 + dx,
+    ``wf`` (cout, 2 ch) with columns [main; short]. f32 (CUDA cores) takes
+    each transposed, [in, out], read as 4-wide vectors of output channels."""
     def one_by_one(m):
         w, b = fold_convbn(m)
-        return w[:, :, 0, 0].t(), b
+        return w[:, :, 0, 0], b
 
     wm, bm = one_by_one(layer.conv1)
     ws, bs = one_by_one(layer.conv2)
@@ -57,10 +70,13 @@ def pack_csplayer(layer, dtype) -> dict:
         w1.append(w)
         b1.append(b)
         w, b = fold_convbn(blk.conv2)
-        ch = w.shape[0]
-        w3.append(w.permute(2, 3, 1, 0).reshape(9, ch, ch))
+        co, ci = w.shape[:2]
+        w3.append(w.permute(2, 3, 0, 1).reshape(9, co, ci))
         b3.append(b)
-    cast = lambda t: t.to(dtype).contiguous()          # noqa: E731
+    def cast(t):
+        t = t if dtype == torch.bfloat16 else t.transpose(-1, -2)
+        return t.to(dtype).contiguous()
+
     f32 = lambda t: t.float().contiguous()             # noqa: E731
     return dict(wm=cast(wm), bm=f32(bm), ws=cast(ws), bs=f32(bs),
                 w1=cast(torch.stack(w1)), b1=f32(torch.stack(b1)),
@@ -68,20 +84,82 @@ def pack_csplayer(layer, dtype) -> dict:
                 wf=cast(wf), bf=f32(bf))
 
 
-def choose_tile(H, W, n, ch, itemsize):
-    """Square output tile side for the kernel: the largest candidate whose
-    two haloed (side + 2n)^2 x ch buffers fit in shared memory, preferring
-    sides that divide H and W (no ragged tiles)."""
-    def fits(ts):
-        return 2 * (ts + 2 * n) ** 2 * ch * itemsize <= SMEM_LIMIT
+def smem_bytes(th, tw, n, ch, dtype, ring=0) -> int:
+    """Shared memory one CTA of the kernel for ``dtype`` asks for with
+    th x tw output tiles: the two haloed (th + 2n) x (tw + 2n) x ch buffers
+    (a and t), in bf16 with 8 elements of row padding and cp.async ring
+    ``ring`` (0 wide, 1 compact; f32 has none). ``csrc/csp.cu`` computes
+    the same sum and refuses a launch over :data:`SMEM_LIMIT`."""
+    region = (th + 2 * n) * (tw + 2 * n)
+    if dtype == torch.bfloat16:
+        return 2 * region * (ch + 8) * 2 + _RINGS[ring][1]
+    return 2 * region * ch * _ITEM[dtype]
 
-    for want_divisor in (True, False):
-        for ts in _TILES:
-            if ts <= max(H, W) and fits(ts) and (
-                    not want_divisor or (H % ts == 0 and W % ts == 0)):
-                return ts
-    raise ValueError(f"CSPLayer with ch={ch}, n={n} does not fit in shared "
-                     "memory at any tile size")
+
+def _work(th, tw, H, W, n, cin, ch, cout, tile):
+    """The kernel's work for one frame with th x tw tiles, counted in its
+    own units: each stage's GEMM rounded up to whole (rows x channels)
+    tiles, times K. It counts the halo's recomputation and ragged tiles."""
+    bm, bn = tile
+
+    def gemm(pix, N, K):
+        return math.ceil(pix / bm) * math.ceil(N / bn) * K
+
+    RH, RW = th + 2 * n, tw + 2 * n
+    w = gemm(RH * RW, ch, cin) + gemm(th * tw, ch, cin) \
+        + gemm(th * tw, cout, 2 * ch)
+    for i in range(n):
+        w += gemm((RH - 2 * i) * (RW - 2 * i), ch, ch) \
+            + gemm((RH - 2 * i - 2) * (RW - 2 * i - 2), ch, 9 * ch)
+    return math.ceil(H / th) * math.ceil(W / tw) * w
+
+
+@functools.cache
+def choose_tile(H, W, n, cin, ch, cout, dtype):
+    """(th, tw, ring): the output tile whose plan fits in
+    :data:`SMEM_LIMIT` and needs the least work (:func:`_work`), larger
+    tiles first on a tie, with bf16's wide ring where any tile fits with it
+    and its compact ring otherwise (ring 0 for f32). Raises ValueError when
+    no tile fits (the region of a single output pixel, (2n + 1)^2 pixels of
+    a and t, is already too large, as for dark4 of YOLOX-l and dark3 and
+    dark4 of YOLOX-x)."""
+    rings = range(len(_RINGS)) if dtype == torch.bfloat16 else (0,)
+    for ring in rings:
+        tile = ((_RINGS[ring][0], _MMA_BN) if dtype == torch.bfloat16
+                else _FMA_TILE)
+        best = None
+        for th in range(1, H + 1):
+            for tw in range(1, W + 1):
+                if smem_bytes(th, tw, n, ch, dtype, ring) > SMEM_LIMIT:
+                    break
+                key = (_work(th, tw, H, W, n, cin, ch, cout, tile), -th * tw)
+                if best is None or key < best[0]:
+                    best = (key, (th, tw, ring))
+        if best is not None:
+            return best[1]
+    raise ValueError(f"a CSPLayer with ch={ch}, n={n} does not fit in "
+                     f"shared memory at any tile size in {dtype}")
+
+
+def route(dtype, cin, ch, cout) -> str:
+    """The C entry point that runs a CSPLayer in ``dtype`` on the card:
+    bf16 runs on the tensor cores and needs channel counts that are
+    multiples of 8, f32 runs on CUDA cores and needs multiples of 4.
+    Raises for what neither takes; never picks another type's kernel or
+    the plain layer."""
+    if dtype == torch.bfloat16:
+        if cin % 8 or ch % 8 or cout % 8:
+            raise ValueError("K3's bf16 kernel needs channel counts that are "
+                             f"multiples of 8; got cin={cin}, ch={ch}, "
+                             f"cout={cout}")
+        return "tl_csp_bf16_mma"
+    if dtype == torch.float32:
+        if cin % 4 or ch % 4 or cout % 4:
+            raise ValueError("K3's f32 kernel needs channel counts that are "
+                             f"multiples of 4; got cin={cin}, ch={ch}, "
+                             f"cout={cout}")
+        return "tl_csp_f32"
+    raise TypeError(f"K3 takes f32 or bf16, not {dtype}")
 
 
 @functools.cache
@@ -89,7 +167,7 @@ def _lib(symbol):
     from tracklab_torch.kernels._build import load
 
     fn = getattr(load("csp"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -98,35 +176,33 @@ def _lib(symbol):
 def fused_csplayer(layer, x: torch.Tensor) -> torch.Tensor:
     """Run ``layer`` (a dense ``models.yolox.CSPLayer``) on ``x`` (B, C, H,
     W). CPU tensors take the plain layer; CUDA tensors launch K3 in the
-    layer's dtype (f32 or bf16) and get an NCHW view of an NHWC
+    layer's dtype (:func:`route`) and get an NCHW view of an NHWC
     (channels-last) result."""
     if not x.is_cuda:
         return layer.forward_plain(x)
     if layer.depthwise:
         raise ValueError("K3 takes dense CSPLayers only")
     dtype = layer.dtype
-    if dtype not in _DTYPES:
-        raise TypeError(f"K3 takes f32 or bf16, not {dtype}")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
     B, cin, H, W = x.shape
+    n, ch = len(layer.m), layer.conv1.conv.weight.shape[0]
+    cout = layer.conv3.conv.weight.shape[0]
+    if layer.conv1.conv.weight.shape[1] != cin:
+        raise ValueError(f"x has {cin} channels, the layer takes "
+                         f"{layer.conv1.conv.weight.shape[1]}")
+    fn = _lib(route(dtype, cin, ch, cout))
+    th, tw, ring = choose_tile(H, W, n, cin, ch, cout, dtype)
     p = pack_csplayer(layer, dtype)
-    n, ch = p["w1"].shape[0], p["w1"].shape[1]
-    cout = p["wf"].shape[1]
-    if p["wm"].shape[0] != cin or cin % 4 or ch % 4 or cout % 4:
-        raise ValueError(f"K3 needs matching channel counts divisible by 4; "
-                         f"got cin={cin}, ch={ch}, cout={cout}")
     xh = x.to(dtype).permute(0, 2, 3, 1).contiguous()
     out = torch.empty((B, H, W, cout), dtype=dtype, device=x.device)
-    ts = choose_tile(H, W, n, ch, xh.element_size())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptr = lambda k: p[k].data_ptr()                    # noqa: E731
     with torch.cuda.device(x.device):
-        err = _lib(_DTYPES[dtype])(
-            xh.data_ptr(), out.data_ptr(), ptr("wm"), ptr("bm"), ptr("ws"),
-            ptr("bs"), ptr("w1"), ptr("b1"), ptr("w3"), ptr("b3"),
-            ptr("wf"), ptr("bf"), B, H, W, cin, ch, cout, n,
-            int(layer.shortcut), ts, ts, stream)
+        err = fn(xh.data_ptr(), out.data_ptr(), ptr("wm"), ptr("bm"),
+                 ptr("ws"), ptr("bs"), ptr("w1"), ptr("b1"), ptr("w3"),
+                 ptr("b3"), ptr("wf"), ptr("bf"), B, H, W, cin, ch, cout, n,
+                 int(layer.shortcut), th, tw, ring, stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
     fused_csplayer.launches += 1

@@ -5,13 +5,15 @@ Replaces the Pallas TPU kernel ``tracklab_tpu/ops/vit_attention_pallas.py``
 (``_kernel`` behind ``vit_attention``): ``softmax(q k^T * Dh^-1/2) v`` per
 batch element and head, scores and softmax in f32, the probabilities
 rounded to the input dtype before the product with v, an optional static
-count ``n_valid`` of real keys. The CUDA kernel runs one CTA per (batch
-element, head) with one warp per query row and follows the JAX kernel's
-order of operations; see the source note in ``csrc/vit_attention.cu``.
+count ``n_valid`` of real keys. The CUDA kernels run one CTA per (batch
+element, head) and follow the JAX kernel's order of operations: bf16 on the
+tensor cores (``mma.sync`` with ``ldmatrix`` and ``cp.async``), f32 on CUDA
+cores; see the source note in ``csrc/vit_attention.cu``.
 
 :func:`vit_attention` is the wrapper: for CPU tensors it runs
-:func:`vit_attention_plain`, for CUDA tensors it launches the kernel (or
-raises). Its ``launches`` attribute counts kernel launches.
+:func:`vit_attention_plain`, for CUDA tensors it launches the kernel that
+:func:`route` names (or raises). Its ``launches`` attribute counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ import functools
 
 import torch
 
-__all__ = ["vit_attention", "vit_attention_plain"]
+__all__ = ["vit_attention", "vit_attention_plain", "route", "MAX_TOKENS",
+           "MAX_HEAD_DIM"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_TOKENS = 256      # keys and queries one CTA takes
+MAX_HEAD_DIM = 128
 
 
 def vit_attention_plain(q, k, v, n_valid: int | None = None):
@@ -44,19 +48,43 @@ def vit_attention_plain(q, k, v, n_valid: int | None = None):
     return y.to(q.dtype).permute(0, 2, 1, 3)
 
 
+def route(dtype, N: int, Dh: int) -> str:
+    """The C entry point that takes (B, N, H, Dh) attention in ``dtype`` on
+    the card: bf16 runs on the tensor cores and needs ``Dh % 16 == 0``, f32
+    runs on CUDA cores. Raises for what neither takes; never picks another
+    type's kernel or the plain version."""
+    if N > MAX_TOKENS:
+        raise ValueError(f"K4 supports N <= {MAX_TOKENS} tokens, got {N}")
+    if Dh > MAX_HEAD_DIM:
+        raise ValueError(f"K4 supports Dh <= {MAX_HEAD_DIM}, got {Dh}")
+    if dtype == torch.bfloat16:
+        if Dh % 16:
+            raise ValueError(f"K4's bf16 kernel needs Dh % 16 == 0, got {Dh}")
+        return "tl_vit_attention_bf16_mma"
+    if dtype == torch.float32:
+        return "tl_vit_attention_f32"
+    raise TypeError(f"K4 takes f32 or bf16 q, k, v, got {dtype}")
+
+
 @functools.cache
-def _lib():
+def _lib(symbol):
     from tracklab_torch.kernels._build import load
 
-    lib = load("vit_attention")
-    fn = lib.tl_vit_attention
+    fn = getattr(load("vit_attention"), symbol)
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.tl_vit_attention_max_tokens.restype = ctypes.c_int
-    lib.tl_vit_attention_max_head_dim.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _aligned(a: torch.Tensor) -> bool:
+    """The last axis is contiguous and, in bf16, every row starts on 16
+    bytes, as the tensor-core kernel's 16-byte copies need."""
+    if a.stride(3) != 1:
+        return False
+    return a.dtype != torch.bfloat16 or (
+        a.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in a.stride()[:3]))
 
 
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,9 +93,9 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, N, H, Dh) tensor in the input dtype.
 
     CPU tensors run :func:`vit_attention_plain`. CUDA tensors launch the
-    kernel, which takes f32 or bf16, N <= 256 and Dh <= 128, and views
-    whose last axis is contiguous (the q, k and v slices of one packed qkv
-    tensor are read in place)."""
+    kernel :func:`route` names: f32 or bf16, N <= 256, Dh <= 128 and, in
+    bf16, Dh % 16 == 0. Views whose rows start on 16 bytes (the q, k and v
+    slices of one packed qkv tensor) are read in place."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("q, k, v must share one (B, N, H, Dh) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -77,28 +105,20 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"n_valid must be >= 1, got {n_valid}")
     if not q.is_cuda:
         return vit_attention_plain(q, k, v, n_valid)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"K4 takes f32 or bf16 q, k, v, got {q.dtype}, "
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must share one device")
-    lib = _lib()
-    if N > lib.tl_vit_attention_max_tokens():
-        raise ValueError(f"K4 supports N <= "
-                         f"{lib.tl_vit_attention_max_tokens()} tokens, "
-                         f"got {N}")
-    if Dh > lib.tl_vit_attention_max_head_dim():
-        raise ValueError(f"K4 supports Dh <= "
-                         f"{lib.tl_vit_attention_max_head_dim()}, got {Dh}")
-    q, k, v = (a if a.stride(3) == 1 else a.contiguous() for a in (q, k, v))
+    fn = _lib(route(q.dtype, N, Dh))
+    q, k, v = (a if _aligned(a) else a.contiguous() for a in (q, k, v))
     out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
     strides = [s for a in (q, k, v) for s in a.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.tl_vit_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), B, N, H, Dh, *strides,
-                                   N if n_valid is None else n_valid,
-                                   _DTYPES[q.dtype], stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                 N, H, Dh, *strides, N if n_valid is None else n_valid,
+                 stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {err} (B={B}, "
                            f"N={N}, H={H}, Dh={Dh}, {q.dtype})")
