@@ -6,15 +6,21 @@ Phases (any failure exits non-zero):
   1. build the CUDA kernels from tracklab_torch/csrc (one nvcc per source,
      all started together), and check with cuobjdump -sass that the bf16
      kernels (csp_mma_kernel, vit_attention_mma_kernel) run on the tensor
-     cores: each lists HMMA instructions;
+     cores: each lists HMMA instructions; and that every JV warp kernel
+     (jv, jv_rect) lists REDUX (the argmin's redux.sync) and no BAR.SYNC;
   2. K1 (square JV assignment) against its plain version: identical col2row
-     on random and tie-heavy costs, and a batched launch with mixed
-     k_eff/active;
+     on random and tie-heavy costs, at S = 1, on a forced-matching square
+     at S = 128, on -0.0 beside +0.0 and on rows all equal, and a batched
+     launch with mixed k_eff/active; then timed at S = 64 (a
+     forced-matching square and random costs), with ns per path step;
   3. K2 (batched rectangular JV assignment) against its plain version:
      identical col2row on random problems at (8, 64, 128) and at V = 5
-     over (4, 9), (8, 16), (16, 16), (13, 40), on tie-heavy costs and on a
-     batch with mixed active flags; then timed on random (8, 64, 128)
-     costs (phase 8 times it on the path's own problems);
+     over (4, 9), (8, 16), (16, 16), (13, 40), on tie-heavy costs, on a
+     batch with mixed active flags, at C = 33 (ragged lane runs), at
+     C = 256 in shared memory (128 rows) and from device memory (256
+     rows), on -0.0 beside +0.0 and on rows all equal; then timed on random
+     (8, 64, 128) costs, with ns per step of the longest problem (phase 8
+     times it on the path's own problems);
   4. K3 (fused CSPLayer) against the plain layer at the seven YOLOX-s 640
      shapes and at two YOLOX-tiny 416 layers whose sizes do not divide into
      whole tiles (dark3 52x52, dark5 13x13), batch 8: f32 rel <= 1e-4 (TF32
@@ -35,14 +41,17 @@ Phases (any failure exits non-zero):
      OC-SORT over 4 chunks of 128 quasi-static uint8 frames, with the
      kernels' launch counters read around it; 32 tracker steps profiled,
      with K1's own device time and launches on the path read from the
-     profile;
+     profile; then an untimed pass over the first chunk that records the
+     path's K1 inputs: the share of launches that solve, their path steps,
+     the last 48 solving launches checked against the plain version and
+     timed (ns per step);
   8. the multi-video path: 8 videos x 128 frames -> YOLOX-s 640 bf16 -> NMS
      (~20 detections per frame, 64 slots, min_confidence 0.4 as a mask) ->
      OC-SORT with batched=True stepping the 8 videos at once (K2), with
      the launch counters read around it and 16 tracker steps profiled;
      then an untimed pass that records the ORU replay's trips per step and
      K2's last inputs, on which K2 is checked against its plain version
-     and timed.
+     and timed (ns per step of each launch's longest problem).
 
 Phases 9-11 run before 7 and 8, phase 12 after them:
   9. K4 (ViT attention) against its plain version at (384, 193, 12, 64),
@@ -121,20 +130,26 @@ def bound_ms(nbytes, ops, peak):
 
 def check_sass(torch):
     """Every bf16 kernel (``*_mma_kernel``) of csp and vit_attention lists
-    HMMA (tensor-core) instructions in its SASS; returns the counts."""
+    HMMA (tensor-core) instructions in its SASS; every JV kernel of jv and
+    jv_rect (one warp per problem) lists REDUX (the argmin's redux.sync)
+    and no BAR.SYNC (no block barrier anywhere, so none in the step
+    loop). Returns the counts."""
     from pathlib import Path
 
     from tracklab_torch.kernels import _build
 
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
-    counts = {}
-    for name in ("csp", "vit_attention"):
+
+    def functions(name):
         sass = subprocess.run([str(tool), "-sass", str(_build.library(name))],
                               capture_output=True, text=True,
                               check=True).stdout
-        funcs = sass.split("Function : ")[1:]
-        for f in funcs:
-            fname = f.split(None, 1)[0]
+        return [(f.split(None, 1)[0], f)
+                for f in sass.split("Function : ")[1:]]
+
+    counts = {}
+    for name in ("csp", "vit_attention"):
+        for fname, f in functions(name):
             if "mma_kernel" in fname:
                 counts[fname] = f.count("HMMA")
         check(any(name in f for f in counts),
@@ -142,7 +157,18 @@ def check_sass(torch):
     log(f"SASS: HMMA count per bf16 kernel {counts}")
     for fname, c in counts.items():
         check(c > 0, f"{fname}: no HMMA in its SASS")
-    return counts
+    jv_counts = {}
+    for name in ("jv", "jv_rect"):
+        funcs = [(n, f) for n, f in functions(name) if "warp_kernel" in n]
+        check(funcs, f"{name}: no warp kernel in the SASS")
+        for fname, f in funcs:
+            jv_counts[fname] = dict(REDUX=f.count("REDUX"),
+                                    BAR_SYNC=f.count("BAR.SYNC"))
+    log(f"SASS: REDUX and BAR.SYNC per JV kernel {jv_counts}")
+    for fname, c in jv_counts.items():
+        check(c["REDUX"] > 0, f"{fname}: no REDUX in its SASS")
+        check(c["BAR_SYNC"] == 0, f"{fname}: {c['BAR_SYNC']} BAR.SYNC")
+    return counts, jv_counts
 
 
 # ---------------------------------------------------------------- phase 2: K1
@@ -158,13 +184,25 @@ def phase_k1(torch, dev):
     cases += [("tie blocks K=64", tie),
               ("integer ties K=48", torch.randint(0, 3, (48, 48),
                                                   generator=g).float())]
+    # the warp kernel's edge cases: one column per lane run (S = 1), full
+    # runs of 4 (S = 128, a forced-matching square with its ties), ragged
+    # runs with -0.0 beside +0.0, and rows all equal (drawn from their own
+    # generator, so the older cases keep their draws)
+    g2 = torch.Generator(device="cpu").manual_seed(10)
+    sq128, _ = _forced_prep(-torch.rand(1, 96, 128, generator=g2),
+                            torch.rand(1, 96, generator=g2) < 0.8,
+                            torch.rand(1, 128, generator=g2) < 0.7)
+    cases += [("S=1", torch.randn(1, 1, generator=g2)),
+              ("forced square S=128", sq128[0]),
+              ("signed zeros K=40", _signed_zeros(torch, g2, 40, 40)),
+              ("all-equal rows K=64",
+               torch.randn(1, 64, generator=g2).expand(64, 64).contiguous())]
     one = lambda k: torch.tensor([k], dtype=torch.int32, device=dev)  # noqa
     on = torch.ones(1, dtype=torch.bool, device=dev)
     for name, c in cases:
-        c = c.to(dev)
-        got = jv.solve_square_batched(c[None], one(c.shape[0]), on)[0]
+        got = jv.solve_square_batched(c.to(dev)[None], one(c.shape[0]), on)[0]
         want = jv._solve_square_plain(c)
-        check(torch.equal(got, want), f"K1 {name}: col2row differs")
+        check(torch.equal(got.cpu(), want), f"K1 {name}: col2row differs")
     log(f"K1: {len(cases)} problems identical to the plain version")
 
     S = 64
@@ -195,13 +233,36 @@ def phase_k1(torch, dev):
     # argmin, dual update)
     ops = stats["steps"] * 6 * S
     b_ms, b_by = bound_ms(S * S * 4 + S * 4 + 5, ops, PEAK["f32"])
-    log(f"K1 timing at S=64: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {b_ms:.6f} ms ({b_by}), {stats['steps']} path steps")
+    rnd = torch.randn(S, S, generator=g)
+    r_stats = {}
+    jv._solve_square_plain(rnd, r_stats)
+    rnd = rnd.to(dev)[None]
+    r_ms = cuda_ms(lambda: jv.solve_square_batched(rnd, kk, on), 200)
+    log(f"K1 timing at S=64: forced-matching square {ms:.4f} ms, "
+        f"{stats['steps']} path steps, {ms * 1e6 / stats['steps']:.1f} ns "
+        f"per step; random costs {r_ms:.4f} ms, {r_stats['steps']} path "
+        f"steps, {r_ms * 1e6 / r_stats['steps']:.1f} ns per step; plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
     return dict(name="K1 jv_solve_batched", route="cuda",
                 source="tracklab_torch/csrc/jv.cu",
                 replaces="tracklab_tpu/ops/assignment_pallas.py:146",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None), dict(
+                    forced_s64=dict(ms=ms, steps=stats["steps"],
+                                    ns_per_step=ms * 1e6 / stats["steps"]),
+                    random_s64=dict(ms=r_ms, steps=r_stats["steps"],
+                                    ns_per_step=r_ms * 1e6
+                                    / r_stats["steps"]))
+
+
+def _signed_zeros(torch, g, R, C):
+    """An (R, C) cost of -1, -0.0, +0.0 and 1 with -0.0 and +0.0 in every
+    row: their ties must break to the lowest column, as f32 compares them."""
+    c = torch.randint(-1, 2, (R, C), generator=g).float()
+    c = torch.where((c == 0) & (torch.rand(R, C, generator=g) < 0.5), -0.0,
+                    c)
+    c[:, 0], c[:, 1] = -0.0, 0.0
+    return c
 
 
 # ---------------------------------------------------------------- phase 3: K2
@@ -221,32 +282,66 @@ def phase_k2(torch, dev):
     cases.append(("mixed active (6, 64, 128)",
                   torch.randn(6, 64, 128, generator=g),
                   torch.tensor([1, 0, 1, 1, 0, 1], dtype=torch.bool)))
+    # the warp kernel's edge cases (the plain version on the CPU): ragged
+    # runs (C = 33), full runs of 8 in shared memory (128 x 256) and from
+    # device memory (256 x 256, above the shared-memory cap), -0.0 beside
+    # +0.0, rows all equal
+    row = torch.randn(2, 1, 40, generator=g)
+    cases += [("ragged C=33 (4, 20, 33)", torch.randn(4, 20, 33, generator=g),
+               None),
+              ("C=256 in shared memory (2, 128, 256)",
+               torch.randn(2, 128, 256, generator=g), None),
+              ("C=256 from device memory (2, 256, 256)",
+               torch.randn(2, 256, 256, generator=g), None),
+              ("signed zeros (3, 17, 33)",
+               torch.stack([_signed_zeros(torch, g, 17, 33)
+                            for _ in range(3)]), None),
+              ("all-equal rows (2, 8, 40)",
+               row.expand(2, 8, 40).contiguous(), None)]
     for name, c, act in cases:
-        c = c.to(dev)
-        act = None if act is None else act.to(dev)
-        got = solve_rect_batched(c, act)
+        got = solve_rect_batched(c.to(dev), None if act is None
+                                 else act.to(dev))
         want = solve_rect_batched_plain(c, act)
-        check(torch.equal(got, want), f"K2 {name}: col2row differs")
+        check(torch.equal(got.cpu(), want), f"K2 {name}: col2row differs")
     log(f"K2: {len(cases)} batches identical to the plain version")
 
     c = cases[0][1].to(dev)
     V, R, C = c.shape
-    stats = {}
-    solve_rect_batched_plain(c, stats=stats)
+    per = _steps_per_problem(torch, c)
     ms = cuda_ms(lambda: solve_rect_batched(c), 200)
     plain_ms = cuda_ms(lambda: solve_rect_batched_plain(c), 1, warmup=1)
     # each shortest-path step: ~6 f32 ops per column (2 sub, cmp, select,
     # argmin, dual update)
-    ops = stats["steps"] * 6 * C
+    ops = sum(per) * 6 * C
     b_ms, b_by = bound_ms(V * R * C * 4 + V * C * 4, ops, PEAK["f32"])
     log(f"K2 timing at (8, 64, 128): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}), "
-        f"{stats['steps']} path steps")
+        f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}), {sum(per)} path "
+        f"steps, {max(per)} in the longest problem: "
+        f"{ms * 1e6 / max(per):.1f} ns per step")
     return dict(name="K2 jv_rect_solve_batched", route="cuda",
                 source="tracklab_torch/csrc/jv_rect.cu",
                 replaces="tracklab_tpu/ops/assignment_pallas.py:302",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None,
+                steps=sum(per), longest_problem_steps=max(per),
+                ns_per_step=ms * 1e6 / max(per))
+
+
+def _steps_per_problem(torch, cost, active=None):
+    """Path steps of each active problem of a (V, R, C) K2 input, from the
+    plain version on the CPU. The problems of a launch run side by side,
+    one warp each, so the longest one sets the launch's chain of steps."""
+    from tracklab_torch.kernels.jv_rect import _solve_rect_plain
+
+    cost = cost.cpu()
+    act = [True] * cost.shape[0] if active is None else active.tolist()
+    out = []
+    for b, a in enumerate(act):
+        if a:
+            stats = {}
+            _solve_rect_plain(cost[b], stats)
+            out.append(stats["steps"])
+    return out
 
 
 # ---------------------------------------------------------------- phase 4: K3
@@ -724,9 +819,9 @@ def phase_main(torch, dev, n_chunks=4, chunk=128, size=640):
 
     track()
     k1 = solve_square_batched.launches
-    trk = profile_window(torch, track, len(frames), kernel="jv_batched")
+    trk = profile_window(torch, track, len(frames), kernel="jv_warp")
     k1 = (solve_square_batched.launches - k1) / len(frames)
-    mine = trk["jv_batched"]
+    mine = trk["jv_warp"]
     check(mine["launches_per_frame"] == k1,
           f"profiled K1 launches {mine['launches_per_frame']} per frame != "
           f"the wrapper's {k1}")
@@ -735,10 +830,76 @@ def phase_main(torch, dev, n_chunks=4, chunk=128, size=640):
         f"{mine['ms_per_launch']:.4f} ms per launch, "
         f"{mine['launches_per_frame']:.2f} launches and "
         f"{mine['ms_per_frame']:.4f} ms per frame")
+    k1_path = _k1_on_path(torch, step, init,
+                          [Detections(*(x[f] for x in dets))
+                           for f in range(chunk)])
     return launches, dict(fps=fps, syncs_per_frame=syncs_per_frame,
                           tracks_per_frame=per_frame,
                           detector_ms_per_frame=det_ms / chunk,
-                          tracker=trk)
+                          tracker=trk, k1_path=k1_path)
+
+
+def _k1_on_path(torch, step, init, frames, n_keep=48):
+    """A second, untimed pass of the main path's tracker over ``frames``
+    that records every K1 input (cost, k_eff, active). Reports the share
+    of launches that solve (a problem active with k_eff > 0; the others
+    leave at once behind the fast paths) and their mean path steps, checks
+    the last ``n_keep`` solving launches and ten that do not solve against
+    the plain version, and times the kept solving launches."""
+    import tracklab_torch.ops.assignment as A
+    from tracklab_torch.kernels.jv import (_solve_square_plain,
+                                           solve_square_batched)
+
+    inputs = []
+
+    def record_k1(cost, k_eff, active):
+        inputs.append((cost.clone(), k_eff.clone(), active.clone()))
+        return solve_square_batched(cost, k_eff, active)
+
+    A.solve_square_batched = record_k1
+    try:
+        st = init
+        for d in frames:
+            st, _ = step(st, d)
+    finally:
+        A.solve_square_batched = solve_square_batched
+    torch.cuda.synchronize()
+    solves = [bool((a & (k > 0)).any()) for _, k, a in inputs]
+    solving = [x for x, s in zip(inputs, solves) if s]
+    idle = [x for x, s in zip(inputs, solves) if not s][-10:]
+    kept = solving[-n_keep:]
+    steps = []
+    for c, k, a in kept + idle:
+        want = torch.full((c.shape[0], c.shape[1]), -1, dtype=torch.int32)
+        stats = {}
+        for b, (kb, ab) in enumerate(zip(k.tolist(), a.tolist())):
+            if ab and kb > 0:
+                want[b, :kb] = _solve_square_plain(c[b, :kb, :kb].cpu(),
+                                                   stats)
+        check(torch.equal(solve_square_batched(c, k, a).cpu(), want),
+              "K1 differs from its plain version on a main-path input")
+        steps.append(stats.get("steps", 0))
+    n_steps = sum(steps[:len(kept)])
+
+    def run_kept():
+        for c, k, a in kept:
+            solve_square_batched(c, k, a)
+
+    ms = cuda_ms(run_kept, 20) / max(len(kept), 1)
+    out = dict(launches=len(inputs), solving_share=len(solving)
+               / max(len(inputs), 1),
+               steps_per_solving_launch=n_steps / max(len(kept), 1),
+               ms_per_solving_launch=ms,
+               ns_per_step=ms * len(kept) * 1e6 / max(n_steps, 1),
+               shape=list(inputs[-1][0].shape) if inputs else None)
+    log(f"K1 on the main path's own inputs ({len(frames)} tracker steps): "
+        f"{len(inputs)} launches, {len(solving)} solve "
+        f"({out['solving_share']:.3f}); the last {len(kept)} solving and "
+        f"{len(idle)} idle launches identical to the plain version; "
+        f"{out['steps_per_solving_launch']:.1f} path steps and "
+        f"{ms:.4f} ms per solving launch, {out['ns_per_step']:.1f} ns per "
+        f"step")
+    return out
 
 
 # ---------------------------------------------------- phase 8: multi-video
@@ -841,8 +1002,9 @@ def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
     track()
     trk = profile_window(torch, track, len(frames))
     log(f"multi-video tracker steps (V={n_videos}): {trk}")
-    k2, trips = _k2_on_path(torch, cfg, dets)
+    k2, trips, k2_steps = _k2_on_path(torch, cfg, dets)
     return launches, k2, dict(fps=fps, videos=n_videos, frames_per_video=F,
+                          k2_path=k2_steps,
                           detector_ms_per_video_chunk=t_det * 1e3
                           / n_videos,
                           tracker_ms_per_step=trk_ms,
@@ -894,25 +1056,31 @@ def _k2_on_path(torch, cfg, dets, n_keep=8):
             solve_rect_batched(c, a)
 
     ms = cuda_ms(run_all, 20) / len(inputs)
-    stats = {}
     t_plain = 0.0
     for c, a in inputs[-2:]:          # the last step's two stages
-        t_plain += cuda_ms(lambda: solve_rect_batched_plain(c, a, stats), 1,
+        t_plain += cuda_ms(lambda: solve_rect_batched_plain(c, a), 1,
                            warmup=0)
-    steps = stats["steps"] / 2
+    per = [_steps_per_problem(torch, c, a) for c, a in inputs]
+    steps = sum(map(sum, per)) / len(inputs)
+    longest = sum(max(s, default=0) for s in per) / len(inputs)
     V, R, C = inputs[-1][0].shape
     b_ms, b_by = bound_ms(V * R * C * 4 + V * C * 4, steps * 6 * C,
                           PEAK["f32"])
     log(f"K2 on the multi-video path's own problems ({len(inputs)} launches "
         f"of {(V, R, C)}, identical to the plain version): kernel {ms:.4f} ms"
         f" per launch, plain {t_plain / 2:.3f} ms, bound {b_ms:.6f} ms "
-        f"({b_by}), {steps:.0f} path steps per launch; ORU replay trips per "
-        f"step: mean {sum(trips) / len(trips):.2f}, max {max(trips)}")
+        f"({b_by}), {steps:.1f} path steps per launch, {longest:.1f} in its "
+        f"longest problem: {ms * 1e6 / longest:.1f} ns per step; ORU replay "
+        f"trips per step: mean {sum(trips) / len(trips):.2f}, max "
+        f"{max(trips)}")
     return dict(name="K2 jv_rect_solve_batched", route="cuda",
                 source="tracklab_torch/csrc/jv_rect.cu",
                 replaces="tracklab_tpu/ops/assignment_pallas.py:302",
                 max_abs_err=0.0, ms=ms, plain_ms=t_plain / 2, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None), trips
+                bound_by=b_by, library_ms=None), trips, dict(
+                    steps_per_launch=steps,
+                    longest_problem_steps_per_launch=longest,
+                    ns_per_step=ms * 1e6 / longest)
 
 
 # ---------------------------------------------------------------- phase 9: K4
@@ -1350,7 +1518,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
     check_sass(torch)
 
-    k1 = phase_k1(torch, dev)
+    k1, k1_steps = phase_k1(torch, dev)
     k2_random = phase_k2(torch, dev)
     k3 = phase_k3(torch, dev, time_batch=128)
     phase_tracker(torch, dev)
@@ -1369,7 +1537,10 @@ def main() -> int:
     k2["launches"] = v_launches["K2"]
     k4["launches"] = p_launches["K4"]
     videos_stats["k2_random_costs"] = {
-        k: k2_random[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        k: k2_random[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "steps", "longest_problem_steps",
+                                  "ns_per_step")}
+    main_stats["k1_s64"] = k1_steps
 
     print(json.dumps({"main_path": main_stats,
                       "multi_video_path": videos_stats,

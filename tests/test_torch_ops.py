@@ -83,6 +83,46 @@ def test_solve_square_ties_identical_to_lax(case):
                                atol=1e-6)
 
 
+def _square_signed_zeros():
+    rng = np.random.default_rng(41)
+    c = rng.integers(-1, 2, (33, 33)).astype(np.float32)
+    c[(c == 0) & (rng.uniform(size=(33, 33)) < 0.5)] = -0.0
+    c[:, 0], c[:, 1] = -0.0, 0.0
+    return c
+
+
+def _square_forced_padded():
+    """The (8, 8) square ``_forced_prep`` builds for a padded (5, 8)
+    problem: absorbing edges, zeros on invalid slots."""
+    rng = np.random.default_rng(42)
+    cost = torch.from_numpy(rng.uniform(-1, 0, (1, 5, 8)).astype(np.float32))
+    rm = torch.tensor([[True, True, False, True, True]])
+    cm = torch.from_numpy(rng.uniform(size=(1, 8)) < 0.6)
+    return TA._forced_prep(cost, rm, cm)[0][0].numpy()
+
+
+_SQUARE_EDGES = {
+    "signed_zeros_k33": _square_signed_zeros,
+    "all_equal_rows_k16": lambda: np.repeat(np.random.default_rng(43).normal(
+        size=(1, 16)).astype(np.float32), 16, axis=0),
+    "forced_padded_k8": _square_forced_padded,
+}
+
+
+@pytest.mark.parametrize("case", list(_SQUARE_EDGES))
+def test_solve_square_plain_edge_cases_identical_to_lax(case):
+    """The plain solver, which K1 is held to on the card bit for bit, on
+    the warp kernel's edge cases: -0.0 beside +0.0 (ragged runs at
+    K = 33), rows all equal, and a padded forced-matching square."""
+    c = _SQUARE_EDGES[case]()
+    want = np.asarray(_lax_solve(jnp.asarray(c)))
+    got = TA._solve_square_plain(torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(got, want)
+    r, cc = linear_sum_assignment(c)
+    np.testing.assert_allclose(c[got, np.arange(c.shape[0])].sum(),
+                               c[r, cc].sum(), atol=1e-5)
+
+
 def test_batched_plain_blocks_and_inactive():
     """The batched entry solves the leading k_eff block, -1 elsewhere, and
     skips inactive problems, like the kernel."""

@@ -101,6 +101,93 @@ def test_rect_batched_plain_active_and_errors():
         solve_rect_batched(c[0])
 
 
+def _signed_zeros(rng, R, C):
+    """-1, -0.0, +0.0 and 1, with -0.0 and +0.0 in every row."""
+    c = rng.integers(-1, 2, (R, C)).astype(np.float32)
+    c[(c == 0) & (rng.uniform(size=(R, C)) < 0.5)] = -0.0
+    c[:, 0], c[:, 1] = -0.0, 0.0
+    return c
+
+
+def _forced_rect_matrix(R, C, seed):
+    """The matrix ``_forced_rect`` hands the rectangular solver on a padded
+    problem: normalised valid costs minus 2, zeros on invalid slots."""
+    rng = np.random.default_rng(seed)
+    cost = torch.from_numpy(rng.uniform(-1, 0, (1, R, C)).astype(np.float32))
+    rm = torch.from_numpy(rng.uniform(size=(1, R)) < 0.75)
+    cm = torch.from_numpy(rng.uniform(size=(1, C)) < 0.65)
+    finite = torch.isfinite(cost) & rm[:, :, None] & cm[:, None, :]
+    c_hat = TA._normalise(cost, finite)
+    return torch.where(finite, c_hat, torch.zeros_like(c_hat))[0].numpy()
+
+
+_RECT_EDGES = {
+    "signed_zeros": lambda: _signed_zeros(np.random.default_rng(21), 5, 33),
+    "ragged_c33": lambda: np.random.default_rng(22).normal(
+        size=(5, 33)).astype(np.float32),
+    "all_equal_rows": lambda: np.repeat(np.random.default_rng(23).normal(
+        size=(1, 33)).astype(np.float32), 5, axis=0),
+    "forced_padded": lambda: _forced_rect_matrix(8, 16, 24),
+}
+
+
+@pytest.mark.parametrize("case", list(_RECT_EDGES))
+def test_rect_plain_edge_cases_identical_to_lax(case):
+    """The plain solver, which K2 is held to on the card bit for bit, on
+    the warp kernel's edge cases: ties between -0.0 and +0.0, a ragged last
+    lane run (C = 33), rows all equal, and a padded forced-matching
+    problem (zeros on invalid slots)."""
+    c = _RECT_EDGES[case]()
+    want = np.asarray(_jax_rect()(jnp.asarray(c)))
+    got = solve_rect_batched_plain(torch.from_numpy(c)[None])[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    n, obj = _rect_objective(c, got)
+    rr, cc = linear_sum_assignment(c)
+    assert n == c.shape[0]
+    np.testing.assert_allclose(obj, c[rr, cc].sum(), atol=1e-5)
+
+
+def _warp_argmin(reach, used):
+    """The warp kernels' argmin rule (csrc/jv_rect.cu, csrc/jv.cu) in numpy:
+    lane l holds the columns [l*W, l*W + W), W = ceil(C/32); a column's
+    key is the order-preserving image of its value with -0.0 made +0.0, a
+    used column's key the largest; each lane takes its run's lowest
+    minimum, the warp the smallest key (redux.sync) and the lowest lane
+    holding it (ballot, ffs). Returns the column and the decoded value."""
+    C = reach.shape[0]
+    W = -(-C // 32)
+    b = (reach + np.float32(0.0)).view(np.uint32)
+    keys = np.where(b >> 31 == 1, ~b, b | np.uint32(0x80000000))
+    keys = np.where(used, np.uint32(0xFFFFFFFF), keys)
+    runs = np.full(32 * W, 0xFFFFFFFF, np.uint32)
+    runs[:C] = keys
+    runs = runs.reshape(32, W)
+    kb, tb = runs.min(axis=1), runs.argmin(axis=1)
+    lane = int(np.flatnonzero(kb == kb.min())[0])
+    k = kb[lane]
+    bits = k ^ np.uint32(0x80000000) if k >> 31 else ~k
+    return lane * W + int(tb[lane]), np.uint32(bits).view(np.float32)
+
+
+def test_warp_argmin_rule_matches_torch_argmin():
+    """On rows with ties, -0.0 beside +0.0, used (inf) columns and ragged
+    widths, the warp rule gives torch.argmin's index and the exact minimum,
+    as the solvers' step needs it."""
+    rng = np.random.default_rng(31)
+    for C in (1, 7, 32, 33, 64, 100, 128, 200, 256):
+        for _ in range(40):
+            x = rng.integers(-2, 3, C).astype(np.float32) * np.float32(0.5)
+            x[(x == 0) & (rng.uniform(size=C) < 0.5)] = -0.0
+            used = rng.uniform(size=C) < 0.3
+            used[rng.integers(C)] = False           # a column stays free
+            reach = np.where(used, np.float32(np.inf), x)
+            j, val = _warp_argmin(reach, used)
+            want = int(torch.argmin(torch.from_numpy(reach)))
+            assert j == want and val == reach[want]
+        x = rng.normal(size=C).astype(np.float32)
+        assert _warp_argmin(x, np.zeros(C, bool))[0] == int(np.argmin(x))
+
+
 def _draws(shape, n=40):
     """The 40 draws of test_batched_mode.py:test_solver_batched_equivalence."""
     R, C = shape

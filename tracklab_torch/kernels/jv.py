@@ -1,10 +1,12 @@
 """K1: the JV assignment kernel (``csrc/jv.cu``) and its plain version.
 
 Replaces the Pallas TPU kernel ``tracklab_tpu/ops/assignment_pallas.py``
-(``_jv_kernel`` behind ``solve_square_pallas``). The CUDA kernel runs one CTA
-per problem with one thread per column; it is bound by latency (K dependent
-rows, each a chain of block-wide argmins), not by bytes. See the source note
-in ``csrc/jv.cu``.
+(``_jv_kernel`` behind ``solve_square_pallas``). The CUDA kernel solves each
+problem on one warp, several problems to a CTA: a lane holds a contiguous
+run of ceil(S/32) columns in registers, and each path step's argmin is one
+``redux.sync`` plus a ballot, with no block barrier. It is bound by the
+latency of those dependent steps (K rows, each a chain of argmins), not by
+bytes or operations. See the source note in ``csrc/jv.cu``.
 
 ``solve_square_batched`` is the wrapper: for CPU tensors it runs the plain
 version, for CUDA tensors it launches the kernel (or raises). Its

@@ -4,10 +4,12 @@ version.
 Replaces the Pallas TPU kernel ``tracklab_tpu/ops/assignment_pallas.py``
 (``_jv_rect_batched_kernel`` behind ``solve_rect_batched_pallas``): V
 independent exact assignments of all R rows of an (R, C) cost matrix,
-R <= C, in one launch. The CUDA kernel runs one CTA per problem with one
-thread per column; like K1 it is bound by latency (R dependent rows, each a
-chain of block-wide argmins), not by bytes. See the source note in
-``csrc/jv_rect.cu``.
+R <= C, in one launch. The CUDA kernel solves each problem on one warp,
+several problems to a CTA, with K1's design: a lane holds a contiguous run
+of ceil(C/32) columns in registers, and each path step's argmin is one
+``redux.sync`` plus a ballot, with no block barrier. Like K1 it is bound by
+the latency of dependent steps (R rows, each a chain of argmins), not by
+bytes. See the source note in ``csrc/jv_rect.cu``.
 
 ``solve_rect_batched`` is the wrapper: for CPU tensors it runs the plain
 version, for CUDA tensors it launches the kernel (or raises). Its
