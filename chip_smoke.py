@@ -3,6 +3,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
+  0. report whether pandas and yaml import, and their versions (no branch
+     depends on it);
   1. build the CUDA kernels from tracklab_torch/csrc (one nvcc per source,
      all started together), and check with cuobjdump -sass that the bf16
      kernels (csp_mma_kernel, vit_attention_mma_kernel) run on the tensor
@@ -25,12 +27,15 @@ Phases (any failure exits non-zero):
      shapes and at two YOLOX-tiny 416 layers whose sizes do not divide into
      whole tiles (dark3 52x52, dark5 13x13), batch 8: f32 rel <= 1e-4 (TF32
      off); bf16 rel <= 3e-2 and no farther from f32 than the plain bf16
-     layer (x1.5), with the planner's tile and with bf16's compact ring;
-     the planner's shared memory equal to the kernel's; at two layers only
-     the compact ring fits (YOLOX-l dark3, YOLOX-x dark5 at 640, batch 2)
-     bf16 no farther from f32 than the plain bf16 layer and f32 raising
-     ValueError; then the seven YOLOX-s layers timed at batch 128, also
-     with the largest tile that fits instead of the planner's;
+     layer (x1.5), with the planner's tile, with bf16's compact ring and
+     with the staged route (f32 too); the planner's shared memory equal to
+     the kernel's; at two layers only the compact ring fits (YOLOX-l dark3,
+     YOLOX-x dark5 at 640) and three no tile fits (YOLOX-l dark4, YOLOX-x
+     dark3 and dark4), batch 2, bf16 no farther from f32 than the plain
+     bf16 layer and f32 (the staged route) rel <= 1e-4, each timed by the
+     planner's route, the staged route and plain; then the seven YOLOX-s
+     layers timed at batch 128, also with the largest tile that fits
+     instead of the planner's;
   5. OC-SORT on the card (through K1) against OC-SORT on the CPU on a
      200-frame, 20-object stream, id for id;
   6. multi-video trackers at 128 tracks / 64 dets: OC-SORT over V = 8
@@ -39,31 +44,36 @@ Phases (any failure exits non-zero):
      within 1e-4); one ByteTrack stream equal to the CPU's;
   7. the main path: YOLOX-s 640 bf16 (seeded random weights) -> NMS ->
      OC-SORT over 4 chunks of 128 quasi-static uint8 frames, with the
-     kernels' launch counters read around it; 32 tracker steps profiled,
+     kernels' launch counters read around it and 0 host syncs per frame
+     required (the ORU replay runs as a kernel); 32 tracker steps profiled,
      with K1's own device time and launches on the path read from the
      profile; then an untimed pass over the first chunk that records the
-     path's K1 inputs: the share of launches that solve, their path steps,
-     the last 48 solving launches checked against the plain version and
-     timed (ns per step);
+     path's K1 and ORU replay inputs: the share of launches that solve,
+     their path steps, the last 48 solving launches checked against the
+     plain version and timed (ns per step);
   8. the multi-video path: 8 videos x 128 frames -> YOLOX-s 640 bf16 -> NMS
      (~20 detections per frame, 64 slots, min_confidence 0.4 as a mask) ->
      OC-SORT with batched=True stepping the 8 videos at once (K2), with
-     the launch counters read around it and 16 tracker steps profiled;
-     then an untimed pass that records the ORU replay's trips per step and
-     K2's last inputs, on which K2 is checked against its plain version
-     and timed (ns per step of each launch's longest problem).
+     the launch counters read around it, 0 host syncs per step required
+     and 16 tracker steps profiled; then an untimed pass that records the
+     ORU replay's inputs and trips per step and K2's last inputs, on which
+     K2 is checked against its plain version and timed (ns per step of
+     each launch's longest problem).
 
-Phases 9-11 run before 7 and 8, phase 12 after them:
+Phases 9-11 and 14 run before 7 and 8; 12, 13 and 15 after them:
   9. K4 (ViT attention) against its plain version at (384, 193, 12, 64),
      (8, 256, 12, 64) with n_valid 193, (5, 37, 3, 64) and (2, 193, 12, 64)
      with n_valid 100, in f32 (1e-5 abs) and bf16
      (2e-2 of the output's scale, and no farther from the f32 plain result
      than the plain bf16 version, x1.5), on q, k, v views of one packed
-     qkv tensor; then timed in bf16 at B = 384 beside the plain version and
-     SDPA (a yardstick only: the port never calls it);
- 10. the ViT-B KPR (bf16, erfpoly GELU, seeded weights) at batch 64 through
-     K4 and through the plain attention: embeddings within 5e-2 of their
-     scale, flipped binary visibility bits counted;
+     qkv tensor, in both softmax modes (f32, and the compute dtype's
+     against vit_attention_compute_plain); then timed in bf16 at B = 384
+     in both modes beside the plain version and SDPA (a yardstick only:
+     the port never calls it);
+ 10. the ViT-B KPR (bf16, erfpoly GELU, seeded weights) at batch 64 once
+     per attn_impl name, through K4 in that name's softmax mode and
+     through the same mode's plain version on the card: embeddings within
+     5e-2 of their scale, flipped binary visibility bits counted;
  11. BPBReID-StrongSORT (64 tracks, 32 dets, 6 x 512 part features) on the
      card against the CPU on one 40-frame synthetic stream (IoU and OKS
      motion, and the bot_sort strategy), and V = 8
@@ -76,10 +86,39 @@ Phases 9-11 run before 7 and 8, phase 12 after them:
      around it and the host syncs of one warmed chunk counted; then the
      first chunk split into detector, KPR (K4 and the top kernels within
      it, from the profiler) and 16 profiled tracker steps, and K4 checked
-     and timed on the path's own layer-0 q, k, v.
+     and timed on the path's own layer-0 q, k, v;
+ 13. the ORU replay kernel against its plain version on the main path's
+     and the multi-video path's recorded replay inputs (x within rtol 1e-5
+     and atol 1e-4, P within rtol 1e-4 and atol 1e-3: cuBLAS sums the
+     plain version's small products in its own order), timed on the
+     multi-video inputs;
+ 14. YOLOX-l and YOLOX-x at 640, batch 2, bf16 (seeded weights): K3 runs
+     every dense layer of 80x80 or less (its launches counted, each layer
+     printed with its route: wide or compact ring, or staged), each model
+     held against its own plain forward and both against the f32 plain
+     forward;
+ 15. the ReID path: 8 chunks of 16 quasi-static uint8 640 frames ->
+     YOLOX-s bf16 -> NMS (~20 detections per frame, 32 slots) -> device
+     crops -> OSNet x1_0 f32 at 256 x 128 (buckets 8, 16, 32) ->
+     StrongSORT (strong_sort.yaml: 128 tracks, nn_budget 100, 512-d,
+     max_age 40, min_confidence 0.4), with the launch counters read around
+     it and the host syncs of one warmed chunk counted; the tracker stage
+     rerun with the plain JV solvers on its first 32 recorded frames, id
+     for id; the detector rerun with the plain CSPLayers, its detections
+     matched by IoU and compared; the first chunk split into detector,
+     OSNet and 16 profiled tracker steps; then the tracker stage alone
+     over V = 4 videos (32 frames each) with batched=True (K2, its
+     launches reported apart from the path's) against 4 single-video runs
+     in that mode, id for id, K2 identical to its plain version on the
+     last 8 of the stage's inputs, and the stage's first 16 frames with
+     the plain rectangular solver id for id (the default mode, K1,
+     compared: NaN gating costs of free slots empty its appearance stage,
+     a reference fault kept for parity, so the two modes part, in the JAX
+     package as here).
 
 The last three lines are the card's name and power limit, a JSON line with
-each kernel's check and times, and {"ok": true, "device": ...}.
+each kernel's check and times (K1-K4 and the ORU replay), and
+{"ok": true, "device": ...}.
 """
 from __future__ import annotations
 
@@ -357,11 +396,17 @@ CSP_SHAPES = [("dark3__1", 80, 128, 128, 3, True),
 # 64-wide chunk, a partial 64-channel block) and ch = 192
 CSP_RAGGED = [("tiny416 dark3__1", 52, 96, 96, 3, True),
               ("tiny416 dark5__2", 13, 384, 384, 1, False)]
-# two layers only bf16's compact ring fits (in f32 no tile fits: K3 raises):
-# YOLOX-l dark3 at 640 (ch 128, n 9) and YOLOX-x dark5 at 640 (ch 640, n 4),
-# checked at batch 2
+# two layers only bf16's compact ring fits (in f32 no tile fits: the staged
+# route): YOLOX-l dark3 at 640 (ch 128, n 9) and YOLOX-x dark5 at 640 (ch
+# 640, n 4), checked at batch 2
 CSP_COMPACT = [("l640 dark3__1", 80, 256, 256, 9, True),
                ("x640 dark5__2", 20, 1280, 1280, 4, False)]
+# the three layers no tile fits in either type (the staged route): YOLOX-l
+# dark4 (ch 256, n 9), YOLOX-x dark3 (ch 160, n 12) and dark4 (ch 320, n 12)
+# at 640, checked at batch 2
+CSP_STAGED = [("l640 dark4__1", 40, 512, 512, 9, True),
+              ("x640 dark3__1", 80, 320, 320, 12, True),
+              ("x640 dark4__1", 40, 640, 640, 12, True)]
 
 
 def _seeded_csp(torch, cin, cout, n, shortcut, dtype, dev, seed, realistic):
@@ -388,6 +433,30 @@ def _seeded_csp(torch, cin, cout, n, shortcut, dtype, dev, seed, realistic):
     return layer.to(dev)
 
 
+def _plain_f64(torch, layer, x):
+    """``layer``'s plain form in f64 throughout (convs, unfolded BN, SiLU,
+    residuals): the truth the deep layers' f32 results are held to."""
+    import torch.nn.functional as F
+
+    from tracklab_torch.models.yolox import BN_EPS
+
+    def cba(m, x):
+        y = F.conv2d(x, m.conv.weight.double(), None, m.conv.stride,
+                     m.conv.padding, groups=m.conv.groups)
+        bn, sh = m.bn, (1, -1, 1, 1)
+        mul = (torch.rsqrt(bn.running_var.double() + BN_EPS)
+               * bn.weight.double())
+        return F.silu((y - bn.running_mean.double().view(sh)) * mul.view(sh)
+                      + bn.bias.double().view(sh))
+
+    x = x.double()
+    a = cba(layer.conv1, x)
+    for blk in layer.m:
+        y = cba(blk.conv2, cba(blk.conv1, a))
+        a = y + a if blk.use_add else y
+    return cba(layer.conv3, torch.cat([a, cba(layer.conv2, x)], dim=1))
+
+
 def _rel(got, want):
     return ((got.float() - want.float()).abs()
             / want.float().abs().clamp(min=1.0)).max().item()
@@ -411,20 +480,25 @@ def _largest_tile(H, W, n, ch, dtype, ring):
 
 
 def phase_k3(torch, dev, time_batch):
-    """f32: realistic weights, rel <= 1e-4 against the plain layer. bf16:
+    """f32: realistic weights, rel <= 1e-4 against the plain layer; at the
+    CSP_COMPACT and CSP_STAGED layers (n = 9 and 12) f32 rounding compounds
+    through the chain (BN folded in the kernel, not in the plain layer), so
+    there the kernel is held to the f64 plain layer, no farther from it than
+    the plain f32 layer is (x1.5). bf16:
     the main path's weights, rel <= 3e-2 against the plain bf16 layer, and
     no farther from the f32 plain layer than the plain bf16 layer is (x1.5).
     bf16 rounding compounds through the bottleneck chain, so how far two
     bf16 orders of rounding drift apart depends on the weights' gain and on
-    the depth: the CSP_COMPACT layers (n = 9, ch = 640) are held to the f32
-    comparison only, and the compact ring to both checks at the nine other
-    shapes, with the largest tile it fits."""
+    the depth: the CSP_COMPACT and CSP_STAGED layers (n = 9 and 12, ch up
+    to 640) are held to the f32 comparison only, and the compact ring (with
+    the largest tile it fits) and the staged route to both checks at the
+    nine other shapes, the staged route in f32 too."""
     import ctypes
 
     from tracklab_torch.kernels import _build
     from tracklab_torch.kernels import csp as k3_mod
-    from tracklab_torch.kernels.csp import (choose_tile, fused_csplayer,
-                                            smem_bytes)
+    from tracklab_torch.kernels.csp import (STAGED, choose_tile,
+                                            fused_csplayer, smem_bytes)
 
     def with_plan(plan, fn):
         """fn() with fused_csplayer held to ``plan`` (th, tw, ring)."""
@@ -441,9 +515,10 @@ def phase_k3(torch, dev, time_batch):
     max_abs = 0.0
     tot = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)
     rule_ms = {"cost model": [0.0, 0.0], "largest tile": [0.0, 0.0]}
+    deep_ms = {}
     n_fit = len(CSP_SHAPES + CSP_RAGGED)
     for i, (name, hw, cin, cout, n, sc) in enumerate(
-            CSP_SHAPES + CSP_RAGGED + CSP_COMPACT):
+            CSP_SHAPES + CSP_RAGGED + CSP_COMPACT + CSP_STAGED):
         for th, tw, ring in ((5, 7, 0), (5, 7, 1)):
             check(cu_smem(th, tw, n, cout // 2, 1, ring)
                   == smem_bytes(th, tw, n, cout // 2, torch.bfloat16, ring)
@@ -452,7 +527,8 @@ def phase_k3(torch, dev, time_batch):
                   f"K3 {name}: the kernel's shared memory differs from the "
                   "planner's")
         plans = {str(dt)[6:]: choose_tile(hw, hw, n, cin, cout // 2, cout, dt)
-                 for dt in (torch.bfloat16, torch.float32)[:1 + (i < n_fit)]}
+                 for dt in (torch.bfloat16, torch.float32)}
+        staged = (hw, hw, STAGED)
         g = torch.Generator().manual_seed(100 + i)
         x = torch.randn(8 if i < n_fit else 2, cin, hw, hw, generator=g).to(
             dev).contiguous(memory_format=torch.channels_last)
@@ -461,26 +537,33 @@ def phase_k3(torch, dev, time_batch):
         m32 = mk(torch.float32, realistic=False)
         m16 = mk(torch.bfloat16, realistic=False)
         with torch.no_grad():
-            if i < n_fit:
-                got32, want32 = fused_csplayer(l32, x), l32.forward_plain(x)
-                r32 = _rel(got32, want32)
-                f32_note = f"f32 rel {r32:.3e} (tol 1e-4)"
-            else:   # no f32 tile fits: the wrapper raises, never falls back
-                try:
-                    fused_csplayer(l32, x)
-                    check(False, f"K3 {name} f32: launched with no plan")
-                except ValueError:
-                    r32, f32_note = 0.0, "f32 raises ValueError (no tile)"
+            want32 = l32.forward_plain(x)
+            got32 = fused_csplayer(l32, x)
+            r32 = _rel(got32, want32)
+            f32_note = f"f32 rel {r32:.3e} (tol 1e-4)"
+            if i >= n_fit:
+                want64 = _plain_f64(torch, l32, x)
+                k64, p64 = _rel(got32, want64), _rel(want32, want64)
+                f32_note = (f"f32 rel {r32:.3e}; to f64: kernel {k64:.3e}, "
+                            f"plain f32 {p64:.3e} (tol x1.5)")
+                del want64
+            if i < n_fit:   # the staged route forced where a tile fits
+                r32s = with_plan(staged, lambda: _rel(fused_csplayer(l32, x),
+                                                      want32))
+                f32_note += f", staged route {r32s:.3e}"
+                r32 = max(r32, r32s)
             x16 = x.to(torch.bfloat16)
             got16, want16 = fused_csplayer(m16, x16), m16.forward_plain(x16)
             truth = m32.forward_plain(x)
             outs = {plans["bfloat16"]: got16}
             if i < n_fit:
                 small = _largest_tile(hw, hw, n, cout // 2, torch.bfloat16, 1)
-                outs[small] = with_plan(small,
-                                        lambda: fused_csplayer(m16, x16))
+                for plan in (small, staged):
+                    outs[plan] = with_plan(plan,
+                                           lambda: fused_csplayer(m16, x16))
         torch.cuda.synchronize()
-        check(r32 <= 1e-4, f"K3 {name} f32: rel {r32} > 1e-4")
+        check(r32 <= 1e-4 if i < n_fit else k64 <= 1.5 * p64,
+              f"K3 {name} f32: {f32_note}")
         worst["f32"] = max(worst["f32"], r32)
         p_truth = _rel(want16, truth)
         for plan, got in outs.items():
@@ -499,12 +582,19 @@ def phase_k3(torch, dev, time_batch):
                   f"{k_truth} from f32, plain bf16 {p_truth}")
             worst["bf16"] = max(worst["bf16"], r16)
             max_abs = max(max_abs, err.max().item())
-        if i >= n_fit:
+        if i >= n_fit:   # the planner's route, the staged one and plain
             with torch.no_grad():
                 k_ms = cuda_ms(lambda: fused_csplayer(m16, x16), 2, warmup=1)
+                s_ms = with_plan(staged, lambda: cuda_ms(
+                    lambda: fused_csplayer(m16, x16), 2, warmup=1))
                 p_ms = cuda_ms(lambda: m16.forward_plain(x16), 2, warmup=1)
-            log(f"K3 {name} bf16 batch 2 (compact ring): kernel {k_ms:.3f} "
-                f"ms, plain {p_ms:.3f} ms")
+            route = ("staged" if plans["bfloat16"][2] == STAGED
+                     else "compact ring")
+            deep_ms[name] = dict(plan=route, ms=k_ms, staged_ms=s_ms,
+                                 plain_ms=p_ms)
+            log(f"K3 {name} bf16 batch 2: planner's route ({route}) "
+                f"{k_ms:.3f} ms, staged route {s_ms:.3f} ms, plain "
+                f"{p_ms:.3f} ms")
         if i >= len(CSP_SHAPES):
             continue
 
@@ -544,7 +634,8 @@ def phase_k3(torch, dev, time_batch):
                 source="tracklab_torch/csrc/csp.cu",
                 replaces="tracklab_tpu/ops/csp_pallas.py:130",
                 max_abs_err=max_abs, ms=tot["ms"], plain_ms=tot["plain_ms"],
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                yolox_l_x_layers_batch2=deep_ms)
 
 
 # ----------------------------------------------------------- phase 5: tracker
@@ -735,11 +826,12 @@ def profile_window(torch, fn, n_frames, kernel=None):
     return out
 
 
-def phase_main(torch, dev, n_chunks=4, chunk=128, size=640):
+def phase_main(torch, dev, n_chunks=4, chunk=128, size=640, oru=None):
     from tracklab_torch.engine.fused import (fused_detect_track,
                                              make_yolox_detect_fn)
     from tracklab_torch.kernels.csp import fused_csplayer
     from tracklab_torch.kernels.jv import solve_square_batched
+    from tracklab_torch.kernels.oru_replay import oru_replay
     from tracklab_torch.models.yolox import YOLOX
     from tracklab_torch.trackers.common import Detections
     from tracklab_torch.trackers.ocsort import (OCSortConfig, ocsort_init,
@@ -781,6 +873,7 @@ def phase_main(torch, dev, n_chunks=4, chunk=128, size=640):
 
     solve_square_batched.launches = 0
     fused_csplayer.launches = 0
+    oru_replay.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, _, out = fused_detect_track(detect, step, ocsort_init(cfg, device=dev),
@@ -788,7 +881,7 @@ def phase_main(torch, dev, n_chunks=4, chunk=128, size=640):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"K1": solve_square_batched.launches,
-                "K3": fused_csplayer.launches}
+                "K3": fused_csplayer.launches, "ORU": oru_replay.launches}
     fps = F / dt
     per_frame = out.valid.sum(1).float().mean().item()
     log(f"main path: {F} frames in {dt:.3f} s = {fps:.2f} frames/s, "
@@ -797,6 +890,9 @@ def phase_main(torch, dev, n_chunks=4, chunk=128, size=640):
     check(launches["K3"] == 7 * n_chunks,
           f"K3 launches {launches['K3']} != 7 per chunk")
     check(launches["K1"] > 0, "K1 never launched on the main path")
+    check(launches["ORU"] == F, f"ORU replay launches {launches['ORU']} != "
+          "one per frame")
+    check(syncs == 0, f"main path: {syncs} host syncs in the warm-up chunk")
     check(out.valid.any().item(), "tracker emitted no tracks")
     check(torch.isfinite(out.ltrb[out.valid]).all().item(),
           "non-finite track boxes")
@@ -832,37 +928,56 @@ def phase_main(torch, dev, n_chunks=4, chunk=128, size=640):
         f"{mine['ms_per_frame']:.4f} ms per frame")
     k1_path = _k1_on_path(torch, step, init,
                           [Detections(*(x[f] for x in dets))
-                           for f in range(chunk)])
+                           for f in range(chunk)], oru=oru)
     return launches, dict(fps=fps, syncs_per_frame=syncs_per_frame,
                           tracks_per_frame=per_frame,
                           detector_ms_per_frame=det_ms / chunk,
                           tracker=trk, k1_path=k1_path)
 
 
-def _k1_on_path(torch, step, init, frames, n_keep=48):
+def _keep_oru(store, args, n_keep=32):
+    """Keep a copy of one ORU replay call's inputs in ``store`` when a slot
+    replays (the last ``n_keep``), or in ``store["idle"]`` (the last 4)."""
+    ins = tuple(t.clone() for t in args)
+    key = "replay" if bool(ins[5].any()) else "idle"
+    store.setdefault(key, []).append(ins)
+    del store[key][:-(n_keep if key == "replay" else 4)]
+
+
+def _k1_on_path(torch, step, init, frames, n_keep=48, oru=None):
     """A second, untimed pass of the main path's tracker over ``frames``
     that records every K1 input (cost, k_eff, active). Reports the share
     of launches that solve (a problem active with k_eff > 0; the others
     leave at once behind the fast paths) and their mean path steps, checks
     the last ``n_keep`` solving launches and ten that do not solve against
-    the plain version, and times the kept solving launches."""
+    the plain version, and times the kept solving launches. ``oru``, a
+    dict, receives the pass's ORU replay inputs (:func:`_keep_oru`)."""
     import tracklab_torch.ops.assignment as A
     from tracklab_torch.kernels.jv import (_solve_square_plain,
                                            solve_square_batched)
+    from tracklab_torch.ops.kalman import XYSRFilter
 
     inputs = []
+    replay = XYSRFilter.oru_replay_batch
 
     def record_k1(cost, k_eff, active):
         inputs.append((cost.clone(), k_eff.clone(), active.clone()))
         return solve_square_batched(cost, k_eff, active)
 
+    def record_oru(*args):
+        if oru is not None:
+            _keep_oru(oru, args)
+        return replay(*args)
+
     A.solve_square_batched = record_k1
+    XYSRFilter.oru_replay_batch = staticmethod(record_oru)
     try:
         st = init
         for d in frames:
             st, _ = step(st, d)
     finally:
         A.solve_square_batched = solve_square_batched
+        XYSRFilter.oru_replay_batch = staticmethod(replay)
     torch.cuda.synchronize()
     solves = [bool((a & (k > 0)).any()) for _, k, a in inputs]
     solving = [x for x, s in zip(inputs, solves) if s]
@@ -904,7 +1019,7 @@ def _k1_on_path(torch, step, init, frames, n_keep=48):
 
 # ---------------------------------------------------- phase 8: multi-video
 def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
-                 max_dets=64, min_confidence=0.4):
+                 max_dets=64, min_confidence=0.4, oru=None):
     """The multi-video path: V videos of uint8 frames -> YOLOX-s 640 bf16
     -> NMS -> per-video padded Detections (V, F, D) -> OC-SORT with
     ``batched=True`` stepping all V videos at once (one K2 launch per
@@ -913,6 +1028,7 @@ def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
     from tracklab_torch.kernels.csp import fused_csplayer
     from tracklab_torch.kernels.jv import solve_square_batched
     from tracklab_torch.kernels.jv_rect import solve_rect_batched
+    from tracklab_torch.kernels.oru_replay import oru_replay
     from tracklab_torch.models.yolox import YOLOX
     from tracklab_torch.trackers.common import Detections, repeat_state
     from tracklab_torch.trackers.ocsort import (OCSortConfig, ocsort_init,
@@ -962,6 +1078,7 @@ def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
     solve_square_batched.launches = 0
     solve_rect_batched.launches = 0
     fused_csplayer.launches = 0
+    oru_replay.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dets = detect_all()
@@ -972,7 +1089,7 @@ def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
     wall = time.perf_counter() - t0
     launches = {"K1": solve_square_batched.launches,
                 "K2": solve_rect_batched.launches,
-                "K3": fused_csplayer.launches}
+                "K3": fused_csplayer.launches, "ORU": oru_replay.launches}
     F = n_frames
     fps = n_videos * F / wall
     trk_ms = (wall - t_det) / F * 1e3
@@ -983,6 +1100,9 @@ def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
         f"{launches} ({launches['K2'] / F:.2f} K2 per step); {syncs:.3f} "
         f"host syncs per step; {per_frame:.2f} tracks per frame")
     check(launches["K2"] > 0, "K2 never launched on the multi-video path")
+    check(launches["ORU"] == F, f"ORU replay launches {launches['ORU']} != "
+          "one per step")
+    check(syncs == 0, f"multi-video path: {syncs} host syncs per step")
     check(launches["K3"] == 7 * n_videos,
           f"K3 launches {launches['K3']} != 7 per video chunk")
     check(out.valid.shape == (n_videos, F, cfg.max_tracks), "output shape")
@@ -1002,7 +1122,7 @@ def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
     track()
     trk = profile_window(torch, track, len(frames))
     log(f"multi-video tracker steps (V={n_videos}): {trk}")
-    k2, trips, k2_steps = _k2_on_path(torch, cfg, dets)
+    k2, trips, k2_steps = _k2_on_path(torch, cfg, dets, oru=oru)
     return launches, k2, dict(fps=fps, videos=n_videos, frames_per_video=F,
                           k2_path=k2_steps,
                           detector_ms_per_video_chunk=t_det * 1e3
@@ -1015,9 +1135,10 @@ def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
                               mean=sum(trips) / len(trips), max=max(trips)))
 
 
-def _k2_on_path(torch, cfg, dets, n_keep=8):
+def _k2_on_path(torch, cfg, dets, n_keep=8, oru=None):
     """A second, untimed pass of the multi-video tracker that records the
-    ORU replay's trip count per step and keeps the last ``n_keep`` K2
+    ORU replay's trip count per step (its largest gap) and inputs (into the
+    dict ``oru``, :func:`_keep_oru`) and keeps the last ``n_keep`` K2
     inputs; K2 is then checked against its plain version and timed on
     those inputs, the problems the path gives it."""
     import tracklab_torch.ops.assignment as A
@@ -1031,6 +1152,8 @@ def _k2_on_path(torch, cfg, dets, n_keep=8):
 
     def record_replay(x, P, z_prev, z_new, gap, need):
         trips.append(int(torch.where(need, gap, 0).max()))
+        if oru is not None:
+            _keep_oru(oru, (x, P, z_prev, z_new, gap, need))
         return replay(x, P, z_prev, z_new, gap, need)
 
     def record_k2(cost, active=None):
@@ -1097,16 +1220,20 @@ def _packed_qkv(torch, shape, dtype, dev, seed):
     return qkv.unbind(2)
 
 
-def _check_k4(torch, q, k, v, n_valid, what):
-    """K4 against its plain version on the same inputs: f32 within 1e-5
-    abs; bf16 within 2e-2 of the output's scale and no farther from the
-    f32 plain result than the plain bf16 version is (x1.5). Returns the
-    largest absolute difference from the plain version."""
-    from tracklab_torch.kernels.vit_attention import (vit_attention,
-                                                      vit_attention_plain)
+def _check_k4(torch, q, k, v, n_valid, what, softmax="f32"):
+    """K4 in the ``softmax`` mode against that mode's plain version on the
+    same inputs: f32 within 1e-5 abs; bf16 within 2e-2 of the output's
+    scale and no farther from the f32 plain result than the plain bf16
+    version is (x1.5). Returns the largest absolute difference from the
+    plain version."""
+    from tracklab_torch.kernels.vit_attention import (
+        vit_attention, vit_attention_compute_plain, vit_attention_plain)
 
-    got = vit_attention(q, k, v, n_valid)
-    want = vit_attention_plain(q, k, v, n_valid)
+    plain = (vit_attention_compute_plain if softmax == "compute"
+             else vit_attention_plain)
+    got = vit_attention(q, k, v, n_valid, softmax=softmax)
+    want = plain(q, k, v, n_valid)
+    what = f"{what} softmax={softmax}"
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"K4 {what}: shape or dtype")
@@ -1138,73 +1265,105 @@ def phase_k4(torch, dev):
     from tracklab_torch.kernels.vit_attention import (vit_attention,
                                                       vit_attention_plain)
 
+    from tracklab_torch.kernels.vit_attention import (
+        vit_attention_compute_plain)
+
     max_abs = 0.0
     for i, (shape, n_valid) in enumerate(K4_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _packed_qkv(torch, shape, dtype, dev, seed=40 + i)
-            err = _check_k4(torch, q, k, v, n_valid,
-                            f"{shape} n_valid={n_valid}")
-            if dtype == torch.bfloat16:
-                max_abs = max(max_abs, err)
+            for softmax in ("f32", "compute"):
+                err = _check_k4(torch, q, k, v, n_valid,
+                                f"{shape} n_valid={n_valid}", softmax)
+                if dtype == torch.bfloat16:
+                    max_abs = max(max_abs, err)
     q, k, v = _packed_qkv(torch, K4_SHAPES[0][0], torch.bfloat16, dev, 40)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     with torch.no_grad():
         ms = cuda_ms(lambda: vit_attention(q, k, v), 20)
+        cd_ms = cuda_ms(lambda: vit_attention(q, k, v, softmax="compute"),
+                        20)
         plain_ms = cuda_ms(lambda: vit_attention_plain(q, k, v), 5)
+        cd_plain_ms = cuda_ms(lambda: vit_attention_compute_plain(q, k, v),
+                              5)
         lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt), 20)
     b_ms, b_by = _k4_bound(torch, q)
-    log(f"K4 timing at {tuple(q.shape)} bf16: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, SDPA (yardstick) {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+    log(f"K4 timing at {tuple(q.shape)} bf16: kernel {ms:.4f} ms (f32 "
+        f"softmax), {cd_ms:.4f} ms (compute-dtype softmax); plain "
+        f"{plain_ms:.4f} / {cd_plain_ms:.4f} ms, SDPA (yardstick) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="K4 vit_attention", route="cuda",
                 source="tracklab_torch/csrc/vit_attention.cu",
                 replaces="tracklab_tpu/ops/vit_attention_pallas.py:91",
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms,
+                compute_softmax=dict(ms=cd_ms, plain_ms=cd_plain_ms))
 
 
 # ------------------------------------------------------ phase 10: KPR model
+def _plain_attention():
+    """K4's plain version by softmax mode, with the wrapper's signature."""
+    from tracklab_torch.kernels.vit_attention import (
+        vit_attention_compute_plain, vit_attention_plain)
+
+    def attention(q, k, v, n_valid=None, softmax="f32"):
+        plain = (vit_attention_compute_plain if softmax == "compute"
+                 else vit_attention_plain)
+        return plain(q, k, v, n_valid)
+
+    return attention
+
+
 def phase_kpr(torch, dev, batch=64):
     """The ViT-B KPR (bf16, erfpoly GELU, seeded weights) at batch 64 on the
-    card, once through K4 and once through the plain attention: embeddings
-    within 5e-2 of their scale (bf16 rounding compounds over 12 layers),
-    and the flipped binary visibility bits counted."""
+    card once per attn_impl name, through K4 in the name's softmax mode and
+    through that mode's plain version (the CPU form, on the card):
+    embeddings within 5e-2 of their scale (bf16 rounding compounds over 12
+    layers), and the flipped binary visibility bits counted."""
     import tracklab_torch.models.kpr as kpr_mod
-    from tracklab_torch.kernels.vit_attention import (vit_attention,
-                                                      vit_attention_plain)
-    from tracklab_torch.models.kpr import KPR, extract_test_embeddings
+    from tracklab_torch.kernels.vit_attention import vit_attention
+    from tracklab_torch.models.kpr import (ATTN_IMPLS, KPR,
+                                           extract_test_embeddings)
 
-    model = KPR(dtype=torch.bfloat16, gelu="erfpoly",
-                device=dev).randomize_(3)
     g = torch.Generator(device="cpu").manual_seed(5)
     x = torch.randn((batch, 384, 128, 3), generator=g).to(dev, torch.bfloat16)
     prompts = torch.zeros((batch, 384, 128, 7), dtype=torch.bfloat16,
                           device=dev)
-    before = vit_attention.launches
-    out_k = model(x, prompts)
-    check(vit_attention.launches - before == 12,
-          "KPR did not launch K4 once per layer")
-    kpr_mod.vit_attention = vit_attention_plain    # the plain attention
-    try:
-        out_p = model(x, prompts)
-    finally:
-        kpr_mod.vit_attention = vit_attention
-    torch.cuda.synchronize()
-    (ek, vk), (ep, vp) = (extract_test_embeddings(o) for o in (out_k, out_p))
-    check(ek.shape == (batch, 6, 512) and torch.isfinite(ek.float()).all()
-          .item(), "KPR embeddings: shape or non-finite")
-    scale = ep.float().abs().max().item()
-    err = (ek.float() - ep.float()).abs().max().item()
-    flips = int((vk != vp).sum())
-    log(f"KPR ViT-B bf16 at batch {batch}: embeddings K4 vs plain max abs "
-        f"{err:.3e} = {err / scale:.3e} of scale (tol 5e-2); "
-        f"{flips} of {vk.numel()} binary visibility bits flipped; "
-        f"visible share {vk.float().mean().item():.3f}")
-    check(err <= 5e-2 * scale, f"KPR embeddings differ by {err} (scale "
-          f"{scale})")
-    return dict(max_abs=err, scale=scale, flipped_visibility=flips,
-                visibility_bits=vk.numel())
+    stats = {}
+    for impl in ATTN_IMPLS:
+        model = KPR(dtype=torch.bfloat16, gelu="erfpoly", attn_impl=impl,
+                    device=dev).randomize_(3)
+        before = vit_attention.launches
+        out_k = model(x, prompts)
+        check(vit_attention.launches - before == 12,
+              f"KPR {impl} did not launch K4 once per layer")
+        kpr_mod.vit_attention = _plain_attention()
+        try:
+            out_p = model(x, prompts)
+        finally:
+            kpr_mod.vit_attention = vit_attention
+        torch.cuda.synchronize()
+        (ek, vk), (ep, vp) = (extract_test_embeddings(o)
+                              for o in (out_k, out_p))
+        check(ek.shape == (batch, 6, 512) and torch.isfinite(ek.float())
+              .all().item(), f"KPR {impl} embeddings: shape or non-finite")
+        scale = ep.float().abs().max().item()
+        err = (ek.float() - ep.float()).abs().max().item()
+        flips = int((vk != vp).sum())
+        mode = model.backbone.blocks[0].attn.softmax
+        log(f"KPR ViT-B bf16 attn_impl={impl} ({mode} softmax) at batch "
+            f"{batch}: embeddings K4 vs plain max abs {err:.3e} = "
+            f"{err / scale:.3e} of scale (tol 5e-2); {flips} of "
+            f"{vk.numel()} binary visibility bits flipped; visible share "
+            f"{vk.float().mean().item():.3f}")
+        check(err <= 5e-2 * scale, f"KPR {impl} embeddings differ by {err} "
+              f"(scale {scale})")
+        stats[impl] = dict(softmax=mode, max_abs=err, scale=scale,
+                           flipped_visibility=flips,
+                           visibility_bits=vk.numel())
+        del model, out_k, out_p
+    return stats
 
 
 # ------------------------------------------------- phase 11: BPBReID tracker
@@ -1448,31 +1607,463 @@ def phase_parts(torch, dev, n_chunks=8, chunk=16, size=640):
     # K4 on the path's own inputs: layer 0 of the first chunk
     path_qkv = []
 
-    def record(q, k, v, n_valid=None):
+    def record(q, k, v, n_valid=None, softmax="f32"):
         if not path_qkv:
-            path_qkv.append((q.clone(), k.clone(), v.clone(), n_valid))
-        return vit_attention(q, k, v, n_valid)
+            path_qkv.append((q.clone(), k.clone(), v.clone(), n_valid,
+                             softmax))
+        return vit_attention(q, k, v, n_valid, softmax=softmax)
 
     kpr_mod.vit_attention = record
     try:
         kpr_call()
     finally:
         kpr_mod.vit_attention = vit_attention
-    q, k, v, n_valid = path_qkv[0]
-    err = _check_k4(torch, q, k, v, n_valid, f"path layer 0 {tuple(q.shape)}")
+    q, k, v, n_valid, softmax = path_qkv[0]
+    err = _check_k4(torch, q, k, v, n_valid, f"path layer 0 {tuple(q.shape)}",
+                    softmax)
     with torch.no_grad():
-        k4_path_ms = cuda_ms(lambda: vit_attention(q, k, v, n_valid), 10)
+        k4_path_ms = cuda_ms(lambda: vit_attention(q, k, v, n_valid,
+                                                   softmax=softmax), 10)
     b_ms, b_by = _k4_bound(torch, q)
-    log(f"K4 on the path's layer-0 inputs {tuple(q.shape)}: kernel "
-        f"{k4_path_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"K4 on the path's layer-0 inputs {tuple(q.shape)} ({softmax} "
+        f"softmax): kernel {k4_path_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
     return launches, dict(
         fps=fps, frames=F, chunk=chunk, syncs_per_frame=syncs_per_frame,
         tracks_per_frame=per_frame, detector_ms_per_chunk=det_ms,
         kpr_ms_per_chunk=kpr_ms, k4_ms_per_chunk=k4_ms,
         kpr_top_kernels_ms_per_chunk=kpr_top,
         tracker_ms_per_frame=trk_ms / len(inputs), tracker=trk,
-        k4_path=dict(shape=list(q.shape), ms=k4_path_ms, bound_ms=b_ms,
-                     max_abs_err=err))
+        k4_path=dict(shape=list(q.shape), softmax=softmax, ms=k4_path_ms,
+                     bound_ms=b_ms, max_abs_err=err))
+
+
+# ----------------------------------------------- phase 13: the ORU replay
+def phase_oru(torch, recorded):
+    """The ORU replay kernel against oru_replay_plain on each path's
+    recorded replay inputs ({path: {"replay": [...], "idle": [...]}}): x
+    within rtol 1e-5 and atol 1e-4, P within rtol 1e-4 and atol 1e-3 (the
+    plain version's batched products sum in cuBLAS's order), the frozen
+    state returned unchanged where no slot replays. Timed on the
+    multi-video path's inputs that replay."""
+    from tracklab_torch.kernels.oru_replay import oru_replay, oru_replay_plain
+
+    max_abs, n_checked = 0.0, 0
+    for path, store in recorded.items():
+        for kind in ("replay", "idle"):
+            for ins in store.get(kind, []):
+                gx, gP = oru_replay(*ins)
+                wx, wP = oru_replay_plain(*ins)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(gx, wx, rtol=1e-5, atol=1e-4)
+                torch.testing.assert_close(gP, wP, rtol=1e-4, atol=1e-3)
+                if kind == "idle":
+                    check(torch.equal(gx, ins[0]) and torch.equal(gP, ins[1]),
+                          f"ORU {path}: an idle launch changed the state")
+                max_abs = max(max_abs, (gx - wx).abs().max().item())
+                n_checked += 1
+        log(f"ORU replay {path}: {len(store.get('replay', []))} launches "
+            f"with a replay and {len(store.get('idle', []))} idle ones "
+            "within tolerance of the plain version")
+    timed = recorded["multi_video_path"].get("replay") or \
+        recorded["main_path"].get("replay")
+    check(timed, "no ORU replay input with a replay was recorded")
+    ins = timed[-1]
+
+    def run_all():
+        for a in timed:
+            oru_replay(*a)
+
+    ms = cuda_ms(run_all, 20) / len(timed)
+    plain_ms = cuda_ms(lambda: oru_replay_plain(*ins), 3, warmup=1)
+    n = ins[5].numel()
+    # each slot reads x, P, z_prev, z_new (64 f32), gap (i32) and need (u8)
+    # and writes x and P (56 f32); the replay's ~1000 f32 operations per
+    # step of each replaying slot's gap
+    steps = int(torch.where(ins[5], ins[4], 0).sum())
+    b_ms, b_by = bound_ms(n * (64 * 4 + 5 + 56 * 4), steps * 1000,
+                          PEAK["f32"])
+    trips = int(torch.where(ins[5], ins[4], 0).max())
+    log(f"ORU replay: {n_checked} launches checked (max abs err x "
+        f"{max_abs:.3e}); timed on {len(timed)} multi-video launches of "
+        f"{tuple(ins[5].shape)} slots: kernel {ms:.4f} ms per launch, plain "
+        f"{plain_ms:.4f} ms ({trips} trips, the largest gap), bound "
+        f"{b_ms:.6f} ms ({b_by})")
+    return dict(name="ORU oru_replay (port-only)", route="cuda",
+                source="tracklab_torch/csrc/oru_replay.cu",
+                replaces="tracklab_tpu/ops/kalman.py:242 (XYSRFilter."
+                "oru_replay_batch, a lax.while_loop: no Pallas kernel)",
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+# ------------------------------------------------ phase 14: YOLOX-l and -x
+def _plain_csp():
+    """A context in which every CSPLayer runs its unfused modules."""
+    from contextlib import contextmanager
+
+    from tracklab_torch.models.yolox import CSPLayer
+
+    @contextmanager
+    def ctx():
+        fwd = CSPLayer.forward
+        CSPLayer.forward = CSPLayer.forward_plain
+        try:
+            yield
+        finally:
+            CSPLayer.forward = fwd
+
+    return ctx()
+
+
+def phase_yolox_lx(torch, dev, batch=2, size=640):
+    """YOLOX-l and YOLOX-x at 640 in bf16 with seeded weights: K3 takes
+    every dense layer of at most CSP_MAX_PIXELS pixels (the JAX kernel's
+    rule), by the planner's route; each model against its own plain forward
+    (all layers unfused) and both against the f32 plain forward: the mean
+    |diff| over the mean |f32| of the kernel's outputs no more than 1.5x
+    the plain bf16 forward's."""
+    from tracklab_torch.kernels.csp import choose_tile, fused_csplayer
+    from tracklab_torch.models.yolox import CSP_MAX_PIXELS, YOLOX, CSPLayer
+
+    def route(mod, H, W):
+        if mod.depthwise or H * W > CSP_MAX_PIXELS:
+            return None
+        ring = choose_tile(H, W, len(mod.m), mod.conv1.conv.weight.shape[1],
+                           mod.conv1.conv.weight.shape[0],
+                           mod.conv3.conv.weight.shape[0], mod.dtype)[2]
+        return ("wide ring", "compact ring", "staged")[ring]
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randint(0, 256, (batch, size, size, 3), generator=g,
+                      device=dev).float()
+    flat = lambda outs: torch.cat([o.float().reshape(batch, -1)   # noqa
+                                   for o in outs], dim=1)
+    rel = lambda a, b: ((a - b).abs().mean() / b.abs().mean()).item()  # noqa
+    stats = {}
+    for variant in ("l", "x"):
+        m16 = YOLOX(num_classes=1, variant=variant, dtype=torch.bfloat16,
+                    device=dev).randomize_(0)
+        routes = []
+        hooks = [mod.register_forward_pre_hook(
+            lambda mod, inp, name=name: routes.append(
+                (name, tuple(inp[0].shape[2:]),
+                 route(mod, *inp[0].shape[2:]))))
+            for name, mod in m16.named_modules() if isinstance(mod, CSPLayer)]
+        before = fused_csplayer.launches
+        with torch.no_grad():
+            got = flat(m16(x))
+        torch.cuda.synchronize()
+        launched = fused_csplayer.launches - before
+        for h in hooks:
+            h.remove()
+        with torch.no_grad(), _plain_csp():
+            want = flat(m16(x))
+            m32 = YOLOX(num_classes=1, variant=variant, dtype=torch.float32,
+                        device=dev).randomize_(0)
+            truth = flat(m32(x))
+        torch.cuda.synchronize()
+        del m16, m32
+        took = [f"{n} {hw[0]}x{hw[1]} {k}" for n, hw, k in routes if k]
+        plain = [f"{n} {hw[0]}x{hw[1]}" for n, hw, k in routes if not k]
+        n_staged = sum(k == "staged" for _, _, k in routes)
+        check(launched == len(took), f"YOLOX-{variant}: {launched} K3 "
+              f"launches for {len(took)} dense layers of <= 80x80")
+        check(n_staged == {"l": 1, "x": 2}[variant],
+              f"YOLOX-{variant}: {n_staged} layers by the staged route")
+        check(bool(torch.isfinite(got).all()), f"YOLOX-{variant}: non-finite")
+        k_pl, k_tr, p_tr = rel(got, want), rel(got, truth), rel(want, truth)
+        log(f"YOLOX-{variant} 640 bf16 batch {batch}: K3 took {took}; the "
+            f"unfused modules ran {plain} (over K3's 80x80 rule); outputs "
+            f"vs its plain forward {k_pl:.3e} (mean |diff| / mean |plain|), vs f32: kernel "
+            f"{k_tr:.3e}, plain bf16 {p_tr:.3e}")
+        check(k_tr <= 1.5 * p_tr, f"YOLOX-{variant}: {k_tr} from f32, plain "
+              f"bf16 {p_tr}")
+        stats[variant] = dict(k3_layers=took, plain_layers=plain,
+                              vs_plain=k_pl, vs_f32=k_tr,
+                              plain_bf16_vs_f32=p_tr)
+    return stats
+
+
+# ---------------------------------------------------- phase 15: ReID path
+def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
+    """uint8 frames -> YOLOX-s 640 bf16 -> NMS (~20 detections per frame,
+    32 slots) -> device crops -> OSNet x1_0 f32 at 256 x 128 (buckets 8,
+    16, 32) -> StrongSORT with strong_sort.yaml's values, the reference's
+    BASELINE config-2 pipeline (fused_detect_reid_track)."""
+    from dataclasses import replace
+
+    import tracklab_torch.ops.assignment as A
+    from tracklab_torch.engine.fused import (_bucketed_embed,
+                                             fused_detect_reid_track,
+                                             make_osnet_embed_fn,
+                                             make_yolox_detect_fn)
+    from tracklab_torch.kernels.csp import fused_csplayer
+    from tracklab_torch.kernels.jv import (solve_square_batched,
+                                           solve_square_batched_plain)
+    from tracklab_torch.kernels.jv_rect import (solve_rect_batched,
+                                                solve_rect_batched_plain)
+    from tracklab_torch.kernels.oru_replay import oru_replay
+    from tracklab_torch.models.osnet import OSNet
+    from tracklab_torch.models.yolox import YOLOX
+    from tracklab_torch.ops import boxes as B
+    from tracklab_torch.trackers.common import Detections, stack_frames
+    from tracklab_torch.trackers.strongsort import (StrongSortConfig,
+                                                    strongsort_init,
+                                                    strongsort_scan,
+                                                    strongsort_scan_videos,
+                                                    strongsort_step)
+
+    # configs/modules/track/strong_sort.yaml, 32 detection slots
+    cfg = StrongSortConfig(max_dist=0.1594374041012136,
+                           max_iou_dist=0.5431835667667874, max_age=40,
+                           n_init=3, nn_budget=100, mc_lambda=0.995,
+                           ema_alpha=0.8962157769329083, embed_dim=512,
+                           max_tracks=128, max_dets=32)
+    det_model = YOLOX(num_classes=1, variant="s", dtype=torch.bfloat16,
+                      device=dev).randomize_(0)
+    osnet = OSNet("x1_0", feat_dim=512, n_parts=6, dtype=torch.float32,
+                  device=dev).randomize_(1)
+    F = n_chunks * chunk
+    g = torch.Generator(device=dev).manual_seed(1)
+    base = torch.randint(0, 235, (1, size, size, 3), generator=g,
+                         device=dev, dtype=torch.uint8)
+    video = base + torch.randint(0, 20, (F, size, size, 3), generator=g,
+                                 device=dev, dtype=torch.uint8)
+    cal = make_yolox_detect_fn(det_model, conf_threshold=0.3, max_dets=32,
+                               compute_dtype=torch.bfloat16)(video[:chunk])
+    s = cal.conf[0][cal.valid[0]].sort(descending=True).values.cpu().numpy()
+    conf = float(round((s[19] + s[20]) / 2, 6)) if s.size >= 21 else 0.3
+    log(f"ReID path: calibrated conf {conf} ({s.size} NMS survivors on "
+        "frame 0 at 0.3)")
+    detect = make_yolox_detect_fn(det_model, conf_threshold=conf,
+                                  max_dets=32, compute_dtype=torch.bfloat16)
+    embed = make_osnet_embed_fn(osnet, crop_size=(256, 128),
+                                compute_dtype=torch.float32)
+    step = partial(strongsort_step, cfg)
+    buckets = (8, 16, 32)
+    run = partial(fused_detect_reid_track, detect, embed, chunk=chunk,
+                  min_confidence=0.4, embed_dim=512, embed_buckets=buckets)
+
+    # warm-up on the first chunk, then the second with its syncs counted
+    run(step_fn=step, init_state=strongsort_init(cfg, device=dev),
+        frames=video[:chunk], return_detections=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run(step_fn=step, init_state=strongsort_init(cfg, device=dev),
+            frames=video[chunk:2 * chunk], return_detections=False)
+        torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("default")
+    syncs_per_frame = sum("synchroniz" in str(w.message)
+                          for w in caught) / chunk
+
+    inputs = []
+
+    def rec_step(st, x):
+        inputs.append(x)
+        return step(st, x)
+
+    for fn in (solve_square_batched, solve_rect_batched, fused_csplayer,
+               oru_replay):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, dets, reid, out = run(step_fn=rec_step,
+                             init_state=strongsort_init(cfg, device=dev),
+                             frames=video, return_embeddings=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": solve_square_batched.launches,
+                "K2": solve_rect_batched.launches,
+                "K3": fused_csplayer.launches, "ORU": oru_replay.launches}
+    fps = F / wall
+    per_frame = out.valid.sum(1).float().mean().item()
+    log(f"ReID path: {F} frames in {wall:.3f} s = {fps:.2f} frames/s, "
+        f"{per_frame:.2f} tracks/frame, launches {launches}, "
+        f"{syncs_per_frame:.4f} host syncs/frame (second chunk; the bucket "
+        f"read is one per chunk of {chunk})")
+    check(launches["K3"] == 7 * n_chunks,
+          f"K3 launches {launches['K3']} != 7 per chunk")
+    check(launches["K1"] > 0, "K1 never launched on the ReID path")
+    check(syncs_per_frame <= 1 / chunk,
+          f"ReID path: {syncs_per_frame} host syncs per frame")
+    check(out.valid.shape == (F, cfg.max_tracks), "output shape")
+    check(out.valid.any().item(), "tracker emitted no tracks")
+    check(torch.isfinite(out.ltrb[out.valid]).all().item(),
+          "non-finite track boxes")
+    check(reid["embeddings"].shape == (F, 32, 512) and
+          bool(torch.isfinite(reid["embeddings"]).all()),
+          "ReID embeddings: shape or non-finite")
+
+    # the tracker stage again with the plain JV solvers, id for id, over the
+    # first n_plain frames (a plain solve on the card syncs at every path
+    # step: ~1 s per solving call at 128 tracks)
+    n_plain = 2 * chunk
+    solves = {"K1": 0}
+
+    def plain_k1(cost, k_eff, active):
+        solves["K1"] += 1
+        return solve_square_batched_plain(cost, k_eff, active)
+
+    A.solve_square_batched, A.solve_rect_batched = (
+        plain_k1, solve_rect_batched_plain)
+    try:
+        t0 = time.perf_counter()
+        st, outs = strongsort_init(cfg, device=dev), []
+        for x in inputs[:n_plain]:
+            st, o = step(st, x)
+            outs.append(o)
+        plain_out = stack_frames(outs)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    finally:
+        A.solve_square_batched = solve_square_batched
+        A.solve_rect_batched = solve_rect_batched
+    head = type(out)(*(x[:n_plain] for x in out))
+    d = _same_tracks(torch, head, plain_out, "ReID path vs plain JV solvers")
+    log(f"ReID path tracker stage with the plain JV solvers over its first "
+        f"{n_plain} frames ({solves['K1']} calls, {t_plain:.1f} s): "
+        f"{int(head.valid.sum())} boxes equal id for id (max box diff "
+        f"{d:.2e})")
+
+    # the detector again with the plain CSPLayers: bf16 rounding moves
+    # scores across the threshold and reorders slots, so each frame's
+    # detections are matched by IoU and compared, not required equal
+    with torch.no_grad(), _plain_csp():
+        pd = [detect(video[b:b + chunk]) for b in range(0, F, chunk)]
+    pd = Detections(*(torch.cat(f) for f in zip(*pd)))
+    iou = B.iou_matrix(dets.ltrb, pd.ltrb)                 # (F, D, D)
+    iou = torch.where(dets.valid[:, :, None] & pd.valid[:, None, :], iou,
+                      torch.zeros_like(iou))
+    best = iou.amax(dim=2)[dets.valid]
+    det_cmp = dict(
+        detections=int(dets.valid.sum()), plain_detections=int(
+            pd.valid.sum()),
+        frames_with_other_counts=int((dets.valid.sum(1)
+                                      != pd.valid.sum(1)).sum()),
+        unmatched_at_iou_0_9=int((best < 0.9).sum()),
+        median_best_iou=best.median().item())
+    log(f"ReID path detector with the plain CSPLayers: {det_cmp}")
+
+    # where the time goes, on the first chunk
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    frames = video[:chunk]
+    d0, det_ms = timed(lambda: detect(frames))
+    _, osnet_ms = timed(lambda: _bucketed_embed(embed, frames, d0.ltrb,
+                                                d0.valid, buckets))
+    first = inputs[:chunk]
+    init = strongsort_init(cfg, device=dev)
+
+    def track():
+        st = init
+        for x in first:
+            st, _ = step(st, x)
+
+    track()
+    _, trk_ms = timed(track)
+    trk = profile_window(torch, track, len(first))
+    log(f"ReID path split (chunk of {chunk}): detector {det_ms:.1f} ms, "
+        f"OSNet {osnet_ms:.1f} ms ({int(d0.valid.sum(1).max())} live slots), "
+        f"tracker {trk_ms / len(first):.2f} ms per frame; tracker under the "
+        f"profiler {trk}")
+
+    # the tracker stage alone over V videos at once with batched=True (K2)
+    # against each video run alone in the same mode. The default mode is
+    # compared, not required equal: free slots (zero covariance) and padded
+    # detections give NaN gating costs, and the default mode's one-hot
+    # column permutation spreads a NaN over its whole row, which then goes
+    # unmatched (the reference fault kept for parity, ROADMAP.md §3); the
+    # rectangular batched mode does not, so the modes part, in the JAX
+    # package as here
+    Fv = F // n_videos
+    vdets = Detections(*(torch.stack(f).reshape((n_videos, Fv)
+                                                + f[0].shape)
+                         for f in zip(*(x[0] for x in inputs))))
+    vemb = torch.stack([x[1] for x in inputs]).reshape(
+        (n_videos, Fv) + inputs[0][1].shape)
+    vwarp = torch.stack([x[2] for x in inputs]).reshape(n_videos, Fv, 2, 3)
+    bcfg = replace(cfg, batched=True)
+    one = [(Detections(*(f[v] for f in vdets)), vemb[v], vwarp[v])
+           for v in range(n_videos)]
+    singles = [strongsort_scan(bcfg, *x)[1] for x in one]
+    default = [strongsort_scan(cfg, *x)[1] for x in one]
+    solve_rect_batched.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, vout = strongsort_scan_videos(bcfg, vdets, vemb, vwarp)
+    torch.cuda.synchronize()
+    v_ms = (time.perf_counter() - t0) / Fv * 1e3
+    k2 = solve_rect_batched.launches
+    check(k2 > 0, "batched StrongSORT never launched K2")
+    dv = max(_same_tracks(torch, type(vout)(*(x[v] for x in vout)),
+                          singles[v], f"StrongSORT batched video {v}")
+             for v in range(n_videos))
+    other = sum(int((a.valid != b.valid).sum()
+                    + (a.track_id != b.track_id)[a.valid & b.valid].sum())
+                for a, b in zip(singles, default))
+    log(f"StrongSORT batched=True over V={n_videos} x {Fv} frames of the "
+        f"path's own inputs: {int(vout.valid.sum())} boxes equal the "
+        f"batched single-video runs id for id (max box diff {dv:.2e}); {k2} "
+        f"K2 launches; {v_ms:.2f} ms per step for {n_videos} videos; the "
+        f"default mode (K1) differs in {other} slot-frames")
+
+    # K2 against its plain version on this stage's problems: the stage again
+    # with K2's inputs recorded, the last n_keep checked; and the stage over
+    # its first Fp frames with the plain solver in K2's place, id for id
+    n_keep, Fp = 8, Fv // 2
+    rect_in = []
+
+    def record_k2(cost, active=None):
+        rect_in.append((cost, active))
+        del rect_in[:-n_keep]
+        return solve_rect_batched(cost, active)
+
+    A.solve_rect_batched = record_k2
+    try:
+        _, vrec = strongsort_scan_videos(bcfg, vdets, vemb, vwarp)
+    finally:
+        A.solve_rect_batched = solve_rect_batched
+    torch.cuda.synchronize()
+    _same_tracks(torch, vrec, vout, "batched StrongSORT rerun")
+    for c, a in rect_in:
+        check(torch.equal(solve_rect_batched(c, a),
+                          solve_rect_batched_plain(c, a)),
+              "K2 differs from its plain version on a batched StrongSORT "
+              "input")
+    A.solve_rect_batched = solve_rect_batched_plain
+    try:
+        t0 = time.perf_counter()
+        _, vplain = strongsort_scan_videos(
+            bcfg, Detections(*(f[:, :Fp] for f in vdets)), vemb[:, :Fp],
+            vwarp[:, :Fp])
+        torch.cuda.synchronize()
+        t_vplain = time.perf_counter() - t0
+    finally:
+        A.solve_rect_batched = solve_rect_batched
+    _same_tracks(torch, type(vout)(*(x[:, :Fp] for x in vout)), vplain,
+                 "batched StrongSORT vs the plain rectangular solver")
+    log(f"batched StrongSORT: K2 identical to its plain version on the last "
+        f"{len(rect_in)} of its inputs {tuple(rect_in[-1][0].shape)}; the "
+        f"stage over the first {Fp} frames with the plain solver "
+        f"({t_vplain:.1f} s) equal id for id")
+    return launches, {"K2": k2}, dict(
+        fps=fps, frames=F, chunk=chunk, syncs_per_frame=syncs_per_frame,
+        tracks_per_frame=per_frame, detector_ms_per_chunk=det_ms,
+        osnet_ms_per_chunk=osnet_ms,
+        tracker_ms_per_frame=trk_ms / len(first), tracker=trk,
+        plain_detector=det_cmp, plain_jv_frames=n_plain,
+        plain_jv_calls=solves["K1"],
+        batched_videos=dict(videos=n_videos, frames=Fv,
+                            ms_per_step=v_ms, k2_launches=k2,
+                            default_mode_slot_frames_differing=other))
 
 
 def _kernel_ms_in(torch, fn, name, top=8):
@@ -1496,6 +2087,17 @@ def _kernel_ms_in(torch, fn, name, top=8):
 
 
 
+def _host_packages():
+    """Whether pandas and yaml import here, with their versions."""
+    out = {}
+    for name in ("pandas", "yaml"):
+        try:
+            out[name] = __import__(name).__version__
+        except ImportError as e:
+            out[name] = f"not importable ({e})"
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1512,6 +2114,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    log(f"host packages: {_host_packages()}")
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -1526,9 +2129,14 @@ def main() -> int:
     k4 = phase_k4(torch, dev)
     kpr_stats = phase_kpr(torch, dev)
     phase_bpbreid(torch, dev)
-    launches, main_stats = phase_main(torch, dev)
-    v_launches, k2, videos_stats = phase_videos(torch, dev)
+    lx_stats = phase_yolox_lx(torch, dev)
+    oru_in = {"main_path": {}, "multi_video_path": {}}
+    launches, main_stats = phase_main(torch, dev, oru=oru_in["main_path"])
+    v_launches, k2, videos_stats = phase_videos(
+        torch, dev, oru=oru_in["multi_video_path"])
     p_launches, parts_stats = phase_parts(torch, dev)
+    oru = phase_oru(torch, oru_in)
+    r_launches, rb_launches, reid_stats = phase_reid(torch, dev)
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -1536,6 +2144,7 @@ def main() -> int:
     k1["launches"], k3["launches"] = launches["K1"], launches["K3"]
     k2["launches"] = v_launches["K2"]
     k4["launches"] = p_launches["K4"]
+    oru["launches"] = launches["ORU"]
     videos_stats["k2_random_costs"] = {
         k: k2_random[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "steps", "longest_problem_steps",
@@ -1544,12 +2153,15 @@ def main() -> int:
 
     print(json.dumps({"main_path": main_stats,
                       "multi_video_path": videos_stats,
-                      "parts_path": parts_stats, "kpr_check": kpr_stats,
+                      "parts_path": parts_stats, "reid_path": reid_stats,
+                      "kpr_check": kpr_stats, "yolox_l_x": lx_stats,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
-                                   "parts_path": p_launches}}))
+                                   "parts_path": p_launches,
+                                   "reid_path": r_launches,
+                                   "reid_batched_tracker": rb_launches}}))
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, oru]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -66,4 +66,18 @@ def test_port_imports_in_a_clean_interpreter():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert int(res.stdout.split()[-1]) >= 15
+    assert int(res.stdout.split()[-1]) >= 19
+
+
+# modules of the ReID slice and the ORU replay kernel, which the checks
+# above must cover
+SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
+                 "tracklab_torch/models/osnet.py",
+                 "tracklab_torch/kernels/oru_replay.py",
+                 "tracklab_torch/trackers/strongsort.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_slice_modules_are_checked(rel):
+    assert rel in PORT_FILES
+    test_port_file_imports_nothing_of_jax(rel)

@@ -1,4 +1,5 @@
-// K3: one whole YOLOX CSPLayer per (frame, spatial tile), for Hopper (sm_90a).
+// K3: one whole YOLOX CSPLayer per (frame, spatial tile), for Hopper (sm_90a),
+// or, where no tile fits, stage by stage over the whole batch.
 //
 // Replaces the Pallas TPU kernel tracklab_tpu/ops/csp_pallas.py
 // (_make_kernel, launched by fused_csplayer). It computes, with BN folded
@@ -58,6 +59,18 @@
 // f32: csp_kernel on CUDA cores (f32 on tensor cores would be TF32): each
 // thread a block of 8 pixels x 4 channels, weights [in, out] read from
 // global memory as 4-wide vectors.
+//
+// The staged route, for a layer whose haloed buffers exceed shared memory at
+// every tile (the region of a single output pixel, (2n + 1)^2 pixels of a and
+// t, is already too large: YOLOX-l dark4, YOLOX-x dark3 and dark4 in bf16,
+// more in f32): a, s and t live in device memory (scratch the caller passes;
+// 6.1 MB for YOLOX-x dark4 at batch 2, within the 50 MB L2), and the
+// layer's 2n + 3 stages run as GEMMs over all B*H*W pixels, one grid per
+// stage in stream order, so there is no halo and nothing is recomputed. bf16
+// stages (csp_staged_mma_kernel) use the same mma.sync fragments with the A
+// rows gathered by cp.async (the 3x3's taps as pixel shifts, zero-filled
+// outside the frame); f32 stages (csp_staged_f32_kernel) the CUDA-core work
+// item above. Rounding and the residual are as in the tiled kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -595,6 +608,289 @@ __global__ void __launch_bounds__(C::kThreads) csp_mma_kernel(CspArgs<bf16> A) {
                        A.bf, A.cout);
 }
 
+// ------------------------------------------------------ the staged route
+// One stage of a layer no tile fits, over all B*H*W pixels at once:
+//   dst[m, :N] = silu(sum over segments of src_seg[m] W_seg + bias) (+ dst[m])
+// src and dst are (M, K) and (M, N) row-major. SEGS 1: a 1x1 conv; 9: the
+// 3x3, segment dy * 3 + dx reading pixel (y + dy - 1, x + dx - 1) of src0,
+// zero outside the frame; 2: the final 1x1, segment 0 from src0 (a),
+// segment 1 from src1 (s).
+template <typename T>
+struct StagedArgs {
+  const T* src0;
+  const T* src1;
+  const T* w;      // segment s at w + s * seg_w, rows of ldw (bf16) or N (f32)
+  const float* bias;
+  T* dst;
+  int M, H, W, K, N, ldw, seg_w, res;
+};
+
+// The A row of src for output pixel m at tap (dy, dx) of a 3x3 (0, 0 for a
+// 1x1), or -1 when that pixel lies outside the frame (the zero padding).
+template <int SEGS>
+__device__ __forceinline__ int staged_row(int m, int y, int x, int seg, int H, int W) {
+  if (SEGS != 9) return m;
+  const int dy = seg / 3 - 1, dx = seg % 3 - 1;
+  const int yy = y + dy, xx = x + dx;
+  return yy >= 0 && yy < H && xx >= 0 && xx < W ? m + dy * W + dx : -1;
+}
+
+// bf16 on the tensor cores: one CTA per 128 x 64 output tile, eight warps of
+// 32 x 32, the A rows (gathered with the tap's shift) and the weights
+// streaming through a four-slot cp.async ring in K chunks of 32. Rows past
+// M, channels past N and K tails are zero-filled, so the chunk loop has no
+// guards; the epilogue stores what lies inside.
+constexpr int kSBM = 128, kSKC = 32, kSSlots = 4, kSThreads = 256;
+constexpr int kSLd = kSKC + 8;  // padded slot row (conflict-free ldmatrix)
+constexpr int kSSlotBytes = (kSBM + kBN) * kSLd * 2;
+constexpr size_t kStagedSmem = (size_t)kSSlots * kSSlotBytes;
+
+template <int SEGS>
+__global__ void __launch_bounds__(kSThreads) csp_staged_mma_kernel(StagedArgs<bf16> S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t ring_s = smem_u32(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const int mb = blockIdx.x * kSBM, nb = blockIdx.y * kBN;
+  const int HW = S.H * S.W;
+  const int K = S.K, kch = (K + kSKC - 1) / kSKC, total = SEGS * kch;
+
+  // this thread's copies: A rows tid / 4 and tid / 4 + 64, B row tid / 4,
+  // each the 16-byte piece tid % 4 of a 32-wide chunk row
+  const int piece = (tid & 3) * 8;
+  int am[2], ay[2], ax[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int m = mb + (tid >> 2) + 64 * j;
+    am[j] = m < S.M ? m : -1;
+    const int p = m - (m / HW) * HW;
+    ay[j] = p / S.W;
+    ax[j] = p - ay[j] * S.W;
+  }
+  const int bn_row = tid >> 2, bn = nb + bn_row;
+  int lseg = 0, lk0 = 0, lslot = 0;
+  auto load = [&]() {
+    const uint32_t slot = ring_s + (uint32_t)lslot * kSSlotBytes;
+    const bf16* src = SEGS == 2 && lseg == 1 ? S.src1 : S.src0;
+    const int k = lk0 + piece;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = am[j] < 0 ? -1 : staged_row<SEGS>(am[j], ay[j], ax[j], lseg, S.H, S.W);
+      const bool ok = r >= 0 && k < K;
+      cp_async16(slot + (uint32_t)(((tid >> 2) + 64 * j) * kSLd + piece) * 2,
+                 ok ? src + (size_t)r * K + k : src, ok);
+    }
+    const bool okb = bn < S.N && k < K;
+    cp_async16(slot + (uint32_t)(kSBM * kSLd + bn_row * kSLd + piece) * 2,
+               okb ? S.w + (size_t)lseg * S.seg_w + (size_t)bn * S.ldw + k : S.w, okb);
+    lk0 += kSKC;
+    if (lk0 >= K) {
+      lk0 = 0;
+      ++lseg;
+    }
+    lslot = lslot == kSSlots - 1 ? 0 : lslot + 1;
+  };
+
+  float acc[kMT][4][4];
+#pragma unroll
+  for (int a = 0; a < kMT; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
+  const int nw = nb + wn * 32;  // this warp's first channel
+  float2 bv[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+    bv[nt] = nw + nt * 8 < S.N ? *reinterpret_cast<const float2*>(S.bias + nw + nt * 8 + 2 * t)
+                               : make_float2(0.f, 0.f);
+
+  constexpr int kAhead = kSSlots - 1;
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < total) load();
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  int cslot = 0;
+  for (int gi = 0; gi < total; ++gi) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead - 1) : "memory");
+    __syncthreads();  // chunk gi landed; the slot of chunk gi - 1 is free
+    if (gi + kAhead < total) load();
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const uint32_t slot = ring_s + (uint32_t)cslot * kSSlotBytes;
+#pragma unroll
+    for (int kk = 0; kk < kSKC / 16; ++kk) {
+      uint32_t af[kMT][4], bfr[2][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        ldsm_x4(slot + (uint32_t)((wm * 32 + mt * 16 + (lane & 15)) * kSLd + kk * 16 +
+                                  (lane >> 4) * 8) * 2,
+                af[mt]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldsm_x4(slot + (uint32_t)((kSBM + wn * 32 + np * 16 + (mi >> 1) * 8 + mr) * kSLd +
+                                  kk * 16 + (mi & 1) * 8) * 2,
+                bfr[np]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16(acc[mt][2 * np], af[mt], bfr[np][0], bfr[np][1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[np][2], bfr[np][3]);
+        }
+    }
+    cslot = cslot == kSSlots - 1 ? 0 : cslot + 1;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // epilogue: bias, SiLU in f32, the residual in f32, rounding
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = mb + wm * 32 + mt * 16 + g + half * 8;
+      if (m >= S.M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nw + nt * 8 >= S.N) continue;
+        __nv_bfloat162* d =
+            reinterpret_cast<__nv_bfloat162*>(S.dst + (size_t)m * S.N + nw + nt * 8 + 2 * t);
+        float v0 = silu_fast(acc[mt][nt][2 * half] + bv[nt].x);
+        float v1 = silu_fast(acc[mt][nt][2 * half + 1] + bv[nt].y);
+        if (S.res) {
+          const float2 old = __bfloat1622float2(*d);
+          v0 += old.x;
+          v1 += old.y;
+        }
+        *d = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+// f32 on CUDA cores: each thread 8 pixels x 4 channels, weights [in, out]
+// (segment s at w + s * K * N) read as 4-wide vectors, as csp_kernel does.
+template <int SEGS>
+__global__ void __launch_bounds__(kThreads) csp_staged_f32_kernel(StagedArgs<float> S) {
+  const int ngroups = S.N / CB;
+  const int work = blockIdx.x * kThreads + threadIdx.x;
+  if (work >= ngroups * ((S.M + PB - 1) / PB)) return;
+  const int c = (work % ngroups) * CB;
+  const int m0 = work / ngroups * PB;
+  const int HW = S.H * S.W;
+  int py[PB], px[PB];
+  float acc[PB][CB];
+#pragma unroll
+  for (int i = 0; i < PB; ++i) {
+    const int m = m0 + i;
+    const int p = m - (m / HW) * HW;
+    py[i] = p / S.W;
+    px[i] = p - py[i] * S.W;
+#pragma unroll
+    for (int cc = 0; cc < CB; ++cc) acc[i][cc] = S.bias[c + cc];
+  }
+  for (int seg = 0; seg < SEGS; ++seg) {
+    const float* src = SEGS == 2 && seg == 1 ? S.src1 : S.src0;
+    const float* w = S.w + (size_t)seg * S.K * S.N;
+    int r[PB];
+#pragma unroll
+    for (int i = 0; i < PB; ++i)
+      r[i] = m0 + i < S.M ? staged_row<SEGS>(m0 + i, py[i], px[i], seg, S.H, S.W) : -1;
+    for (int k = 0; k < S.K; k += 4) {
+      float wv[4][CB];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) load4(w + (size_t)(k + kk) * S.N + c, wv[kk]);
+#pragma unroll
+      for (int i = 0; i < PB; ++i) {
+        if (r[i] < 0) continue;
+        float av[4];
+        load4(src + (size_t)r[i] * S.K + k, av);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int cc = 0; cc < CB; ++cc) acc[i][cc] = fmaf(av[kk], wv[kk][cc], acc[i][cc]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PB; ++i) {
+    if (m0 + i >= S.M) continue;
+    float* d = S.dst + (size_t)(m0 + i) * S.N + c;
+    float v[CB];
+#pragma unroll
+    for (int cc = 0; cc < CB; ++cc) v[cc] = silu(acc[i][cc]);
+    if (S.res) {
+      float old[CB];
+      load4(d, old);
+#pragma unroll
+      for (int cc = 0; cc < CB; ++cc) v[cc] += old[cc];
+    }
+    store4(d, v);
+  }
+}
+
+template <int SEGS, typename T>
+cudaError_t staged_stage(const T* src0, const T* src1, const T* w, const float* bias, T* dst,
+                         int M, int H, int W, int K, int N, int ldw, int seg_w, int res,
+                         cudaStream_t stream) {
+  StagedArgs<T> S{src0, src1, w, bias, dst, M, H, W, K, N, ldw, seg_w, res};
+  if constexpr (sizeof(T) == 2) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        csp_staged_mma_kernel<SEGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kStagedSmem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((M + kSBM - 1) / kSBM, (N + kBN - 1) / kBN);
+    csp_staged_mma_kernel<SEGS><<<grid, kSThreads, kStagedSmem, stream>>>(S);
+  } else {
+    const long long items = (long long)(N / CB) * ((M + PB - 1) / PB);
+    csp_staged_f32_kernel<SEGS><<<(unsigned)((items + kThreads - 1) / kThreads), kThreads, 0,
+                                  stream>>>(S);
+  }
+  return cudaGetLastError();
+}
+
+// The whole layer by the staged route: a, s and t (M x ch each) in
+// `scratch` (3 M ch elements), 2n + 3 stage grids in stream order.
+template <typename T>
+int launch_staged(const void* x, void* out, const void* wm, const float* bm, const void* ws,
+                  const float* bs, const void* w1, const float* b1, const void* w3,
+                  const float* b3, const void* wf, const float* bf, void* scratch, int B, int H,
+                  int W, int cin, int ch, int cout, int n, int shortcut, void* stream) {
+  constexpr bool kMma = sizeof(T) == 2;
+  constexpr int kMult = kMma ? 8 : 4;
+  if (B < 1 || H < 1 || W < 1 || n < 1 || cin % kMult || ch % kMult || cout % kMult ||
+      (long long)B * H * W >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const int M = B * H * W;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const T* xs = static_cast<const T*>(x);
+  T* a = static_cast<T*>(scratch);
+  T* s = a + (size_t)M * ch;
+  T* t = s + (size_t)M * ch;
+  // bf16 weights are [out, in] (rows of K, the final's of 2 ch with s at
+  // column ch); f32 weights are [in, out] (segment s at s K N)
+  const int ldf = kMma ? 2 * ch : cout, segf = kMma ? ch : ch * cout;
+  cudaError_t err = staged_stage<1, T>(xs, xs, static_cast<const T*>(wm), bm, a, M, H, W, cin,
+                                       ch, cin, 0, 0, st);
+  if (err == cudaSuccess)
+    err = staged_stage<1, T>(xs, xs, static_cast<const T*>(ws), bs, s, M, H, W, cin, ch, cin,
+                             0, 0, st);
+  for (int i = 0; i < n && err == cudaSuccess; ++i) {
+    err = staged_stage<1, T>(a, a, static_cast<const T*>(w1) + (size_t)i * ch * ch,
+                             b1 + (size_t)i * ch, t, M, H, W, ch, ch, ch, 0, 0, st);
+    if (err == cudaSuccess)
+      err = staged_stage<9, T>(t, t, static_cast<const T*>(w3) + (size_t)i * 9 * ch * ch,
+                               b3 + (size_t)i * ch, a, M, H, W, ch, ch, ch, ch * ch, shortcut,
+                               st);
+  }
+  if (err == cudaSuccess)
+    err = staged_stage<2, T>(a, s, static_cast<const T*>(wf), bf, static_cast<T*>(out), M, H,
+                             W, ch, cout, ldf, segf, 0, st);
+  return (int)err;
+}
+
 template <typename T>
 int launch(const void* x, void* out, const void* wm, const float* bm, const void* ws,
            const float* bs, const void* w1, const float* b1, const void* w3,
@@ -672,6 +968,22 @@ int launch(const void* x, void* out, const void* wm, const float* bm, const void
 
 TL_CSP_ENTRY(tl_csp_f32, float)
 TL_CSP_ENTRY(tl_csp_bf16_mma, __nv_bfloat16)
+
+// The staged route, for a layer no tile fits: the same layout and rules,
+// and `scratch`, 3 B H W ch elements of the storage type on the device
+// (a, s and t). Runs 2n + 3 stage grids on `stream`.
+#define TL_CSP_STAGED_ENTRY(NAME, T)                                                     \
+  extern "C" int NAME(const void* x, void* out, const void* wm, const float* bm,         \
+                      const void* ws, const float* bs, const void* w1, const float* b1,  \
+                      const void* w3, const float* b3, const void* wf, const float* bf,  \
+                      void* scratch, int B, int H, int W, int cin, int ch, int cout, int n, \
+                      int shortcut, void* stream) {                                      \
+    return launch_staged<T>(x, out, wm, bm, ws, bs, w1, b1, w3, b3, wf, bf, scratch, B, H, \
+                            W, cin, ch, cout, n, shortcut, stream);                      \
+  }
+
+TL_CSP_STAGED_ENTRY(tl_csp_f32_staged, float)
+TL_CSP_STAGED_ENTRY(tl_csp_bf16_mma_staged, __nv_bfloat16)
 
 // The shared memory a launch with th x tw tiles asks for: mma = 1 for the
 // bf16 tensor-core kernel with the given ring, 0 for the f32 kernel.

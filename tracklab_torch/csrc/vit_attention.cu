@@ -41,6 +41,14 @@
 // are read once and the output written once; what is left beside the bytes
 // is the softmax's exp on CUDA cores.
 //
+// The same bf16 kernel has a second mode, the compute-dtype softmax
+// (tl_vit_attention_bf16_mma_cd), for the JAX model's naive, einsum and
+// einsumT lowerings, which take the softmax in bf16. Its plain version is
+// vit_attention_compute_plain. It rounds to bf16 where those bf16 tensors
+// round: the logits, the scaled logits, the masked keys at finfo(bf16).min,
+// s - max, e = exp(s - max), the row sum (accumulated in f32) and
+// p = e / sum. The passes recompute S as above, so no row of logits is kept.
+//
 // f32: vit_attention_kernel on CUDA cores (f32 on tensor cores would be
 // TF32, three decimal digits). One warp per query row: lane l owns keys l,
 // l + 32, ... and reads K^T (staged transposed) at consecutive addresses; a
@@ -51,6 +59,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -269,11 +278,21 @@ __host__ __device__ inline size_t mma_smem_bytes(int N, int Dh) {
   return 2 * (size_t)pad16(N) * (Dh + 8) * sizeof(bf16);
 }
 
+// x rounded to bf16 and back: the compute-dtype mode's rounding points
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// finfo(bf16).min, the compute-dtype mode's masked logit
+constexpr float kBf16Lowest = -3.38953139e38f;
+
 // S block jp of a 16-row query tile: keys 16 jp .. 16 jp + 15 as two n8
 // tiles (sb[0]: keys 16 jp + 2t, +1; sb[1]: the same + 8; elements 0, 1 of
 // row g, 2, 3 of row g + 8), scaled, and with MASK keys at or past n_valid
-// at finfo(f32).min and padded keys (>= N) at -inf (they get e = 0)
-template <int DKT, bool MASK>
+// at finfo(f32).min (CD: finfo(bf16).min) and padded keys (>= N) at -inf
+// (they get e = 0). CD, the compute-dtype mode, rounds the logit to bf16
+// and again after the scale, as bf16 tensors round them.
+template <int DKT, bool MASK, bool CD>
 __device__ __forceinline__ void s_block(float (&sb)[2][4], const uint32_t (&qf)[DKT][4],
                                         uint32_t krow, int jp, int LD, int dkt, float scale,
                                         int t, int N, int n_valid) {
@@ -293,10 +312,11 @@ __device__ __forceinline__ void s_block(float (&sb)[2][4], const uint32_t (&qf)[
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float x = sb[i][e] * scale;
+      float x = CD ? bf16r(__fmul_rn(bf16r(sb[i][e]), scale)) : sb[i][e] * scale;
       if (MASK) {
         const int col = jp * 16 + i * 8 + 2 * t + (e & 1);
-        if (col >= n_valid) x = -FLT_MAX;  // finfo(f32).min, not -inf
+        // finfo(dtype).min, not -inf
+        if (col >= n_valid) x = CD ? kBf16Lowest : -FLT_MAX;
         if (col >= N) x = __int_as_float(0xff800000);  // -inf: padding, no key
       }
       sb[i][e] = x;
@@ -305,26 +325,36 @@ __device__ __forceinline__ void s_block(float (&sb)[2][4], const uint32_t (&qf)[
 
 // Runs body(jp, sb) over the key blocks of a query tile, the blocks that
 // need no mask first.
-template <int DKT, typename F>
+template <int DKT, bool CD, typename F>
 __device__ __forceinline__ void for_blocks(const uint32_t (&qf)[DKT][4], uint32_t krow,
                                            int nkt, int n_full, int LD, int dkt, float scale,
                                            int t, int N, int n_valid, F&& body) {
   float sb[2][4];
 #pragma unroll 2
   for (int jp = 0; jp < n_full; ++jp) {
-    s_block<DKT, false>(sb, qf, krow, jp, LD, dkt, scale, t, N, n_valid);
+    s_block<DKT, false, CD>(sb, qf, krow, jp, LD, dkt, scale, t, N, n_valid);
     body(jp, sb);
   }
 #pragma unroll 1
   for (int jp = n_full; jp < nkt; ++jp) {
-    s_block<DKT, true>(sb, qf, krow, jp, LD, dkt, scale, t, N, n_valid);
+    s_block<DKT, true, CD>(sb, qf, krow, jp, LD, dkt, scale, t, N, n_valid);
     body(jp, sb);
   }
 }
 
+// e = exp(s - max): CD rounds the difference and the exponential to bf16
+template <bool CD>
+__device__ __forceinline__ float exp_shift(float s, float m) {
+  return CD ? bf16r(expf(bf16r(s - m))) : expf(s - m);
+}
+
 // DKT: the largest head-dim count (in 16s) the instantiation takes; the
-// loops run to the launch's own count.
-template <int DKT>
+// loops run to the launch's own count. CD: the compute-dtype softmax (the
+// JAX naive/einsum/einsumT lowerings in bf16): logits, scaled logits,
+// e = exp(s - max), the row sum and p = e / sum each rounded to bf16, with
+// masked keys at finfo(bf16).min; otherwise the f32 softmax of the Pallas
+// kernel. The products stay bf16 in, f32 accumulated in both.
+template <int DKT, bool CD>
 __global__ void __launch_bounds__(kMmaWarps * 32)
     vit_attention_mma_kernel(const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
@@ -392,7 +422,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
     if (tile != warp) load_q(tile);
     // pass 1: the row max of S (two partial maxima per row)
     float m[2][2] = {{-FLT_MAX, -FLT_MAX}, {-FLT_MAX, -FLT_MAX}};
-    for_blocks(qf, krow, nkt, n_full, LD, dkt, scale, t, N, n_valid,
+    for_blocks<DKT, CD>(qf, krow, nkt, n_full, LD, dkt, scale, t, N, n_valid,
                [&](int, const float (&sb)[2][4]) {
 #pragma unroll
                  for (int i = 0; i < 2; ++i)
@@ -409,13 +439,13 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
     }
     // pass 2: sum of e = exp(s - max), S recomputed
     float sm[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    for_blocks(qf, krow, nkt, n_full, LD, dkt, scale, t, N, n_valid,
+    for_blocks<DKT, CD>(qf, krow, nkt, n_full, LD, dkt, scale, t, N, n_valid,
                [&](int, const float (&sb)[2][4]) {
 #pragma unroll
                  for (int i = 0; i < 2; ++i)
 #pragma unroll
                    for (int e = 0; e < 4; ++e)
-                     sm[i][e >> 1] += expf(sb[i][e] - mx[e >> 1]);
+                     sm[i][e >> 1] += exp_shift<CD>(sb[i][e], mx[e >> 1]);
                });
     float tot[2], rcp[2];
 #pragma unroll
@@ -423,6 +453,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
       tot[r] = sm[0][r] + sm[1][r];
       tot[r] += __shfl_xor_sync(0xffffffffu, tot[r], 1);
       tot[r] += __shfl_xor_sync(0xffffffffu, tot[r], 2);
+      if (CD) tot[r] = bf16r(tot[r]);  // the bf16 row sum
       rcp[r] = 1.0f / tot[r];
     }
     // pass 3: p = e / sum rounded to bf16 as the A fragment of the key
@@ -432,15 +463,15 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
     for (int j = 0; j < 2 * DKT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-    for_blocks(qf, krow, nkt, n_full, LD, dkt, scale, t, N, n_valid,
+    for_blocks<DKT, CD>(qf, krow, nkt, n_full, LD, dkt, scale, t, N, n_valid,
                [&](int jp, const float (&sb)[2][4]) {
                  float p[2][4];
 #pragma unroll
                  for (int i = 0; i < 2; ++i)
 #pragma unroll
                    for (int e = 0; e < 4; ++e)
-                     p[i][e] = div_by(expf(sb[i][e] - mx[e >> 1]), tot[e >> 1],
-                                      rcp[e >> 1]);
+                     p[i][e] = div_by(exp_shift<CD>(sb[i][e], mx[e >> 1]),
+                                      tot[e >> 1], rcp[e >> 1]);
                  const uint32_t pf[4] = {pack_bf16(p[0][0], p[0][1]),
                                          pack_bf16(p[0][2], p[0][3]),
                                          pack_bf16(p[1][0], p[1][1]),
@@ -468,15 +499,18 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   }
 }
 
-template <int DKT>
+template <int DKT, bool CD>
 int launch_mma_t(const void* q, const void* k, const void* v, void* out,
                  int B, int N, int H, int Dh, const long long* st,
                  int n_valid, size_t smem, cudaStream_t stream) {
-  auto kern = vit_attention_mma_kernel<DKT>;
+  auto kern = vit_attention_mma_kernel<DKT, CD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const float scale = 1.0f / sqrtf((float)Dh);
+  // CD: Dh ** -0.5 rounded once to f32, as a bf16 tensor times a Python
+  // float takes it
+  const float scale =
+      CD ? (float)pow((double)Dh, -0.5) : 1.0f / sqrtf((float)Dh);
   kern<<<B * H, kMmaWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), N, H, Dh, n_valid,
@@ -484,6 +518,7 @@ int launch_mma_t(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+template <bool CD>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
                int N, int H, int Dh, const long long* st, int n_valid,
                cudaStream_t stream) {
@@ -496,9 +531,10 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
   const size_t smem = mma_smem_bytes(N, Dh);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (Dh <= 64)
-    return launch_mma_t<4>(q, k, v, out, B, N, H, Dh, st, n_valid, smem,
-                           stream);
-  return launch_mma_t<8>(q, k, v, out, B, N, H, Dh, st, n_valid, smem, stream);
+    return launch_mma_t<4, CD>(q, k, v, out, B, N, H, Dh, st, n_valid, smem,
+                               stream);
+  return launch_mma_t<8, CD>(q, k, v, out, B, N, H, Dh, st, n_valid, smem,
+                             stream);
 }
 
 }  // namespace
@@ -531,6 +567,14 @@ extern "C" int tl_vit_attention_f32(TL_K4_ARGS) {
 extern "C" int tl_vit_attention_bf16_mma(TL_K4_ARGS) {
   if (!tl_k4_shape_ok(B, N, H, Dh, n_valid)) return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh};
-  return launch_mma(q, k, v, out, B, N, H, Dh, st, n_valid,
-                    (cudaStream_t)stream);
+  return launch_mma<false>(q, k, v, out, B, N, H, Dh, st, n_valid,
+                           (cudaStream_t)stream);
+}
+
+// the same with the compute-dtype (bf16) softmax
+extern "C" int tl_vit_attention_bf16_mma_cd(TL_K4_ARGS) {
+  if (!tl_k4_shape_ok(B, N, H, Dh, n_valid)) return (int)cudaErrorInvalidValue;
+  const long long st[9] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh};
+  return launch_mma<true>(q, k, v, out, B, N, H, Dh, st, n_valid,
+                          (cudaStream_t)stream);
 }

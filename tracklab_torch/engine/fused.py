@@ -1,12 +1,14 @@
 """Fused detector -> NMS -> tracker paths over a whole video (counterpart
 of tracklab_tpu.engine.fused).
 
-Two paths: detect -> NMS -> track (:func:`make_yolox_detect_fn`,
-:func:`fused_detect_track`, :func:`fused_detect_track_concat`), and the
+Three paths: detect -> NMS -> track (:func:`make_yolox_detect_fn`,
+:func:`fused_detect_track`, :func:`fused_detect_track_concat`); the ReID
+path, detect -> NMS -> device crops -> OSNet embeddings -> StrongSORT
+(:func:`make_osnet_embed_fn`, :func:`fused_detect_reid_track`); and the
 promptless KPR parts path, detect -> NMS -> device crops -> KPR part
 features -> BPBReID-StrongSORT (:func:`make_kpr_embed_fn`,
-:func:`fused_detect_parts_track`, with :func:`_bucketed_embed`'s
-live-prefix compaction).
+:func:`fused_detect_parts_track`). Both crop paths can embed only the live
+slot prefix (:func:`_bucketed_embed`).
 
 The JAX package runs the video as one program: a ``lax.scan`` over frame
 chunks whose body runs the batched detector (and the ReID model), then the
@@ -29,7 +31,8 @@ from tracklab_torch.trackers.common import (Detections, concat_resets,
                                             reset_wrapped_step, stack_frames)
 
 __all__ = ["make_yolox_detect_fn", "fused_detect_track",
-           "fused_detect_track_concat", "make_kpr_embed_fn",
+           "fused_detect_track_concat", "make_osnet_embed_fn",
+           "fused_detect_reid_track", "make_kpr_embed_fn",
            "fused_detect_parts_track"]
 
 
@@ -108,16 +111,7 @@ def fused_detect_track(detect_fn, step_fn, init_state, frames, chunk: int,
     state, outs, all_dets = init_state, [], []
     for base in range(0, F, chunk):
         sl = slice(base, base + chunk)
-        m = None if meta is None else {k: v[sl] for k, v in meta.items()}
-        dets = detect_fn(frames[sl], m)
-        D = dets.ref.shape[1]
-        dev = dets.ref.device
-        frame_idx = base + torch.arange(chunk, dtype=torch.int32, device=dev)
-        dets = dets._replace(
-            ref=frame_idx[:, None] * D
-            + torch.arange(D, dtype=torch.int32, device=dev)[None, :])
-        if frame_valid is not None:
-            dets = dets._replace(valid=dets.valid & frame_valid[sl][:, None])
+        dets = _detect_chunk(detect_fn, frames, sl, meta, frame_valid)
         for f in range(chunk):
             d = Detections(*(x[f] for x in dets))
             inp = d if reset is None else (d, reset[base + f])
@@ -165,6 +159,164 @@ def fused_detect_track_concat(detect_fn, step_fn, init_state, videos,
     return final, dets, outs
 
 
+def _detect_chunk(detect_fn, frames, sl, meta, frame_valid):
+    """The detections of the chunk of frames ``sl``, with video-global
+    refs (frame * D + slot) and the slots of padded frames
+    (``frame_valid`` False) masked out."""
+    m = None if meta is None else {k: v[sl] for k, v in meta.items()}
+    dets = detect_fn(frames[sl], m)
+    B, D = dets.ref.shape
+    dev = dets.ref.device
+    frame_idx = sl.start + torch.arange(B, dtype=torch.int32, device=dev)
+    dets = dets._replace(
+        ref=frame_idx[:, None] * D
+        + torch.arange(D, dtype=torch.int32, device=dev)[None, :])
+    if frame_valid is not None:
+        dets = dets._replace(valid=dets.valid & frame_valid[sl][:, None])
+    return dets
+
+
+def _crop_stage(stage_fn, frames, dets, sl, crop_meta, embed_buckets):
+    """``stage_fn(frames, boxes)`` on the chunk ``sl``'s detections, with
+    boxes mapped into frame pixels by ``crop_meta`` (``frame_xy = out_xy *
+    scale + pad``), over every slot or, with ``embed_buckets``, over the
+    live prefix (:func:`_bucketed_embed`)."""
+    boxes = dets.ltrb
+    if crop_meta is not None:
+        s = crop_meta["scale"][sl][:, None, :]
+        p = crop_meta["pad"][sl][:, None, :]
+        boxes = torch.cat([boxes[..., 0:2] * s + p,
+                           boxes[..., 2:4] * s + p], dim=-1)
+    if embed_buckets is not None:
+        return _bucketed_embed(stage_fn, frames[sl], boxes, dets.valid,
+                               tuple(embed_buckets))
+    return stage_fn(frames[sl], boxes)
+
+
+def _mask_slots(reid, valid):
+    """Zero every ReID output of an invalid slot, as the staged ReID module
+    emits rows only for valid detections."""
+    return {k: v * valid.reshape(valid.shape + (1,) * (v.dim() - 2))
+            for k, v in reid.items()}
+
+
+def _imagenet_consts(consts, dev):
+    """(mean, std) as f32 tensors on ``dev``, built once per device in
+    ``consts``: a tensor made from Python numbers on the card is a
+    host-to-device copy, which waits for the stream."""
+    if dev not in consts:
+        consts[dev] = tuple(torch.tensor(c, dtype=torch.float32, device=dev)
+                            for c in (IMAGENET_MEAN, IMAGENET_STD))
+    return consts[dev]
+
+
+def make_osnet_embed_fn(model, crop_size=(256, 128),
+                        compute_dtype=torch.float32):
+    """Build ``embed_fn(frames, boxes) -> dict`` for an OSNet-family ReID
+    model (``models.osnet.OSNet``): crop-and-resize every detection slot on
+    the device (:func:`crop_resize`), ImageNet-normalise, one batched
+    forward, as the staged batched ReID module does with the detector's
+    frames as the work image.
+
+    ``frames`` (B, H, W, 3) uint8, ``boxes`` (B, D, 4) ltrb in frame
+    coordinates. Returns f32 ``embeddings`` (B, D, E), ``part_features``
+    (B, D, P + 1, E') and ``visibility`` (B, D, P + 1)."""
+    ch, cw = crop_size
+    consts = {}
+
+    def embed(frames, boxes):
+        mean, std = _imagenet_consts(consts, frames.device)
+        crops = crop_resize(frames, boxes, ch, cw)      # (B, D, ch, cw, 3)
+        B, D = crops.shape[0], crops.shape[1]
+        x = ((crops.reshape(B * D, ch, cw, 3) - mean) / std).to(
+            compute_dtype)
+        out = model(x)
+        res = {"embeddings": out["embeddings"].float().reshape(B, D, -1)}
+        if "part_features" in out:
+            pf = out["part_features"].float()
+            res["part_features"] = pf.reshape(B, D, pf.shape[1], -1)
+            res["visibility"] = out["visibility"].float().reshape(B, D, -1)
+        return res
+
+    return embed
+
+
+def fused_detect_reid_track(detect_fn, embed_fn, step_fn, init_state,
+                            frames, chunk: int, meta=None, crop_meta=None,
+                            warps=None, frame_valid=None,
+                            min_confidence: float = 0.0,
+                            embed_dim: int | None = None,
+                            embed_buckets=None,
+                            return_detections: bool = True,
+                            return_embeddings: bool = False):
+    """Detector -> NMS -> device crops -> ReID embeddings -> embedding
+    tracker over a whole video (the reference's BASELINE config-2 pipeline,
+    e.g. YOLOX + OSNet + StrongSORT).
+
+    Args:
+      detect_fn: ``(frames_chunk, meta_chunk | None) -> Detections``.
+      embed_fn: ``(frames_chunk, boxes (B, D, 4)) -> dict`` with
+        ``embeddings`` (B, D, E) (:func:`make_osnet_embed_fn`); crops come
+        from the detector's own input frames.
+      step_fn: tracker step ``(state, (Detections, emb (D, E), warp (2,
+        3))) -> (state, out)`` (``partial(strongsort_step, cfg)``).
+      crop_meta: optional ``{"scale": (F, 2), "pad": (F, 2)}`` mapping
+        detector-output boxes into frame pixels for cropping, ``frame_xy =
+        out_xy * scale + pad``; identity when None.
+      warps: optional (F, 2, 3) camera warps; identity when None.
+      frame_valid: optional (F,) bool, False for padded tail frames.
+      min_confidence: the tracker wrapper's pre-filter (``conf >
+        min_confidence``) as a mask; NMS slots are score-descending, so the
+        mask equals the staged row drop.
+      embed_dim: the tracker's embedding width; the ReID output is cut or
+        zero-padded to it.
+      embed_buckets: optional ascending widths (the last equal to max_dets)
+        for the live-prefix compaction of the ReID stage
+        (:func:`_bucketed_embed`, one host sync per chunk).
+
+    Returns ``(final_state, dets | None, reid | None, outs)`` with a
+    leading frame axis F; ``reid`` is the full ReID output dict when
+    ``return_embeddings``. Detection refs are video-global: frame * D +
+    slot.
+    """
+    F_ = frames.shape[0]
+    if F_ % chunk:
+        raise ValueError(f"frames ({F_}) must be a multiple of chunk "
+                         f"({chunk}); pad with frame_valid=False")
+    state, outs, all_dets, all_reid = init_state, [], [], []
+    for base in range(0, F_, chunk):
+        sl = slice(base, base + chunk)
+        dets = _detect_chunk(detect_fn, frames, sl, meta, frame_valid)
+        dev = dets.ref.device
+        reid = _mask_slots(_crop_stage(embed_fn, frames, dets, sl, crop_meta,
+                                       embed_buckets), dets.valid)
+        emb = reid["embeddings"]
+        if embed_dim is not None and emb.shape[-1] != embed_dim:
+            emb = emb[..., :embed_dim]
+            emb = F.pad(emb, (0, embed_dim - emb.shape[-1]))
+
+        trk_dets = dets._replace(
+            valid=dets.valid & (dets.conf > min_confidence))
+        emb = emb * trk_dets.valid[..., None]
+        warp = (torch.eye(2, 3, dtype=torch.float32, device=dev).expand(
+            chunk, 2, 3) if warps is None else warps[sl])
+        for f in range(chunk):
+            state, out = step_fn(state, (
+                Detections(*(x[f] for x in trk_dets)), emb[f], warp[f]))
+            outs.append(out)
+        if return_detections:
+            all_dets.append(dets)
+        if return_embeddings:
+            all_reid.append(reid)
+
+    outs = stack_frames(outs)
+    dets = (Detections(*(torch.cat(f) for f in zip(*all_dets)))
+            if return_detections else None)
+    reid = ({k: torch.cat([r[k] for r in all_reid]) for k in all_reid[0]}
+            if return_embeddings else None)
+    return state, dets, reid, outs
+
+
 def make_kpr_embed_fn(model, crop_size=(384, 128), n_prompt_ch: int = 6,
                       test_embeddings=("bn_foreg", "parts"),
                       binary_visibility: bool = True,
@@ -185,13 +337,7 @@ def make_kpr_embed_fn(model, crop_size=(384, 128), n_prompt_ch: int = 6,
 
     def embed(frames, boxes, keypoints=None):
         dev = frames.device
-        if dev not in consts:
-            # built once per device: a tensor made from Python numbers on
-            # the card is a host-to-device copy, which waits for the stream
-            consts[dev] = tuple(torch.tensor(c, dtype=torch.float32,
-                                             device=dev)
-                                for c in (IMAGENET_MEAN, IMAGENET_STD))
-        mean, std = consts[dev]
+        mean, std = _imagenet_consts(consts, dev)
         crops = crop_resize(frames, boxes, ch, cw)      # (B, D, ch, cw, 3)
         B, D = crops.shape[0], crops.shape[1]
         x = ((crops.reshape(B * D, ch, cw, 3) - mean) / std).to(
@@ -271,40 +417,22 @@ def fused_detect_parts_track(detect_fn, embed_fn, step_fn, init_state,
                          f"({chunk}); pad with frame_valid=False")
     state, outs = init_state, []
     all_dets, all_reid, all_kp = [], [], []
+
+    # prompts are crop-relative: frame-coordinate keypoints and boxes give
+    # the same maps as the original-coordinate pair
+    def stage(f, bx):
+        if pose_fn is None:
+            return {"reid": embed_fn(f, bx)}
+        kpf = pose_fn(f, bx)
+        return {"reid": embed_fn(f, bx, kpf), "kp": kpf}
+
     for base in range(0, F_, chunk):
         sl = slice(base, base + chunk)
-        m = None if meta is None else {k: v[sl] for k, v in meta.items()}
-        fr = frames[sl]
-        dets = detect_fn(fr, m)
+        dets = _detect_chunk(detect_fn, frames, sl, meta, frame_valid)
         D = dets.ref.shape[1]
         dev = dets.ref.device
-        frame_idx = base + torch.arange(chunk, dtype=torch.int32, device=dev)
-        dets = dets._replace(
-            ref=frame_idx[:, None] * D
-            + torch.arange(D, dtype=torch.int32, device=dev)[None, :])
-        if frame_valid is not None:
-            dets = dets._replace(valid=dets.valid & frame_valid[sl][:, None])
-
-        boxes = dets.ltrb
-        if crop_meta is not None:
-            s = crop_meta["scale"][sl][:, None, :]
-            p = crop_meta["pad"][sl][:, None, :]
-            boxes = torch.cat([boxes[..., 0:2] * s + p,
-                               boxes[..., 2:4] * s + p], dim=-1)
-
-        # prompts are crop-relative: frame-coordinate keypoints and boxes
-        # give the same maps as the original-coordinate pair
-        def stage(f, bx):
-            if pose_fn is None:
-                return {"reid": embed_fn(f, bx)}
-            kpf = pose_fn(f, bx)
-            return {"reid": embed_fn(f, bx, kpf), "kp": kpf}
-
-        if embed_buckets is not None:
-            st_out = _bucketed_embed(stage, fr, boxes, dets.valid,
-                                     tuple(embed_buckets))
-        else:
-            st_out = stage(fr, boxes)
+        st_out = _crop_stage(stage, frames, dets, sl, crop_meta,
+                             embed_buckets)
         reid, kp_frame = st_out["reid"], st_out.get("kp")
 
         kp_orig = None
@@ -316,9 +444,7 @@ def fused_detect_parts_track(detect_fn, embed_fn, step_fn, init_state,
                 kp_orig = torch.cat([(kp_frame[..., 0:2] - p) / s,
                                      kp_frame[..., 2:3]], dim=-1)
             kp_orig = kp_orig * dets.valid[..., None, None]
-        reid = {k: v * dets.valid.reshape(dets.valid.shape
-                                          + (1,) * (v.dim() - 2))
-                for k, v in reid.items()}
+        reid = _mask_slots(reid, dets.valid)
         emb, vis = reid["embeddings"], reid["visibility"]
 
         # part-layout fit: cut to (P, E), zero-pad the rest

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build_all", "library", "load", "nvcc_path"]
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "tracklab_torch_kernels"
-SOURCES = ("jv", "jv_rect", "csp", "vit_attention")
+SOURCES = ("jv", "jv_rect", "csp", "vit_attention", "oru_replay")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC"]
 

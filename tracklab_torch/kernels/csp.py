@@ -9,11 +9,17 @@ at YOLOX-s 640). bf16 runs on the tensor cores (``mma.sync`` with
 ``ldmatrix`` and a ``cp.async`` ring), f32 on CUDA cores; see the source
 note in ``csrc/csp.cu``.
 
+A layer whose haloed region exceeds shared memory at every tile takes the
+staged route (:data:`STAGED`): its intermediates in device memory and its
+2n + 3 stages run as GEMMs over the whole batch, so K3 takes every dense
+layer the JAX kernel takes.
+
 The plain version is the unfused layer, ``CSPLayer.forward_plain``
 (``models/yolox.py``). :func:`fused_csplayer` runs it for CPU tensors and
 launches the kernel :func:`route` names for CUDA tensors, with the plan
-:func:`choose_tile` gives; a layer either refuses raises ValueError. Its
-``launches`` attribute counts kernel launches.
+:func:`choose_tile` gives; a layer the kernel refuses raises ValueError.
+Its ``launches`` attribute counts layers run on the card, one for each call
+of the C entry point (the staged route's entry runs its stage grids).
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import torch
 from tracklab_torch.models.yolox import BN_EPS
 
 __all__ = ["fold_convbn", "pack_csplayer", "smem_bytes", "choose_tile",
-           "route", "fused_csplayer", "SMEM_LIMIT"]
+           "route", "fused_csplayer", "SMEM_LIMIT", "STAGED"]
 
 SMEM_LIMIT = 232448    # bytes of shared memory one Hopper CTA may use
 # the tensor-core kernel's two cp.async rings (csrc/csp.cu: Wide, Compact):
@@ -35,6 +41,7 @@ SMEM_LIMIT = 232448    # bytes of shared memory one Hopper CTA may use
 _RINGS = ((256, 3 * (256 + 64) * (32 + 8) * 2),    # KX 32, three slots
           (64, 2 * (64 + 64) * (16 + 8) * 2))      # KX 16, two slots
 _MMA_BN = 64          # CTA tile channels of both rings
+STAGED = 2            # the plan's ring for the staged route (no tile)
 # the CUDA-core kernel's work item: 8 pixels x 4 channels
 _FMA_TILE = (8, 4)
 _ITEM = {torch.float32: 4, torch.bfloat16: 2}
@@ -119,10 +126,11 @@ def choose_tile(H, W, n, cin, ch, cout, dtype):
     """(th, tw, ring): the output tile whose plan fits in
     :data:`SMEM_LIMIT` and needs the least work (:func:`_work`), larger
     tiles first on a tie, with bf16's wide ring where any tile fits with it
-    and its compact ring otherwise (ring 0 for f32). Raises ValueError when
-    no tile fits (the region of a single output pixel, (2n + 1)^2 pixels of
-    a and t, is already too large, as for dark4 of YOLOX-l and dark3 and
-    dark4 of YOLOX-x)."""
+    and its compact ring otherwise (ring 0 for f32). Where no tile fits
+    (the region of a single output pixel, (2n + 1)^2 pixels of a and t, is
+    already too large, as for dark4 of YOLOX-l and dark3 and dark4 of
+    YOLOX-x in bf16), (H, W, :data:`STAGED`): the staged route, whose
+    shared memory does not depend on the layer."""
     rings = range(len(_RINGS)) if dtype == torch.bfloat16 else (0,)
     for ring in rings:
         tile = ((_RINGS[ring][0], _MMA_BN) if dtype == torch.bfloat16
@@ -137,8 +145,7 @@ def choose_tile(H, W, n, cin, ch, cout, dtype):
                     best = (key, (th, tw, ring))
         if best is not None:
             return best[1]
-    raise ValueError(f"a CSPLayer with ch={ch}, n={n} does not fit in "
-                     f"shared memory at any tile size in {dtype}")
+    return H, W, STAGED
 
 
 def route(dtype, cin, ch, cout) -> str:
@@ -167,7 +174,9 @@ def _lib(symbol):
     from tracklab_torch.kernels._build import load
 
     fn = getattr(load("csp"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 \
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
+                   if symbol.endswith("_staged") else
+                   [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11) \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -176,8 +185,8 @@ def _lib(symbol):
 def fused_csplayer(layer, x: torch.Tensor) -> torch.Tensor:
     """Run ``layer`` (a dense ``models.yolox.CSPLayer``) on ``x`` (B, C, H,
     W). CPU tensors take the plain layer; CUDA tensors launch K3 in the
-    layer's dtype (:func:`route`) and get an NCHW view of an NHWC
-    (channels-last) result."""
+    layer's dtype (:func:`route`) with :func:`choose_tile`'s plan and get
+    an NCHW view of an NHWC (channels-last) result."""
     if not x.is_cuda:
         return layer.forward_plain(x)
     if layer.depthwise:
@@ -191,18 +200,24 @@ def fused_csplayer(layer, x: torch.Tensor) -> torch.Tensor:
     if layer.conv1.conv.weight.shape[1] != cin:
         raise ValueError(f"x has {cin} channels, the layer takes "
                          f"{layer.conv1.conv.weight.shape[1]}")
-    fn = _lib(route(dtype, cin, ch, cout))
+    symbol = route(dtype, cin, ch, cout)
     th, tw, ring = choose_tile(H, W, n, cin, ch, cout, dtype)
     p = pack_csplayer(layer, dtype)
     xh = x.to(dtype).permute(0, 2, 3, 1).contiguous()
     out = torch.empty((B, H, W, cout), dtype=dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptr = lambda k: p[k].data_ptr()                    # noqa: E731
+    args = [xh.data_ptr(), out.data_ptr()] + [
+        p[k].data_ptr() for k in ("wm", "bm", "ws", "bs", "w1", "b1", "w3",
+                                  "b3", "wf", "bf")]
+    shape = [B, H, W, cin, ch, cout, n, int(layer.shortcut)]
     with torch.cuda.device(x.device):
-        err = fn(xh.data_ptr(), out.data_ptr(), ptr("wm"), ptr("bm"),
-                 ptr("ws"), ptr("bs"), ptr("w1"), ptr("b1"), ptr("w3"),
-                 ptr("b3"), ptr("wf"), ptr("bf"), B, H, W, cin, ch, cout, n,
-                 int(layer.shortcut), th, tw, ring, stream)
+        if ring == STAGED:
+            scratch = torch.empty((3, B, H, W, ch), dtype=dtype,
+                                  device=x.device)
+            err = _lib(symbol + "_staged")(*args, scratch.data_ptr(),
+                                           *shape, stream)
+        else:
+            err = _lib(symbol)(*args, *shape, th, tw, ring, stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
     fused_csplayer.launches += 1

@@ -17,13 +17,13 @@ and conv layers cast input, weight and bias to the model dtype; LayerNorm
 computes in f32 and returns f32; the pixel classifier's softmax is f32;
 BatchNorm computes in f32 and returns the model dtype.
 
-Attention: on CUDA every ``_Attention`` launches kernel K4
-(``kernels/vit_attention.py``) whatever ``attn_impl`` says, so on the card
-the softmax is always f32 (the JAX package's default ``naive`` takes it in
-the compute dtype). On the CPU ``attn_impl`` picks the plain form that
-matches the JAX lowering: ``naive``, ``einsum`` and ``einsumT`` take logits
-and softmax in the compute dtype, ``dpa`` and ``pallas`` take the softmax in
-f32 (:func:`vit_attention_plain`).
+Attention: every ``_Attention`` calls kernel K4's wrapper
+(``kernels/vit_attention.py``) in the softmax mode of the JAX lowering that
+``attn_impl`` names: ``naive``, ``einsum`` and ``einsumT`` take logits and
+softmax in the compute dtype (``softmax="compute"``), ``dpa`` and ``pallas``
+take the softmax in f32. On CUDA the wrapper launches K4 in that mode, on the
+CPU it runs the mode's plain version (``vit_attention_compute_plain`` or
+``vit_attention_plain``).
 """
 from __future__ import annotations
 
@@ -34,8 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tracklab_torch.device import resolve_device
-from tracklab_torch.kernels.vit_attention import (vit_attention,
-                                                  vit_attention_plain)
+from tracklab_torch.kernels.vit_attention import vit_attention
 
 __all__ = ["KPR", "PromptableViT", "extract_test_embeddings",
            "gaussian_prompt_maps", "PROMPT_GROUPS_CCK6", "ATTN_IMPLS"]
@@ -132,22 +131,6 @@ class BatchNorm(nn.Module):
                 + self.bias).to(self.dtype)
 
 
-def _attention_compute_dtype(q, k, v, n_valid):
-    """The JAX ``naive``/``einsum``/``einsumT`` lowerings: logits scaled
-    and softmaxed in the compute dtype, masked keys at
-    ``finfo(dtype).min``. (B, N, H, Dh) -> (B, N, H, Dh)."""
-    N, Dh = q.shape[1], q.shape[3]
-    qt, kt, vt = (a.permute(0, 2, 1, 3) for a in (q, k, v))
-    s = torch.matmul(qt, kt.transpose(-1, -2)) * Dh ** -0.5
-    if n_valid is not None and n_valid < N:
-        col = torch.arange(N, device=q.device)
-        s = torch.where(col < n_valid, s, torch.finfo(s.dtype).min)
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
-    p = e / e.sum(dim=-1, keepdim=True)
-    return torch.matmul(p, vt).permute(0, 2, 1, 3)
-
-
 class _Attention(nn.Module):
     """Multi-head self-attention with the JAX package's five ``impl``
     names. ``n_valid``: static count of real tokens (keys past it are
@@ -162,17 +145,13 @@ class _Attention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
         self.num_heads, self.impl, self.n_valid = num_heads, impl, n_valid
+        self.softmax = "f32" if impl in ("dpa", "pallas") else "compute"
 
     def forward(self, x):
         B, N, D = x.shape
         H = self.num_heads
         q, k, v = self.qkv(x).reshape(B, N, 3, H, D // H).unbind(2)
-        if x.is_cuda:
-            y = vit_attention(q, k, v, self.n_valid)
-        elif self.impl in ("dpa", "pallas"):
-            y = vit_attention_plain(q, k, v, self.n_valid)
-        else:
-            y = _attention_compute_dtype(q, k, v, self.n_valid)
+        y = vit_attention(q, k, v, self.n_valid, softmax=self.softmax)
         return self.proj(y.reshape(B, N, D))
 
 

@@ -1,6 +1,7 @@
 """Kalman filters in PyTorch (counterpart of tracklab_tpu.ops.kalman):
-OC-SORT's ``XYSRFilter``, the DeepSORT/ByteTrack ``XYAHFilter`` and
-BPBReID-StrongSORT's ``XYAHNSAHFilter`` with its Mahalanobis gating.
+OC-SORT's ``XYSRFilter``, the DeepSORT/ByteTrack ``XYAHFilter``,
+StrongSORT's ``XYAHNSAFilter`` and BPBReID-StrongSORT's ``XYAHNSAHFilter``
+with their Mahalanobis gating.
 
 Functions take any number of leading batch dimensions (track slots, and
 videos before them): ``x (..., n)``, ``P (..., n, n)``, ``z (..., 4)``, so
@@ -13,8 +14,8 @@ import functools
 
 import torch
 
-__all__ = ["XYSRFilter", "XYAHFilter", "XYAHNSAHFilter", "CHI2INV95_4D",
-           "CHI2INV95_2D"]
+__all__ = ["XYSRFilter", "XYAHFilter", "XYAHNSAFilter", "XYAHNSAHFilter",
+           "CHI2INV95_4D", "CHI2INV95_2D"]
 
 # 0.95 quantiles of the chi-square distribution with 4 and 2 degrees of
 # freedom (the DeepSORT gating thresholds)
@@ -148,43 +149,17 @@ class XYSRFilter:
         """Observation-centric re-update (kalmanfilter.py:390-432), batched
         over track slots: rewind to the frozen state and replay a linearly
         interpolated virtual trajectory from ``z_prev`` to ``z_new`` (xysr,
-        interpolated in x, y, w, h), to the largest gap needed this frame.
+        interpolated in x, y, w, h), each slot to its own gap.
 
-        Host sync: the loop bound is data dependent, so reading it costs one
-        ``.item()`` per call (one per tracker frame). Shapes: x (T, 7),
-        P (T, 7, 7), z (T, 4), gap (T,) int, need (T,) bool.
+        CUDA tensors launch the ORU replay kernel (``kernels/oru_replay.py``),
+        one thread per slot, with no host sync; CPU tensors run its plain
+        version, the masked loop to the largest gap. Shapes: x (..., T, 7),
+        P (..., T, 7, 7), z (..., T, 4), gap (..., T) int, need (..., T)
+        bool.
         """
-        dtype = x_frozen.dtype
-        x1, y1, s1, r1 = z_prev.unbind(-1)
-        x2, y2, s2, r2 = z_new.unbind(-1)
-        w1 = torch.sqrt(torch.clamp(s1 * r1, min=1e-12))
-        h1 = torch.sqrt(torch.clamp(s1 / torch.clamp(r1, min=1e-12),
-                                    min=1e-12))
-        w2 = torch.sqrt(torch.clamp(s2 * r2, min=1e-12))
-        h2 = torch.sqrt(torch.clamp(s2 / torch.clamp(r2, min=1e-12),
-                                    min=1e-12))
-        tg = torch.clamp(gap, min=1).to(dtype)
-        dx, dy = (x2 - x1) / tg, (y2 - y1) / tg
-        dw, dh = (w2 - w1) / tg, (h2 - h1) / tg
-        max_steps = int(torch.where(need, gap, 0).max())   # the host sync
-        x, P = x_frozen, P_frozen
-        for i in range(max_steps):
-            active = need & (i < gap)
-            t = float(i + 1)
-            vx = x1 + t * dx
-            vy = y1 + t * dy
-            vw = w1 + t * dw
-            vh = h1 + t * dh
-            vz = torch.stack([vx, vy, vw * vh,
-                              vw / torch.clamp(vh, min=1e-12)], dim=-1)
-            x_u, P_u = XYSRFilter.update(x, P, vz)
-            do_pred = active & (i < gap - 1)
-            x_p, P_p = XYSRFilter.predict(x_u, P_u)
-            x_next = _where(do_pred, x_p, x_u)
-            P_next = _where(do_pred, P_p, P_u)
-            x = _where(active, x_next, x)
-            P = _where(active, P_next, P)
-        return x, P
+        from tracklab_torch.kernels.oru_replay import oru_replay
+
+        return oru_replay(x_frozen, P_frozen, z_prev, z_new, gap, need)
 
     @staticmethod
     def to_ltrb(x):
@@ -277,6 +252,63 @@ def _xyah_mats(dtype=torch.float32, device=None):
     F = torch.eye(8, dtype=dtype, device=device)
     F[:4, 4:] += torch.eye(4, dtype=dtype, device=device)
     return F, torch.eye(4, 8, dtype=dtype, device=device)
+
+
+class XYAHNSAFilter:
+    """StrongSORT's NSA Kalman filter on [x, y, a, h, v*]: per-component
+    noise scaling (position stds from x, y and h, the aspect ratio's from a)
+    and measurement noise that shrinks with the detection confidence
+    (strong_sort/sort/kalman_filter.py:48-174)."""
+
+    WP = 1.0 / 20
+    WV = 1.0 / 160
+
+    @staticmethod
+    def _std8(m, kp, ka, kv, kva):
+        """Stds (..., 8) from a mean or measurement m (..., >= 4): position
+        kp * (x, y, -, h), aspect ka * a, velocities kv * (x, y, -, h) and
+        kva * a."""
+        x, y, a, h = m[..., 0], m[..., 1], m[..., 2], m[..., 3]
+        return torch.stack([kp * x, kp * y, ka * a, kp * h,
+                            kv * x, kv * y, kva * a, kv * h], dim=-1)
+
+    @staticmethod
+    def initiate(z):
+        """Measurement (..., 4) xyah -> mean (..., 8), covariance."""
+        x = torch.cat([z, torch.zeros_like(z)], dim=-1)
+        f = XYAHNSAFilter
+        return x, _diag(f._std8(z, 2 * f.WP, 1.0, 10 * f.WV, 0.1))
+
+    @staticmethod
+    def predict(x, P):
+        f = XYAHNSAFilter
+        return _shift4_predict(x, P, _diag(f._std8(x, f.WP, 1.0, f.WV, 0.1)))
+
+    @staticmethod
+    def project(x, P, confidence=0.0):
+        """(H x, H P H' + R) with R's stds (wp h, wp h, 0.1, wp h) scaled by
+        (1 - confidence)."""
+        p = XYAHNSAFilter.WP * x[..., 3]
+        std = torch.stack([p, p, torch.full_like(p, 1e-1), p],
+                          dim=-1) * (1.0 - confidence)
+        return x[..., :4], P[..., :4, :4] + _diag(std)
+
+    @staticmethod
+    def update(x, P, z, confidence=0.0):
+        """``confidence`` is a number or a tensor over the leading dims."""
+        if isinstance(confidence, torch.Tensor):
+            confidence = confidence[..., None]
+        _, pc = XYAHNSAFilter.project(x, P, confidence)
+        return _proj4_update(x, P, z, pc)
+
+    @staticmethod
+    def gating_distance(x, P, zs, only_position=False):
+        """Squared Mahalanobis distance of each measurement ``zs`` (..., D,
+        4) from each track ``x`` (..., T, 8): returns (..., T, D)."""
+        pm, pc = XYAHNSAFilter.project(x, P)
+        if only_position:
+            pm, pc, zs = pm[..., :2], pc[..., :2, :2], zs[..., :2]
+        return _mahalanobis(pm, pc, zs[..., None, :, :])
 
 
 class XYAHNSAHFilter:

@@ -10,8 +10,9 @@ dropped again. The JAX package's ``lax.cond`` fast paths become
 device-side selections (``torch.where``), and each association stage's
 solves are one launch for all V videos with an ``active`` flag set on the
 device: K1 in the default mode, K2 with ``cfg.batched`` (the cond-free
-rectangular form). A step issues no host sync except the ORU replay's loop
-bound (``ops/kalman.py``). Semantics match the reference step for step
+rectangular form). On the card a step issues no host sync: the ORU replay
+runs as one kernel launch (``kernels/oru_replay.py``), each slot to its own
+gap. Semantics match the reference step for step
 (ocsort.py:203-334 and association.py:242-298).
 """
 from __future__ import annotations
