@@ -60,7 +60,7 @@ Phases (any failure exits non-zero):
      K2 is checked against its plain version and timed (ns per step of
      each launch's longest problem).
 
-Phases 9-11 and 14 run before 7 and 8; 12, 13 and 15 after them:
+Phases 9-11 and 14 run before 7 and 8; 12, 13, 15, 17 and 16 after them:
   9. K4 (ViT attention) against its plain version at (384, 193, 12, 64),
      (8, 256, 12, 64) with n_valid 193, (5, 37, 3, 64) and (2, 193, 12, 64)
      with n_valid 100, in f32 (1e-5 abs) and bf16
@@ -81,12 +81,13 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13 and 15 after them:
      against 8 single-video runs on the card, id for id;
  12. the parts path: 8 chunks of 16 quasi-static uint8 640 frames ->
      YOLOX-s bf16 -> NMS (~20 detections per frame, 32 slots) -> device
-     crops -> KPR ViT-B bf16 part features (buckets 24, 32) ->
+     crops -> KPR ViT-B bf16 part features over every slot ->
      BPBReID-StrongSORT (min_confidence 0.4), with the launch counters read
-     around it and the host syncs of one warmed chunk counted; then the
-     first chunk split into detector, KPR (K4 and the top kernels within
-     it, from the profiler) and 16 profiled tracker steps, and K4 checked
-     and timed on the path's own layer-0 q, k, v;
+     around it and 0 host syncs required in one warmed chunk; then the
+     first chunk split into detector, KPR (at full width and with the
+     buckets 24, 32, which read the live count on the host; K4 and the top
+     kernels within it, from the profiler) and 16 profiled tracker steps,
+     and K4 checked and timed on the path's own layer-0 q, k, v;
  13. the ORU replay kernel against its plain version on the main path's
      and the multi-video path's recorded replay inputs (x within rtol 1e-5
      and atol 1e-4, P within rtol 1e-4 and atol 1e-3: cuBLAS sums the
@@ -99,12 +100,13 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13 and 15 after them:
      forward;
  15. the ReID path: 8 chunks of 16 quasi-static uint8 640 frames ->
      YOLOX-s bf16 -> NMS (~20 detections per frame, 32 slots) -> device
-     crops -> OSNet x1_0 f32 at 256 x 128 (buckets 8, 16, 32) ->
-     StrongSORT (strong_sort.yaml: 128 tracks, nn_budget 100, 512-d,
-     max_age 40, min_confidence 0.4), with the launch counters read around
-     it and the host syncs of one warmed chunk counted; the tracker stage
-     rerun with the plain JV solvers on its first 32 recorded frames, id
-     for id; the detector rerun with the plain CSPLayers, its detections
+     crops -> OSNet x1_0 f32 at 256 x 128 over every slot -> StrongSORT
+     (strong_sort.yaml: 128 tracks, nn_budget 100, 512-d, max_age 40,
+     min_confidence 0.4), with the launch counters read around it and 0
+     host syncs required in one warmed chunk (OSNet also timed with the
+     buckets 8, 16, 32 on the first chunk); the tracker stage
+     rerun with the plain JV solvers (on host copies of their inputs) on
+     its first 32 recorded frames, id for id; the detector rerun with the plain CSPLayers, its detections
      matched by IoU and compared; the first chunk split into detector,
      OSNet and 16 profiled tracker steps; then the tracker stage alone
      over V = 4 videos (32 frames each) with batched=True (K2, its
@@ -114,10 +116,33 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13 and 15 after them:
      the plain rectangular solver id for id (the default mode, K1,
      compared: NaN gating costs of free slots empty its appearance stage,
      a reference fault kept for parity, so the two modes part, in the JAX
-     package as here).
+     package as here);
+ 16. the ORU-NKF replay kernel (Deep-OC-SORT's "new KF") against its plain
+     version on seeded random (8, 128) slots with gaps 1-50 and mixed need
+     and on phase 17's recorded replay inputs (x within rtol 1e-5 / atol
+     1e-4, P within rtol 1e-4 / atol 1e-3, slots that do not replay
+     unchanged), timed on the random slots beside its bound and the plain
+     loop, with ptxas's register and spill count;
+ 17. the camera-motion ReID path: 8 chunks of 16 uint8 640 frames cut from
+     one seeded smooth texture panning by (+2, -1) px per frame -> LK
+     camera warps on the card (gmc_warps, levels 3, iters 10, batched over
+     each chunk's frame pairs) -> YOLOX-s bf16 -> NMS (~20 detections per
+     frame, 64 slots) -> device crops -> OSNet x1_0 f32 at 256 x 128 over
+     all 1024 crops of a chunk -> Deep-OC-SORT (deep_oc_sort.yaml), then
+     BoT-SORT (bot_sort.yaml), min_confidence 0.4 as a mask: 0 host syncs
+     in one warmed chunk of LK and each tracker's path; the warps within
+     0.25 px of the pan and 0.01 of the identity, two pairs within 1e-3 of
+     the LK on the CPU; launches of K1, K2, K3 and ORU-NKF counted around
+     each run; 16 tracker steps profiled; the first 32 frames of each
+     tracker stage equal to the stage on the CPU and to the stage with the
+     plain JV solvers (on host copies of their inputs) and the plain
+     ORU-NKF, id for id; the stage over V =
+     4 videos x 32 frames in both batched modes equal to its own
+     single-video runs, and K2 identical to its plain version on the last
+     8 of its batched inputs.
 
 The last three lines are the card's name and power limit, a JSON line with
-each kernel's check and times (K1-K4 and the ORU replay), and
+each kernel's check and times (K1-K4, the ORU replay and ORU-NKF), and
 {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -292,6 +317,21 @@ def phase_k1(torch, dev):
                     random_s64=dict(ms=r_ms, steps=r_stats["steps"],
                                     ns_per_step=r_ms * 1e6
                                     / r_stats["steps"]))
+
+
+def _plain_on_host(solver):
+    """A plain JV solver run on host copies of its tensor arguments, its
+    col2row moved back to the arguments' device: the same plain code on
+    the same values (compares and f32 adds, so the device does not change
+    the result), without the host sync that each path step of a plain
+    solve costs on the card (~1 s per solving call at 128 tracks). For the
+    tracker-stage reruns that swap the plain solvers in for K1 and K2."""
+    def run(cost, *rest):
+        out = solver(cost.cpu(), *(None if a is None else a.cpu()
+                                   for a in rest))
+        return out.to(cost.device)
+
+    return run
 
 
 def _signed_zeros(torch, g, R, C):
@@ -1474,12 +1514,34 @@ def phase_bpbreid(torch, dev, n_videos=8, n_frames=40):
             f"{dt * 1e3:.2f} ms per frame step")
 
 
+def _embed_both_ways(torch, detect, embed, video, chunk, buckets, timed):
+    """The live count of every chunk's detections and the bucket it would
+    take; then the embed stage timed at full width and bucketed on the
+    chunk with the fewest live slots (where the buckets save the most)."""
+    from tracklab_torch.engine.fused import _bucketed_embed
+
+    dets = [detect(video[b:b + chunk])
+            for b in range(0, video.shape[0], chunk)]
+    lives = [int(d.valid.sum(1).max()) for d in dets]
+    i = min(range(len(lives)), key=lives.__getitem__)
+    frames, d = video[i * chunk:(i + 1) * chunk], dets[i]
+    embed(frames, d.ltrb)
+    _, full_ms = timed(lambda: embed(frames, d.ltrb))
+    _, bucket_ms = timed(lambda: _bucketed_embed(embed, frames, d.ltrb,
+                                                 d.valid, buckets))
+    return dict(live_per_chunk=lives,
+                bucket_per_chunk=[next(b for b in buckets if b >= n)
+                                  for n in lives],
+                fewest_live_chunk=i, full_ms=full_ms, bucketed_ms=bucket_ms)
+
+
 # -------------------------------------------------- phase 12: the parts path
 def phase_parts(torch, dev, n_chunks=8, chunk=16, size=640):
     """uint8 frames -> YOLOX-s 640 bf16 -> NMS (~20 detections per frame,
-    32 slots) -> device crops -> KPR ViT-B bf16 part features (buckets 24,
-    32) -> BPBReID-StrongSORT (min_confidence 0.4), as bench.py's
-    detect_parts_track."""
+    32 slots) -> device crops -> KPR ViT-B bf16 part features over every
+    slot (full width: no host sync) -> BPBReID-StrongSORT (min_confidence
+    0.4), as bench.py's detect_parts_track; KPR also timed with the buckets
+    (24, 32), which read the live count on the host."""
     import tracklab_torch.models.kpr as kpr_mod
     from tracklab_torch.engine.fused import (_bucketed_embed,
                                              fused_detect_parts_track,
@@ -1520,8 +1582,7 @@ def phase_parts(torch, dev, n_chunks=8, chunk=16, size=640):
     step = partial(bpbreid_step, cfg)
     run = partial(fused_detect_parts_track, detect, embed, chunk=chunk,
                   min_confidence=0.4, n_parts=6, embed_dim=512,
-                  n_keypoints=17, embed_buckets=(24, 32),
-                  return_detections=False)
+                  n_keypoints=17, return_detections=False)
 
     # warm-up on the first chunk, which records its tracker inputs, then
     # the second chunk with its host syncs counted
@@ -1562,6 +1623,8 @@ def phase_parts(torch, dev, n_chunks=8, chunk=16, size=640):
     log(f"parts path: {F} frames in {wall:.3f} s = {fps:.2f} frames/s, "
         f"{per_frame:.2f} tracks/frame, launches {launches}, "
         f"{syncs_per_frame:.3f} host syncs/frame (second chunk)")
+    check(syncs_per_frame == 0,
+          f"parts path: {syncs_per_frame} host syncs per frame")
     check(launches["K4"] == 12 * n_chunks,
           f"K4 launches {launches['K4']} != 12 per chunk")
     check(launches["K3"] == 7 * n_chunks,
@@ -1584,10 +1647,15 @@ def phase_parts(torch, dev, n_chunks=8, chunk=16, size=640):
         return r, (time.perf_counter() - t) * 1e3
 
     dets, det_ms = timed(lambda: detect(frames))
-    kpr_call = partial(_bucketed_embed, embed, frames, dets.ltrb, dets.valid,
-                       (24, 32))
+    kpr_call = partial(embed, frames, dets.ltrb)
     _, kpr_ms = timed(kpr_call)
+    _, kpr_bucket_ms = timed(partial(_bucketed_embed, embed, frames,
+                                     dets.ltrb, dets.valid, (24, 32)))
     k4_ms, kpr_top = _kernel_ms_in(torch, kpr_call, "vit_attention")
+    both = _embed_both_ways(torch, detect, embed, video, chunk, (24, 32),
+                            timed)
+    log(f"parts path KPR per chunk, full width against the buckets (24, "
+        f"32): {both}")
     init = bpbreid_init(cfg, device=dev)
 
     def track():
@@ -1599,7 +1667,8 @@ def phase_parts(torch, dev, n_chunks=8, chunk=16, size=640):
     _, trk_ms = timed(track)
     trk = profile_window(torch, track, len(inputs))
     log(f"parts path split (chunk of {chunk}): detector {det_ms:.1f} ms, "
-        f"KPR {kpr_ms:.1f} ms (K4 {k4_ms:.2f} ms of it, "
+        f"KPR {kpr_ms:.1f} ms at full width (K4 {k4_ms:.2f} ms of it; "
+        f"{kpr_bucket_ms:.1f} ms with the buckets (24, 32), "
         f"{int(dets.valid.sum(1).max())} live slots), tracker "
         f"{trk_ms / len(inputs):.2f} ms per frame; KPR's top kernels "
         f"(ms per chunk) {kpr_top}; tracker under the profiler {trk}")
@@ -1631,7 +1700,10 @@ def phase_parts(torch, dev, n_chunks=8, chunk=16, size=640):
     return launches, dict(
         fps=fps, frames=F, chunk=chunk, syncs_per_frame=syncs_per_frame,
         tracks_per_frame=per_frame, detector_ms_per_chunk=det_ms,
-        kpr_ms_per_chunk=kpr_ms, k4_ms_per_chunk=k4_ms,
+        kpr_ms_per_chunk=kpr_ms, kpr_bucketed_ms_per_chunk=kpr_bucket_ms,
+        live_slots_first_chunk=int(dets.valid.sum(1).max()),
+        kpr_both_ways=both,
+        k4_ms_per_chunk=k4_ms,
         kpr_top_kernels_ms_per_chunk=kpr_top,
         tracker_ms_per_frame=trk_ms / len(inputs), tracker=trk,
         k4_path=dict(shape=list(q.shape), softmax=softmax, ms=k4_path_ms,
@@ -1788,9 +1860,11 @@ def phase_yolox_lx(torch, dev, batch=2, size=640):
 # ---------------------------------------------------- phase 15: ReID path
 def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
     """uint8 frames -> YOLOX-s 640 bf16 -> NMS (~20 detections per frame,
-    32 slots) -> device crops -> OSNet x1_0 f32 at 256 x 128 (buckets 8,
-    16, 32) -> StrongSORT with strong_sort.yaml's values, the reference's
-    BASELINE config-2 pipeline (fused_detect_reid_track)."""
+    32 slots) -> device crops -> OSNet x1_0 f32 at 256 x 128 over every
+    slot (full width: no host sync) -> StrongSORT with strong_sort.yaml's
+    values, the reference's BASELINE config-2 pipeline
+    (fused_detect_reid_track); OSNet also timed with the buckets (8, 16,
+    32), which read the live count on the host."""
     from dataclasses import replace
 
     import tracklab_torch.ops.assignment as A
@@ -1841,9 +1915,8 @@ def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
     embed = make_osnet_embed_fn(osnet, crop_size=(256, 128),
                                 compute_dtype=torch.float32)
     step = partial(strongsort_step, cfg)
-    buckets = (8, 16, 32)
     run = partial(fused_detect_reid_track, detect, embed, chunk=chunk,
-                  min_confidence=0.4, embed_dim=512, embed_buckets=buckets)
+                  min_confidence=0.4, embed_dim=512)
 
     # warm-up on the first chunk, then the second with its syncs counted
     run(step_fn=step, init_state=strongsort_init(cfg, device=dev),
@@ -1882,12 +1955,11 @@ def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
     per_frame = out.valid.sum(1).float().mean().item()
     log(f"ReID path: {F} frames in {wall:.3f} s = {fps:.2f} frames/s, "
         f"{per_frame:.2f} tracks/frame, launches {launches}, "
-        f"{syncs_per_frame:.4f} host syncs/frame (second chunk; the bucket "
-        f"read is one per chunk of {chunk})")
+        f"{syncs_per_frame:.4f} host syncs/frame (second chunk)")
     check(launches["K3"] == 7 * n_chunks,
           f"K3 launches {launches['K3']} != 7 per chunk")
     check(launches["K1"] > 0, "K1 never launched on the ReID path")
-    check(syncs_per_frame <= 1 / chunk,
+    check(syncs_per_frame == 0,
           f"ReID path: {syncs_per_frame} host syncs per frame")
     check(out.valid.shape == (F, cfg.max_tracks), "output shape")
     check(out.valid.any().item(), "tracker emitted no tracks")
@@ -1898,17 +1970,17 @@ def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
           "ReID embeddings: shape or non-finite")
 
     # the tracker stage again with the plain JV solvers, id for id, over the
-    # first n_plain frames (a plain solve on the card syncs at every path
-    # step: ~1 s per solving call at 128 tracks)
+    # first n_plain frames
     n_plain = 2 * chunk
     solves = {"K1": 0}
+    plain_sq = _plain_on_host(solve_square_batched_plain)
 
     def plain_k1(cost, k_eff, active):
         solves["K1"] += 1
-        return solve_square_batched_plain(cost, k_eff, active)
+        return plain_sq(cost, k_eff, active)
 
     A.solve_square_batched, A.solve_rect_batched = (
-        plain_k1, solve_rect_batched_plain)
+        plain_k1, _plain_on_host(solve_rect_batched_plain))
     try:
         t0 = time.perf_counter()
         st, outs = strongsort_init(cfg, device=dev), []
@@ -1957,8 +2029,13 @@ def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
 
     frames = video[:chunk]
     d0, det_ms = timed(lambda: detect(frames))
-    _, osnet_ms = timed(lambda: _bucketed_embed(embed, frames, d0.ltrb,
-                                                d0.valid, buckets))
+    _, osnet_ms = timed(lambda: embed(frames, d0.ltrb))
+    _, osnet_bucket_ms = timed(lambda: _bucketed_embed(
+        embed, frames, d0.ltrb, d0.valid, (8, 16, 32)))
+    both = _embed_both_ways(torch, detect, embed, video, chunk, (8, 16, 32),
+                            timed)
+    log(f"ReID path OSNet per chunk, full width against the buckets (8, "
+        f"16, 32): {both}")
     first = inputs[:chunk]
     init = strongsort_init(cfg, device=dev)
 
@@ -1971,7 +2048,9 @@ def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
     _, trk_ms = timed(track)
     trk = profile_window(torch, track, len(first))
     log(f"ReID path split (chunk of {chunk}): detector {det_ms:.1f} ms, "
-        f"OSNet {osnet_ms:.1f} ms ({int(d0.valid.sum(1).max())} live slots), "
+        f"OSNet {osnet_ms:.1f} ms at full width, {osnet_bucket_ms:.1f} ms "
+        f"with the buckets (8, 16, 32) ({int(d0.valid.sum(1).max())} live "
+        "slots), "
         f"tracker {trk_ms / len(first):.2f} ms per frame; tracker under the "
         f"profiler {trk}")
 
@@ -2038,7 +2117,7 @@ def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
                           solve_rect_batched_plain(c, a)),
               "K2 differs from its plain version on a batched StrongSORT "
               "input")
-    A.solve_rect_batched = solve_rect_batched_plain
+    A.solve_rect_batched = _plain_on_host(solve_rect_batched_plain)
     try:
         t0 = time.perf_counter()
         _, vplain = strongsort_scan_videos(
@@ -2058,12 +2137,470 @@ def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
         fps=fps, frames=F, chunk=chunk, syncs_per_frame=syncs_per_frame,
         tracks_per_frame=per_frame, detector_ms_per_chunk=det_ms,
         osnet_ms_per_chunk=osnet_ms,
+        osnet_bucketed_ms_per_chunk=osnet_bucket_ms,
+        live_slots_first_chunk=int(d0.valid.sum(1).max()),
+        osnet_both_ways=both,
         tracker_ms_per_frame=trk_ms / len(first), tracker=trk,
         plain_detector=det_cmp, plain_jv_frames=n_plain,
         plain_jv_calls=solves["K1"],
         batched_videos=dict(videos=n_videos, frames=Fv,
                             ms_per_step=v_ms, k2_launches=k2,
                             default_mode_slot_frames_differing=other))
+
+
+# ------------------------------------- phase 16: the ORU-NKF replay kernel
+def _ptxas_usage(name, kernel):
+    """Registers and spills of ``kernel`` in ``csrc/<name>.cu``, as
+    ``nvcc -Xptxas -v`` reports them for the build's flags."""
+    import tempfile
+    from pathlib import Path
+
+    from tracklab_torch.kernels import _build
+
+    flags = [f for f in _build._FLAGS if f not in ("-shared",)]
+    with tempfile.TemporaryDirectory(dir=_build._BUILD.parent) as tmp:
+        res = subprocess.run(
+            [_build.nvcc_path(), *flags, "-Xptxas", "-v", "-c", "-o",
+             str(Path(tmp) / "o.o"), str(_build._CSRC / f"{name}.cu")],
+            capture_output=True, text=True, check=True)
+    for part in res.stderr.split("Compiling entry function")[1:]:
+        if kernel in part.split("\n", 1)[0]:
+            lines = [ln.split(":", 1)[-1].strip()
+                     for ln in part.splitlines()
+                     if "registers" in ln or "spill" in ln]
+            return "; ".join(lines)
+    raise AssertionError(f"{kernel}: not in ptxas's report")
+
+
+def _nkf_slots(torch, dev, shape, seed=0, max_gap=50):
+    """Random ORU-NKF inputs over ``shape`` slots on ``dev``: states after
+    birth and three filter steps, gaps 1..max_gap (some 0), need mixed."""
+    from tracklab_torch.trackers.deepocsort import (_nkf_initiate,
+                                                    _nkf_predict,
+                                                    _nkf_update)
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rand(*s):
+        return torch.rand(shape + s, generator=g)
+
+    z0 = torch.cat([rand(2) * 800 + 100, rand(2) * 180 + 20], dim=-1)
+    x, P = _nkf_initiate(z0)
+    no = torch.zeros(shape, dtype=torch.bool)
+    for _ in range(3):
+        x, P = _nkf_predict(x, P, no)
+        x, P = _nkf_update(x, P, z0 + (rand(4) - 0.5) * 6)
+    zp = z0 + (rand(4) - 0.5) * 10
+    zn = z0 + (rand(4) - 0.5) * 60
+    gap = torch.randint(1, max_gap + 1, shape, generator=g,
+                        dtype=torch.int32)
+    gap[..., :2] = torch.tensor([0, max_gap], dtype=torch.int32)
+    need = rand() < 0.7
+    return tuple(t.to(dev) for t in (x, P, zp, zn, gap, need))
+
+
+def phase_oru_nkf(torch, dev, recorded):
+    """The ORU-NKF kernel against oru_replay_nkf_plain on the card: seeded
+    random (8, 128) slots with gaps 1..50 and mixed need, then the camera
+    path's recorded Deep-OC-SORT replay inputs (``recorded``: {"replay":
+    [...], "idle": [...]}); x within rtol 1e-5 / atol 1e-4, P within rtol
+    1e-4 / atol 1e-3, the frozen state unchanged where a slot does not
+    replay. Timed on the random (8, 128) slots, with its bound and the plain
+    loop's time; ptxas's registers and spills for the kernel."""
+    from tracklab_torch.kernels.oru_replay import (oru_replay_nkf,
+                                                   oru_replay_nkf_plain)
+
+    usage = _ptxas_usage("oru_replay", "oru_replay_nkf_kernel")
+    log(f"ORU-NKF kernel, ptxas: {usage}")
+    rand_in = _nkf_slots(torch, dev, (8, 128))
+    cases = [("random (8, 128)", rand_in, False)]
+    cases += [("path replay", ins, False) for ins in recorded.get("replay",
+                                                                 [])]
+    cases += [("path idle", ins, True) for ins in recorded.get("idle", [])]
+    check(recorded.get("replay"), "no ORU-NKF path input with a replay")
+    max_abs = 0.0
+    for what, ins, idle in cases:
+        gx, gP = oru_replay_nkf(*ins)
+        wx, wP = oru_replay_nkf_plain(*ins)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(gx, wx, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(gP, wP, rtol=1e-4, atol=1e-3)
+        keep = ~(ins[5] & (ins[4] > 0))
+        check(torch.equal(gx[keep], ins[0][keep])
+              and torch.equal(gP[keep], ins[1][keep]),
+              f"ORU-NKF {what}: a slot that does not replay changed")
+        if idle:
+            check(not bool(keep.logical_not().any()), "idle input replays")
+        max_abs = max(max_abs, (gx - wx).abs().max().item())
+    n_path = len(cases) - 1
+    ms = cuda_ms(lambda: oru_replay_nkf(*rand_in), 50)
+    plain_ms = cuda_ms(lambda: oru_replay_nkf_plain(*rand_in), 3, warmup=1)
+    x, P, zp, zn, gap, need = rand_in
+    n = need.numel()
+    steps = int(torch.where(need, gap, 0).sum())
+    trips = int(torch.where(need, gap, 0).max())
+    # each slot reads x, P, z_prev, z_new (80 f32), gap (i32) and need (u8)
+    # and writes x and P (72 f32); each step of a replaying slot's gap is
+    # ~1100 multiply-adds (the update's K, A and P products) and ~100 other
+    # operations: ~2300 f32 operations
+    b_ms, b_by = bound_ms(n * (80 * 4 + 5 + 72 * 4), steps * 2300,
+                          PEAK["f32"])
+    log(f"ORU-NKF: the random (8, 128) slots and {n_path} path launches "
+        f"within tolerance of the plain version (max abs err x "
+        f"{max_abs:.3e}); kernel {ms:.4f} ms per launch on (8, 128) slots "
+        f"({steps} replay steps, {trips} trips), plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by})")
+    return dict(name="ORU-NKF oru_replay_nkf (port-only)", route="cuda",
+                source="tracklab_torch/csrc/oru_replay.cu",
+                replaces="tracklab_tpu/trackers/deepocsort.py:117 "
+                "(_nkf_oru_replay_batch, a lax.while_loop: no Pallas kernel)",
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None), dict(
+                    ptxas=usage, path_launches_checked=n_path,
+                    random_steps=steps, random_trips=trips)
+
+
+# ------------------------------------ phase 17: the camera-motion ReID path
+# configs/modules/track/deep_oc_sort.yaml and bot_sort.yaml (min_confidence
+# 0.4 is the fused path's mask)
+DEEPOCSORT_YAML = dict(det_thresh=0.0, max_age=50, min_hits=1,
+                       iou_threshold=0.22136877277096445, delta_t=1,
+                       asso_func="giou", inertia=0.3941737016672115,
+                       w_association_emb=0.75, alpha_fixed_emb=0.95,
+                       aw_param=0.5, embedding_off=False, aw_off=False,
+                       embed_dim=512, max_tracks=128, max_dets=64)
+BOTSORT_YAML = dict(track_high_thresh=0.33824964456239337,
+                    new_track_thresh=0.21144301345190655, track_buffer=60,
+                    match_thresh=0.22734550911325851,
+                    proximity_thresh=0.5945380911899254,
+                    appearance_thresh=0.4818211117541298,
+                    lambda_=0.9896143462366406, frame_rate=30, embed_dim=512,
+                    max_tracks=128, max_dets=64)
+
+
+def panning_video(torch, dev, n_frames, size, drift=(2, -1), seed=5):
+    """``n_frames`` uint8 (size, size, 3) frames cut from one seeded smooth
+    texture (uniform noise, Gaussian blur of sigma 3 px, stretched to
+    0..255) whose content moves by ``drift`` (x, y) whole pixels per frame,
+    so the camera warp from each frame to the next translates by
+    ``drift``."""
+    import torch.nn.functional as nnF
+
+    dx, dy = drift
+    H = size + abs(dy) * (n_frames - 1) + 32
+    W = size + abs(dx) * (n_frames - 1) + 32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tex = torch.rand((3, 1, H, W), generator=g, device=dev)
+    r = torch.arange(-12, 13, dtype=torch.float32, device=dev)
+    k = torch.exp(-0.5 * (r / 3.0) ** 2)
+    k = k / k.sum()
+    tex = nnF.conv2d(tex, k.view(1, 1, 1, -1), padding=(0, 12))
+    tex = nnF.conv2d(tex, k.view(1, 1, -1, 1), padding=(12, 0))[:, 0]
+    tex = (tex - tex.amin()) / (tex.amax() - tex.amin()) * 255.0
+    tex = tex.round().to(torch.uint8).permute(1, 2, 0)
+    ox = 16 + max(dx, 0) * (n_frames - 1)
+    oy = 16 + max(dy, 0) * (n_frames - 1)
+    return torch.stack([tex[oy - dy * t:oy - dy * t + size,
+                            ox - dx * t:ox - dx * t + size]
+                        for t in range(n_frames)])
+
+
+def _run_stage(step, init, inputs):
+    """A tracker stage over recorded per-frame inputs; stacked outputs."""
+    from tracklab_torch.trackers.common import stack_frames
+
+    st, outs = init, []
+    for x in inputs:
+        st, o = step(st, x)
+        outs.append(o)
+    return stack_frames(outs)
+
+
+def _inputs_to(inputs, dev):
+    from tracklab_torch.trackers.common import Detections
+
+    return [(Detections(*(t.to(dev) for t in d)), e.to(dev), w.to(dev))
+            for d, e, w in inputs]
+
+
+def phase_motion(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4,
+                 drift=(2, -1), oru=None):
+    """uint8 frames panning by ``drift`` px per frame -> on-card LK camera
+    warps (gmc_warps, levels 3, iters 10, batched over each chunk's frame
+    pairs) -> YOLOX-s 640 bf16 -> NMS (~20 detections per frame, 64 slots)
+    -> device crops -> OSNet x1_0 f32 at 256 x 128 over every slot ->
+    Deep-OC-SORT (deep_oc_sort.yaml) and, in a second run, BoT-SORT
+    (bot_sort.yaml), min_confidence 0.4 as a mask, through
+    fused_detect_reid_track. ``oru``, a dict, receives Deep-OC-SORT's
+    ORU-NKF replay inputs (:func:`_keep_oru`)."""
+    from dataclasses import replace
+
+    import tracklab_torch.ops.assignment as A
+    import tracklab_torch.trackers.deepocsort as DO
+    from tracklab_torch.engine.fused import (fused_detect_reid_track,
+                                             make_osnet_embed_fn,
+                                             make_yolox_detect_fn)
+    from tracklab_torch.kernels.csp import fused_csplayer
+    from tracklab_torch.kernels.jv import (solve_square_batched,
+                                           solve_square_batched_plain)
+    from tracklab_torch.kernels.jv_rect import (solve_rect_batched,
+                                                solve_rect_batched_plain)
+    from tracklab_torch.kernels.oru_replay import (oru_replay_nkf,
+                                                   oru_replay_nkf_plain)
+    from tracklab_torch.models.osnet import OSNet
+    from tracklab_torch.models.yolox import YOLOX
+    from tracklab_torch.motion.lk import estimate_affine_lk, gmc_warps
+    from tracklab_torch.trackers import botsort as BS
+    from tracklab_torch.trackers.common import Detections
+
+    F = n_chunks * chunk
+    video = panning_video(torch, dev, F, size, drift)
+    det_model = YOLOX(num_classes=1, variant="s", dtype=torch.bfloat16,
+                      device=dev).randomize_(0)
+    osnet = OSNet("x1_0", feat_dim=512, n_parts=6, dtype=torch.float32,
+                  device=dev).randomize_(1)
+    cal = make_yolox_detect_fn(det_model, conf_threshold=0.3, max_dets=64,
+                               compute_dtype=torch.bfloat16)(video[:chunk])
+    s = cal.conf[0][cal.valid[0]].sort(descending=True).values.cpu().numpy()
+    conf = float(round((s[19] + s[20]) / 2, 6)) if s.size >= 21 else 0.3
+    log(f"camera path: calibrated conf {conf} ({s.size} NMS survivors on "
+        "frame 0 at 0.3)")
+    detect = make_yolox_detect_fn(det_model, conf_threshold=conf,
+                                  max_dets=64, compute_dtype=torch.bfloat16)
+    embed = make_osnet_embed_fn(osnet, crop_size=(256, 128),
+                                compute_dtype=torch.float32)
+    run = partial(fused_detect_reid_track, detect, embed, chunk=chunk,
+                  min_confidence=0.4, embed_dim=512)
+    trackers = {
+        "deepocsort": (DO.DeepOCSortConfig(**DEEPOCSORT_YAML),
+                       DO.deepocsort_init, DO.deepocsort_step,
+                       DO.deepocsort_scan, DO.deepocsort_scan_videos),
+        "botsort": (BS.BotSortConfig(**BOTSORT_YAML), BS.botsort_init,
+                    BS.botsort_step, BS.botsort_scan,
+                    BS.botsort_scan_videos)}
+
+    def warps_of(sl):
+        prev = None if sl.start == 0 else video[sl.start - 1]
+        return gmc_warps(video[sl], 3, 10, prev=prev)
+
+    # warm-up on the first chunk, then the second chunk (LK and the whole
+    # path) with its host syncs counted, for each tracker
+    c0, c1 = slice(0, chunk), slice(chunk, 2 * chunk)
+    for cfg, init_fn, step_fn, _, _ in trackers.values():
+        run(step_fn=partial(step_fn, cfg), init_state=init_fn(cfg, device=dev),
+            frames=video[c0], warps=warps_of(c0), return_detections=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for cfg, init_fn, step_fn, _, _ in trackers.values():
+            run(step_fn=partial(step_fn, cfg),
+                init_state=init_fn(cfg, device=dev), frames=video[c1],
+                warps=warps_of(c1), return_detections=False)
+        torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    check(syncs == 0, f"camera path: {syncs} host syncs in one chunk of "
+          "LK and each tracker's path")
+
+    # the camera warps of the whole video, chunk by chunk, against the pan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warps = torch.cat([warps_of(slice(b, b + chunk))
+                       for b in range(0, F, chunk)])
+    torch.cuda.synchronize()
+    lk_ms = (time.perf_counter() - t0) * 1e3 / n_chunks
+    check(warps.shape == (F, 2, 3), "warps shape")
+    check(torch.equal(warps[0].cpu(), torch.eye(2, 3)), "warp 0 != identity")
+    w = warps[1:].cpu()
+    t_err = (w[:, :, 2] - torch.tensor(drift, dtype=torch.float32)).abs()
+    l_err = (w[:, :, :2] - torch.eye(2)).abs()
+    check(t_err.max().item() <= 0.25,
+          f"LK translation {t_err.max().item():.4f} px off the drift")
+    check(l_err.max().item() <= 0.01,
+          f"LK linear part {l_err.max().item():.5f} off the identity")
+    cpu_err = 0.0
+    for t in (1, chunk):           # inside a chunk, and across chunks
+        wc = estimate_affine_lk(video[t - 1].cpu(), video[t].cpu())
+        cpu_err = max(cpu_err, (wc - warps[t].cpu()).abs().max().item())
+    check(cpu_err <= 1e-3, f"LK on the card vs the CPU: {cpu_err}")
+    log(f"camera path LK: {lk_ms:.2f} ms per chunk of {chunk} frame pairs; "
+        f"translation within {t_err.max().item():.4f} px of the drift "
+        f"{drift}, linear part within {l_err.max().item():.2e} of the "
+        f"identity; two pairs within {cpu_err:.2e} of the LK on the CPU")
+
+    # where the time goes outside the tracker, on the first chunk
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    d0, det_ms = timed(lambda: detect(video[:chunk]))
+    _, osnet_ms = timed(lambda: embed(video[:chunk], d0.ltrb))
+    stats = dict(frames=F, chunk=chunk, drift=list(drift),
+                 syncs_per_chunk=syncs, lk_ms_per_chunk=lk_ms,
+                 lk_translation_max_err_px=t_err.max().item(),
+                 lk_linear_max_err=l_err.max().item(),
+                 lk_cpu_max_abs_diff=cpu_err, detector_ms_per_chunk=det_ms,
+                 osnet_ms_per_chunk=osnet_ms,
+                 live_slots_first_chunk=int(d0.valid.sum(1).max()))
+    all_launches = {}
+    n_plain = 2 * chunk
+    for name, (cfg, init_fn, step_fn, scan, scan_videos) in trackers.items():
+        step = partial(step_fn, cfg)
+        inputs = []
+
+        def rec_step(st, x):
+            inputs.append(x)
+            return step(st, x)
+
+        for fn in (solve_square_batched, solve_rect_batched, fused_csplayer,
+                   oru_replay_nkf):
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, out = run(step_fn=rec_step,
+                           init_state=init_fn(cfg, device=dev), frames=video,
+                           warps=warps, return_detections=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": solve_square_batched.launches,
+                    "K2": solve_rect_batched.launches,
+                    "K3": fused_csplayer.launches,
+                    "ORU-NKF": oru_replay_nkf.launches}
+        fps = F / (wall + lk_ms * n_chunks / 1e3)
+        per_frame = out.valid.sum(1).float().mean().item()
+        log(f"camera path, {name}: {F} frames in {wall:.3f} s + LK "
+            f"{lk_ms * n_chunks / 1e3:.3f} s = {fps:.2f} frames/s, "
+            f"{per_frame:.2f} tracks/frame, launches {launches}")
+        check(launches["K3"] == 7 * n_chunks,
+              f"{name}: K3 launches {launches['K3']} != 7 per chunk")
+        check(launches["K1"] > 0, f"{name}: K1 never launched")
+        if name == "deepocsort":
+            check(launches["ORU-NKF"] == F,
+                  f"ORU-NKF launches {launches['ORU-NKF']} != one per frame")
+        check(out.valid.shape == (F, cfg.max_tracks), "output shape")
+        check(out.valid.any().item(), f"{name} emitted no tracks")
+        check(torch.isfinite(out.ltrb[out.valid]).all().item(),
+              f"{name}: non-finite track boxes")
+
+        # 16 tracker steps under the profiler
+        first = inputs[:chunk]
+        init = init_fn(cfg, device=dev)
+        _run_stage(step, init, first)
+        _, trk_ms = timed(lambda: _run_stage(step, init, first))
+        trk = profile_window(torch, lambda: _run_stage(step, init, first),
+                             len(first))
+        log(f"camera path, {name}: tracker {trk_ms / len(first):.2f} ms per "
+            f"frame; under the profiler {trk}")
+
+        # the first n_plain recorded frames: (a) the same stage on the CPU,
+        # (b) on the card with the plain JV solvers (on host copies of their
+        # inputs) and the plain ORU-NKF
+        head = type(out)(*(x[:n_plain] for x in out))
+        cpu_out = _run_stage(step, init_fn(cfg, device="cpu"),
+                             _inputs_to(inputs[:n_plain], "cpu"))
+        d_cpu = _same_tracks(torch, head, cpu_out,
+                             f"camera path {name}: card vs CPU")
+        A.solve_square_batched, A.solve_rect_batched = (
+            _plain_on_host(solve_square_batched_plain),
+            _plain_on_host(solve_rect_batched_plain))
+        DO.oru_replay_nkf = oru_replay_nkf_plain
+        try:
+            t0 = time.perf_counter()
+            plain_out = _run_stage(step, init_fn(cfg, device=dev),
+                                   inputs[:n_plain])
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+        finally:
+            A.solve_square_batched = solve_square_batched
+            A.solve_rect_batched = solve_rect_batched
+            DO.oru_replay_nkf = oru_replay_nkf
+        d_plain = _same_tracks(torch, head, plain_out,
+                               f"camera path {name}: plain kernels")
+        log(f"camera path, {name}: the first {n_plain} frames equal the CPU "
+            f"stage (max box diff {d_cpu:.2e}) and the stage with the plain "
+            f"JV solvers and ORU-NKF ({t_plain:.1f} s; {d_plain:.2e}) id for "
+            f"id, {int(head.valid.sum())} boxes")
+
+        if name == "deepocsort" and oru is not None:
+            def record_oru(*args):
+                _keep_oru(oru, args)
+                return oru_replay_nkf(*args)
+
+            DO.oru_replay_nkf = record_oru
+            try:
+                rerun = _run_stage(step, init_fn(cfg, device=dev), inputs)
+            finally:
+                DO.oru_replay_nkf = oru_replay_nkf
+            _same_tracks(torch, rerun, out, "Deep-OC-SORT rerun")
+
+        # the tracker stage alone over V videos in both modes, each against
+        # its own single-video runs in that mode; K2 against its plain
+        # version on the batched stage's last inputs
+        Fv = F // n_videos
+        vdets = Detections(*(torch.stack(f).reshape((n_videos, Fv)
+                                                    + f[0].shape)
+                             for f in zip(*(x[0] for x in inputs))))
+        vemb = torch.stack([x[1] for x in inputs]).reshape(
+            (n_videos, Fv) + inputs[0][1].shape)
+        vwarp = torch.stack([x[2] for x in inputs]).reshape(n_videos, Fv, 2,
+                                                            3)
+        modes = {}
+        for batched in (False, True):
+            mcfg = replace(cfg, batched=batched)
+            singles = [scan(mcfg, Detections(*(f[v] for f in vdets)),
+                            vemb[v], vwarp[v])[1] for v in range(n_videos)]
+            rect_in = []
+
+            def record_k2(cost, active=None):
+                rect_in.append((cost, active))
+                del rect_in[:-8]
+                return solve_rect_batched(cost, active)
+
+            k1, k2 = solve_square_batched.launches, solve_rect_batched.launches
+            A.solve_rect_batched = record_k2
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, vout = scan_videos(mcfg, vdets, vemb, vwarp)
+                torch.cuda.synchronize()
+                v_ms = (time.perf_counter() - t0) / Fv * 1e3
+            finally:
+                A.solve_rect_batched = solve_rect_batched
+            k1 = solve_square_batched.launches - k1
+            k2 = solve_rect_batched.launches - k2
+            check(k2 > 0 if batched else k1 > 0,
+                  f"{name} batched={batched}: no solve launched")
+            dv = max(_same_tracks(torch, type(vout)(*(x[v] for x in vout)),
+                                  singles[v],
+                                  f"{name} batched={batched} video {v}")
+                     for v in range(n_videos))
+            if batched:
+                for c, a in rect_in:
+                    check(torch.equal(solve_rect_batched(c, a),
+                                      solve_rect_batched_plain(c, a)),
+                          f"K2 differs from its plain version on a {name} "
+                          "input")
+            modes[f"batched={batched}"] = dict(ms_per_step=v_ms, k1=k1,
+                                               k2=k2, boxes=int(
+                                                   vout.valid.sum()))
+            log(f"camera path, {name} batched={batched} over V={n_videos} x "
+                f"{Fv} frames: {int(vout.valid.sum())} boxes equal the "
+                f"single-video runs id for id (max box diff {dv:.2e}); K1 "
+                f"{k1}, K2 {k2} launches"
+                + (f", K2 identical to its plain version on the last "
+                   f"{len(rect_in)} inputs" if batched else "")
+                + f"; {v_ms:.2f} ms per step for {n_videos} videos")
+        all_launches[name] = launches
+        stats[name] = dict(fps=fps, tracks_per_frame=per_frame,
+                           path_s=wall, tracker_ms_per_frame=trk_ms
+                           / len(first), tracker=trk,
+                           plain_frames=n_plain, plain_s=t_plain,
+                           video_axis=modes)
+    return all_launches, stats
 
 
 def _kernel_ms_in(torch, fn, name, top=8):
@@ -2137,6 +2674,9 @@ def main() -> int:
     p_launches, parts_stats = phase_parts(torch, dev)
     oru = phase_oru(torch, oru_in)
     r_launches, rb_launches, reid_stats = phase_reid(torch, dev)
+    nkf_in = {}
+    m_launches, motion_stats = phase_motion(torch, dev, oru=nkf_in)
+    oru_nkf, motion_stats["oru_nkf"] = phase_oru_nkf(torch, dev, nkf_in)
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -2145,6 +2685,7 @@ def main() -> int:
     k2["launches"] = v_launches["K2"]
     k4["launches"] = p_launches["K4"]
     oru["launches"] = launches["ORU"]
+    oru_nkf["launches"] = m_launches["deepocsort"]["ORU-NKF"]
     videos_stats["k2_random_costs"] = {
         k: k2_random[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "steps", "longest_problem_steps",
@@ -2154,14 +2695,16 @@ def main() -> int:
     print(json.dumps({"main_path": main_stats,
                       "multi_video_path": videos_stats,
                       "parts_path": parts_stats, "reid_path": reid_stats,
+                      "camera_path": motion_stats,
                       "kpr_check": kpr_stats, "yolox_l_x": lx_stats,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,
                                    "reid_path": r_launches,
-                                   "reid_batched_tracker": rb_launches}}))
+                                   "reid_batched_tracker": rb_launches,
+                                   "camera_path": m_launches}}))
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, oru]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, oru, oru_nkf]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

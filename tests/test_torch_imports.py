@@ -69,12 +69,16 @@ def test_port_imports_in_a_clean_interpreter():
     assert int(res.stdout.split()[-1]) >= 19
 
 
-# modules of the ReID slice and the ORU replay kernel, which the checks
-# above must cover
+# modules of the ReID slice, the ORU replay kernels and the Deep-OC-SORT /
+# BoT-SORT / camera-motion slice, which the checks above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
-                 "tracklab_torch/trackers/strongsort.py")
+                 "tracklab_torch/trackers/strongsort.py",
+                 "tracklab_torch/trackers/deepocsort.py",
+                 "tracklab_torch/trackers/botsort.py",
+                 "tracklab_torch/motion/lk.py",
+                 "tracklab_torch/motion/gmc.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

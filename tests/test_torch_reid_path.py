@@ -145,3 +145,20 @@ def test_wider_tracker_pads_embeddings(setup):
     jo = setup[-1][-1]
     _, _, _, to = _run(setup, None, embed_dim=40)
     _same_tracks(to, jo)
+
+
+def test_bucketed_equals_full_width(setup):
+    """The port's bucketed and full-width runs give identical detections,
+    tracks and ReID outputs on the valid slots (the counterpart of
+    tests/test_fused_pipeline.py:248, which holds the JAX package's two
+    forms within 1e-5): full width is the form the card runs, with no host
+    read of the live count."""
+    _, fd, fr, fo = _run(setup, None)
+    _, bd, br, bo = _run(setup, (4, 8, D))
+    assert fd.valid.sum(1).max() < D, "need a non-trivial live prefix"
+    for a, b in zip((*fd, *fo), (*bd, *bo)):
+        assert torch.equal(a, b)
+    v = fd.valid
+    for k in fr:
+        assert torch.equal(fr[k][v], br[k][v]), k
+        assert not br[k][~v].any(), k

@@ -3,12 +3,16 @@ of tracklab_tpu.engine.fused).
 
 Three paths: detect -> NMS -> track (:func:`make_yolox_detect_fn`,
 :func:`fused_detect_track`, :func:`fused_detect_track_concat`); the ReID
-path, detect -> NMS -> device crops -> OSNet embeddings -> StrongSORT
-(:func:`make_osnet_embed_fn`, :func:`fused_detect_reid_track`); and the
-promptless KPR parts path, detect -> NMS -> device crops -> KPR part
-features -> BPBReID-StrongSORT (:func:`make_kpr_embed_fn`,
-:func:`fused_detect_parts_track`). Both crop paths can embed only the live
-slot prefix (:func:`_bucketed_embed`).
+path, detect -> NMS -> device crops -> OSNet embeddings -> an embedding
+tracker, StrongSORT, Deep-OC-SORT or BoT-SORT, with optional camera warps
+(e.g. from ``motion/lk.py:gmc_warps``) (:func:`make_osnet_embed_fn`,
+:func:`fused_detect_reid_track`); and the promptless KPR parts path,
+detect -> NMS -> device crops -> KPR part features -> BPBReID-StrongSORT
+(:func:`make_kpr_embed_fn`, :func:`fused_detect_parts_track`). By default
+both crop paths embed every detection slot and issue no host sync; with
+``embed_buckets`` they embed only the live slot prefix
+(:func:`_bucketed_embed`), which reads the live count on the host once per
+chunk.
 
 The JAX package runs the video as one program: a ``lax.scan`` over frame
 chunks whose body runs the batched detector (and the ReID model), then the
@@ -251,7 +255,7 @@ def fused_detect_reid_track(detect_fn, embed_fn, step_fn, init_state,
                             return_embeddings: bool = False):
     """Detector -> NMS -> device crops -> ReID embeddings -> embedding
     tracker over a whole video (the reference's BASELINE config-2 pipeline,
-    e.g. YOLOX + OSNet + StrongSORT).
+    e.g. YOLOX + OSNet + StrongSORT, Deep-OC-SORT or BoT-SORT).
 
     Args:
       detect_fn: ``(frames_chunk, meta_chunk | None) -> Detections``.
@@ -259,11 +263,14 @@ def fused_detect_reid_track(detect_fn, embed_fn, step_fn, init_state,
         ``embeddings`` (B, D, E) (:func:`make_osnet_embed_fn`); crops come
         from the detector's own input frames.
       step_fn: tracker step ``(state, (Detections, emb (D, E), warp (2,
-        3))) -> (state, out)`` (``partial(strongsort_step, cfg)``).
+        3))) -> (state, out)``: ``partial(strongsort_step, cfg)``,
+        ``partial(deepocsort_step, cfg)`` or ``partial(botsort_step,
+        cfg)``.
       crop_meta: optional ``{"scale": (F, 2), "pad": (F, 2)}`` mapping
         detector-output boxes into frame pixels for cropping, ``frame_xy =
         out_xy * scale + pad``; identity when None.
-      warps: optional (F, 2, 3) camera warps; identity when None.
+      warps: optional (F, 2, 3) camera warps, ``warps[t]`` mapping frame
+        t - 1 to frame t (``motion/lk.py:gmc_warps``); identity when None.
       frame_valid: optional (F,) bool, False for padded tail frames.
       min_confidence: the tracker wrapper's pre-filter (``conf >
         min_confidence``) as a mask; NMS slots are score-descending, so the
@@ -272,7 +279,9 @@ def fused_detect_reid_track(detect_fn, embed_fn, step_fn, init_state,
         zero-padded to it.
       embed_buckets: optional ascending widths (the last equal to max_dets)
         for the live-prefix compaction of the ReID stage
-        (:func:`_bucketed_embed`, one host sync per chunk).
+        (:func:`_bucketed_embed`). It reads the live count on the host: one
+        host sync per chunk. None (the default) embeds every slot with no
+        host sync.
 
     Returns ``(final_state, dets | None, reid | None, outs)`` with a
     leading frame axis F; ``reid`` is the full ReID output dict when
@@ -365,7 +374,9 @@ def _bucketed_embed(embed_fn, frames, boxes, valid, buckets):
     slots are score-descending, so ``valid`` is a prefix per frame.
 
     The JAX package picks the width with ``lax.switch`` on the device; here
-    the live count is read on the host: one sync per chunk."""
+    the live count is read on the host: one host sync per chunk, which
+    stalls the host until the card drains. Leave ``embed_buckets`` None for
+    a sync-free path (every slot embedded)."""
     D = boxes.shape[1]
     if not buckets or buckets[-1] != D or list(buckets) != sorted(buckets):
         raise ValueError(
@@ -404,7 +415,9 @@ def fused_detect_parts_track(detect_fn, embed_fn, step_fn, init_state,
     in original-image coordinates and are returned; without it prompts and
     tracker keypoints are zero. ``min_confidence`` (applied only when > 0)
     masks the tracker's detections. ``embed_buckets``: optional live-prefix
-    widths for the pose + ReID stage (:func:`_bucketed_embed`).
+    widths for the pose + ReID stage (:func:`_bucketed_embed`, which reads
+    the live count on the host once per chunk; None embeds every slot with
+    no host sync).
     ``crop_meta`` (``scale`` (F, 2), ``pad`` (F, 2)) maps boxes from the
     original image into ``frames``; ``warps`` (F, 2, 3) are camera warps.
 

@@ -17,9 +17,21 @@ import math
 
 import torch
 
-__all__ = ["xywh_to_ltrb", "ltrb_to_ltwh", "ltwh_to_xyah", "ltrb_to_xysr",
-           "xysr_to_ltrb", "iou_matrix", "pairwise_iou", "giou_matrix",
-           "diou_matrix", "ciou_matrix"]
+__all__ = ["ltwh_to_ltrb", "ltrb_to_ltwh", "ltrb_to_xywh", "xywh_to_ltrb",
+           "ltwh_to_xyah", "xyah_to_ltwh", "ltrb_to_xysr", "xysr_to_ltrb",
+           "iou_matrix", "pairwise_iou", "giou_matrix", "diou_matrix",
+           "ciou_matrix", "ct_dist_matrix"]
+
+
+def ltwh_to_ltrb(b):
+    l, t, w, h = b.unbind(-1)
+    return torch.stack([l, t, l + w, t + h], dim=-1)
+
+
+def ltrb_to_xywh(b):
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([(x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1],
+                       dim=-1)
 
 
 def xywh_to_ltrb(b):
@@ -38,6 +50,12 @@ def ltwh_to_xyah(b):
     (byte_tracker.py:119-128 tlwh_to_xyah)."""
     l, t, w, h = b.unbind(-1)
     return torch.stack([l + w * 0.5, t + h * 0.5, w / h, h], dim=-1)
+
+
+def xyah_to_ltwh(b):
+    cx, cy, a, h = b.unbind(-1)
+    w = a * h
+    return torch.stack([cx - w * 0.5, cy - h * 0.5, w, h], dim=-1)
 
 
 def ltrb_to_xysr(b, eps: float = 1e-6):
@@ -138,3 +156,16 @@ def ciou_matrix(b1, b2):
     v = (4.0 / (math.pi ** 2)) * arctan ** 2
     alpha = v / ((1.0 - iou) + v)
     return (iou - inner / outer - alpha * v + 1.0) * 0.5
+
+
+def ct_dist_matrix(b1, b2, mask=None):
+    """Normalised centre-distance similarity ``1 - d / max d``
+    (association.py:150-171); with a (..., N, M) ``mask`` the max is taken
+    over the masked entries only, per leading index."""
+    d = torch.sqrt(_center_dists(b1[..., :, None, :], b2[..., None, :, :]))
+    if mask is not None:
+        d_max = torch.where(mask, d, -torch.inf)
+    else:
+        d_max = d
+    d_max = torch.clamp(d_max.amax(dim=(-2, -1), keepdim=True), min=1e-12)
+    return 1.0 - d / d_max

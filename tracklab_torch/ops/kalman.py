@@ -1,7 +1,7 @@
 """Kalman filters in PyTorch (counterpart of tracklab_tpu.ops.kalman):
 OC-SORT's ``XYSRFilter``, the DeepSORT/ByteTrack ``XYAHFilter``,
-StrongSORT's ``XYAHNSAFilter`` and BPBReID-StrongSORT's ``XYAHNSAHFilter``
-with their Mahalanobis gating.
+StrongSORT's ``XYAHNSAFilter``, BPBReID-StrongSORT's ``XYAHNSAHFilter`` and
+BoT-SORT's ``XYWHFilter``, with their Mahalanobis gating.
 
 Functions take any number of leading batch dimensions (track slots, and
 videos before them): ``x (..., n)``, ``P (..., n, n)``, ``z (..., 4)``, so
@@ -15,7 +15,7 @@ import functools
 import torch
 
 __all__ = ["XYSRFilter", "XYAHFilter", "XYAHNSAFilter", "XYAHNSAHFilter",
-           "CHI2INV95_4D", "CHI2INV95_2D"]
+           "XYWHFilter", "CHI2INV95_4D", "CHI2INV95_2D"]
 
 # 0.95 quantiles of the chi-square distribution with 4 and 2 degrees of
 # freedom (the DeepSORT gating thresholds)
@@ -358,6 +358,53 @@ class XYAHNSAHFilter:
         """Squared Mahalanobis distance of each measurement ``zs`` (..., D,
         4) from each track ``x`` (..., T, 8): returns (..., T, D)."""
         pm, pc = XYAHNSAHFilter.project(x, P)
+        if only_position:
+            pm, pc, zs = pm[..., :2], pc[..., :2, :2], zs[..., :2]
+        return _mahalanobis(pm, pc, zs[..., None, :, :])
+
+
+class XYWHFilter:
+    """BoT-SORT's 8-dim filter on [x, y, w, h, v*]: the noise stds scale
+    with w and h per component pair (bot_sort/kalman_filter.py:55-175)."""
+
+    WP = 1.0 / 20
+    WV = 1.0 / 160
+
+    @staticmethod
+    def _std8(m, kp, kv):
+        """Stds (..., 8): kp * (w, h, w, h), then kv * (w, h, w, h)."""
+        w, h = m[..., 2], m[..., 3]
+        return torch.stack([kp * w, kp * h, kp * w, kp * h,
+                            kv * w, kv * h, kv * w, kv * h], dim=-1)
+
+    @staticmethod
+    def initiate(z):
+        """Measurement (..., 4) xywh -> mean (..., 8), covariance."""
+        f = XYWHFilter
+        x = torch.cat([z, torch.zeros_like(z)], dim=-1)
+        return x, _diag(f._std8(z, 2 * f.WP, 10 * f.WV))
+
+    @staticmethod
+    def predict(x, P):
+        f = XYWHFilter
+        return _shift4_predict(x, P, _diag(f._std8(x, f.WP, f.WV)))
+
+    @staticmethod
+    def project(x, P):
+        """(H x, H P H' + R) with R's stds wp * (w, h, w, h)."""
+        std = XYWHFilter._std8(x, XYWHFilter.WP, XYWHFilter.WV)[..., :4]
+        return x[..., :4], P[..., :4, :4] + _diag(std)
+
+    @staticmethod
+    def update(x, P, z):
+        _, pc = XYWHFilter.project(x, P)
+        return _proj4_update(x, P, z, pc)
+
+    @staticmethod
+    def gating_distance(x, P, zs, only_position=False):
+        """Squared Mahalanobis distance of each measurement ``zs`` (..., D,
+        4) from each track ``x`` (..., T, 8): returns (..., T, D)."""
+        pm, pc = XYWHFilter.project(x, P)
         if only_position:
             pm, pc, zs = pm[..., :2], pc[..., :2, :2], zs[..., :2]
         return _mahalanobis(pm, pc, zs[..., None, :, :])

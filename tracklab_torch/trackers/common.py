@@ -20,7 +20,8 @@ from tracklab_torch.device import resolve_device
 __all__ = ["Detections", "pad_detections", "cumsum_rank", "claim_slots",
            "birth_scatter", "reset_wrapped_step", "take_rows",
            "invert_match", "repeat_state", "single_video", "scan_frames",
-           "scan_videos", "stack_frames", "concat_resets"]
+           "scan_videos", "scan_inputs", "scan_video_inputs",
+           "identity_warps", "kron_eye4", "stack_frames", "concat_resets"]
 
 
 class Detections(NamedTuple):
@@ -191,6 +192,55 @@ def scan_videos(step_fn, cfg, init, dets):
     st, outs = init, []
     for f in range(dets.ltrb.shape[1]):
         st, out = step_fn(cfg, st, Detections(*(x[:, f] for x in dets)))
+        outs.append(out)
+    return st, stack_frames(outs, dim=1)
+
+
+def identity_warps(like, lead):
+    """Identity 2x3 camera warps of shape ``lead + (2, 3)`` in the dtype
+    and on the device of ``like``."""
+    return torch.eye(2, 3, dtype=like.dtype, device=like.device).expand(
+        tuple(lead) + (2, 3))
+
+
+def kron_eye4(m2):
+    """kron(I4, m2) per video, built on the device from the warps' linear
+    parts: (V, 2, 2) -> (V, 8, 8), the map a camera warp applies to an
+    8-dim [x, y, w, h, v*] Kalman state."""
+    eye = torch.eye(4, dtype=m2.dtype, device=m2.device)
+    return (eye[None, :, None, :, None] * m2[:, None, :, None, :]).reshape(
+        m2.shape[0], 8, 8)
+
+
+def scan_inputs(step_fn, init, dets, emb, warps=None, resets=None):
+    """Step one video over its frames for a tracker whose step takes
+    ``(Detections, emb, warp)``: ``dets`` fields and ``emb`` have a leading
+    frame axis F, ``warps`` (F, 2, 3) (identity when None); ``resets`` (F,)
+    bool re-initializes the carry at marked frames. Returns the final state
+    and the outputs with a leading frame axis."""
+    F = dets.ltrb.shape[0]
+    if warps is None:
+        warps = identity_warps(dets.ltrb, (F,))
+    step = step_fn if resets is None else reset_wrapped_step(step_fn, init)
+    st, outs = init, []
+    for f in range(F):
+        x = (Detections(*(a[f] for a in dets)), emb[f], warps[f])
+        st, out = step(st, x if resets is None else (x, resets[f]))
+        outs.append(out)
+    return st, stack_frames(outs)
+
+
+def scan_video_inputs(step_fn, init, dets, emb, warps=None):
+    """:func:`scan_inputs` over V videos at once: every input has leading
+    (V, F) axes, ``init`` a leading V axis, and ``step_fn(state, inputs)``
+    is written for the video axis. Outputs have leading (V, F) axes."""
+    V, F = dets.ltrb.shape[:2]
+    if warps is None:
+        warps = identity_warps(dets.ltrb, (V, F))
+    st, outs = init, []
+    for f in range(F):
+        st, out = step_fn(st, (Detections(*(a[:, f] for a in dets)),
+                               emb[:, f], warps[:, f]))
         outs.append(out)
     return st, stack_frames(outs, dim=1)
 

@@ -42,8 +42,8 @@ from tracklab_torch.ops.kalman import CHI2INV95_4D
 from tracklab_torch.ops.kalman import XYAHNSAFilter as KF
 from tracklab_torch.trackers.common import (Detections, birth_scatter,
                                             claim_slots, invert_match,
-                                            repeat_state, reset_wrapped_step,
-                                            single_video, stack_frames,
+                                            repeat_state, scan_inputs,
+                                            scan_video_inputs, single_video,
                                             take_rows)
 
 __all__ = ["StrongSortConfig", "StrongSortState", "StrongSortOutput",
@@ -297,11 +297,6 @@ def _step(cfg: StrongSortConfig, st: StrongSortState, inputs):
     return st, out
 
 
-def _identity_warps(dets, lead):
-    return torch.eye(2, 3, dtype=dets.ltrb.dtype,
-                     device=dets.ltrb.device).expand(lead + (2, 3))
-
-
 def strongsort_scan(cfg: StrongSortConfig, dets: Detections, emb,
                     warps=None, init: StrongSortState | None = None,
                     resets=None):
@@ -309,20 +304,10 @@ def strongsort_scan(cfg: StrongSortConfig, dets: Detections, emb,
     leading frame axis F, ``warps`` (F, 2, 3) (identity when None);
     ``resets`` (F,) bool re-initialises the carry at marked frames. Returns
     (final_state, StrongSortOutput with a leading frame axis)."""
-    F = dets.ltrb.shape[0]
     if init is None:
         init = strongsort_init(cfg, dets.ltrb.dtype, dets.ltrb.device)
-    if warps is None:
-        warps = _identity_warps(dets, (F,))
-    step = partial(strongsort_step, cfg)
-    if resets is not None:
-        step = reset_wrapped_step(step, init)
-    st, outs = init, []
-    for f in range(F):
-        x = (Detections(*(a[f] for a in dets)), emb[f], warps[f])
-        st, out = step(st, x if resets is None else (x, resets[f]))
-        outs.append(out)
-    return st, stack_frames(outs)
+    return scan_inputs(partial(strongsort_step, cfg), init, dets, emb, warps,
+                       resets)
 
 
 def strongsort_scan_videos(cfg: StrongSortConfig, dets: Detections, emb,
@@ -332,14 +317,6 @@ def strongsort_scan_videos(cfg: StrongSortConfig, dets: Detections, emb,
     leading V axis, StrongSortOutput with leading (V, F) axes); each
     video's output equals its own :func:`strongsort_scan`. The counterpart
     of ``jax.vmap(lambda *a: strongsort_scan(cfg, *a))``."""
-    V, F = dets.ltrb.shape[:2]
-    if warps is None:
-        warps = _identity_warps(dets, (V, F))
-    st = repeat_state(strongsort_init(cfg, dets.ltrb.dtype,
-                                      dets.ltrb.device), V)
-    outs = []
-    for f in range(F):
-        st, out = _step(cfg, st, (Detections(*(a[:, f] for a in dets)),
-                                  emb[:, f], warps[:, f]))
-        outs.append(out)
-    return st, stack_frames(outs, dim=1)
+    init = repeat_state(strongsort_init(cfg, dets.ltrb.dtype,
+                                        dets.ltrb.device), dets.ltrb.shape[0])
+    return scan_video_inputs(partial(_step, cfg), init, dets, emb, warps)
