@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  0. report whether pandas and yaml import, and their versions (no branch
-     depends on it);
+  0. report whether pandas, yaml, cv2, scipy, tqdm and rich import, and
+     their versions (no branch depends on it);
   1. build the CUDA kernels from tracklab_torch/csrc (one nvcc per source,
      all started together), and check with cuobjdump -sass that the bf16
      kernels (csp_mma_kernel, vit_attention_mma_kernel) run on the tensor
@@ -140,6 +140,22 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13, 15, 17 and 16 after them:
      4 videos x 32 frames in both batched modes equal to its own
      single-video runs, and K2 identical to its plain version on the last
      8 of its batched inputs.
+
+Then K3's f32 route per layer and the command line:
+ 18. K3 f32 route per dense CSPLayer of YOLOX-s at 640, batch 8 (the
+     command line's detector): the planner's route and tile, K3's time
+     against the plain layer (cuDNN convolutions) on the layer's own input,
+     and K3 within rel 1e-4 of it;
+ 19. phase cli: ``tracklab_torch.main.main`` in this process, (a) the
+     quick start (synthetic.yaml, GT -> oc_sort.yaml) on the card, HOTA,
+     MOTA and IDF1 100.0 and IDSW 0, equal to the same run with device=cpu
+     id for id, K1 and ORU launched; (b) 2 synthetic 1920 x 1080 videos x
+     300 frames x 24 objects -> YOLOX-s 640 f32 (yolox.yaml, seeded
+     weights, thresholds calibrated to leave 10-40 detections per frame)
+     -> OC-SORT, with engine.fused true and false: fused equals staged,
+     K3, K1 and ORU launched and 0 host syncs inside the fused program,
+     each run's frames/s and its split into loader, device programs, host
+     DataFrame work and evaluation printed.
 
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF), and
@@ -2603,6 +2619,377 @@ def phase_motion(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4,
     return all_launches, stats
 
 
+# ------------------------------------------------------------ phase cli
+GT_OVERRIDE = ("state.load_from_groundtruth="
+               "{detection: [bbox_ltwh, bbox_conf, category_id]}")
+
+
+class _CliSplit:
+    """Where a CLI run's host wall time goes: seconds blocked on the
+    loader (render and letterbox on its threads), in device programs (the
+    fused program, or the staged detector calls and tracker scans, each
+    synchronised), and in evaluation; host syncs counted inside the fused
+    program (sync debug mode); frames through it. ``fired`` counts the
+    calls each patch timed, so that a run can check that every patch it
+    relies on saw its work (a patch that a refactor bypasses would move
+    its time into "DataFrames and host" silently)."""
+
+    def __init__(self, torch):
+        import tracklab_torch.engine.fused as TF
+        from tracklab_torch.datastruct.datapipe import PrefetchLoader
+        from tracklab_torch.eval.evaluator import TrackEvalEvaluator
+        from tracklab_torch.wrappers.track.scan_tracker import \
+            _ScanTrackerBase
+
+        self.torch, self.t = torch, dict(loader=0.0, device=0.0, eval=0.0)
+        self.syncs, self.program_frames, self.inside = 0, 0, False
+        self.fired = dict.fromkeys(("loader", "program", "detect", "scan",
+                                    "eval"), 0)
+        self.patches = [(PrefetchLoader, "__iter__", self._loader),
+                        (TF, "fused_detect_track", self._program),
+                        (TF, "make_yolox_detect_fn", self._detect_fn),
+                        (_ScanTrackerBase, "process", self._tracker),
+                        (TrackEvalEvaluator, "run", self._eval)]
+
+    def __enter__(self):
+        self.saved = [(o, n, getattr(o, n)) for o, n, _ in self.patches]
+        for (o, n, wrap), (_, _, orig) in zip(self.patches, self.saved):
+            setattr(o, n, wrap(orig))
+        return self
+
+    def __exit__(self, *exc):
+        for o, n, orig in self.saved:
+            setattr(o, n, orig)
+        return False
+
+    def _timed(self, key, fired, fn, *a, **kw):
+        self.fired[fired] += 1
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        self.torch.cuda.synchronize()
+        self.t[key] += time.perf_counter() - t0
+        return out
+
+    def _loader(self, orig):
+        split = self
+
+        def it(loader):
+            gen = orig(loader)
+            while True:
+                t0 = time.perf_counter()
+                item = next(gen, None)
+                split.t["loader"] += time.perf_counter() - t0
+                if item is None:
+                    return
+                split.fired["loader"] += 1
+                yield item
+        return it
+
+    def _program(self, orig):
+        def run(detect_fn, step_fn, init_state, frames, chunk, **kw):
+            torch = self.torch
+            torch.cuda.synchronize()
+            self.inside = True
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out = orig(detect_fn, step_fn, init_state, frames, chunk,
+                               **kw)
+                    torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                self.inside = False
+            self.t["device"] += time.perf_counter() - t0
+            self.syncs += sum("synchroniz" in str(w.message) for w in caught)
+            self.fired["program"] += 1
+            self.program_frames += frames.shape[0]
+            return out
+        return run
+
+    def _detect_fn(self, orig):
+        def make(*a, **kw):
+            detect = orig(*a, **kw)
+
+            def timed(frames, meta=None):
+                if self.inside:
+                    return detect(frames, meta)
+                return self._timed("device", "detect", detect, frames,
+                                    meta)
+            return timed
+        return make
+
+    def _tracker(self, orig):
+        def process(module, detections, metadatas):
+            scan = module._scan_fn
+
+            def timed_scan():
+                fn = scan()
+                return lambda cfg, d: self._timed("device", "scan", fn, cfg,
+                                                  d)
+            module._scan_fn = timed_scan
+            try:
+                return orig(module, detections, metadatas)
+            finally:
+                del module._scan_fn
+        return process
+
+    def _eval(self, orig):
+        def run(evaluator, state):
+            t0 = time.perf_counter()
+            out = orig(evaluator, state)
+            self.t["eval"] += time.perf_counter() - t0
+            self.fired["eval"] += 1
+            return out
+        return run
+
+
+def _cli_run(torch, args, timed):
+    """``tracklab_torch.main.main(args)`` in this process with the kernels'
+    launch counters set to 0 just before and read just after; checks that
+    each of ``timed`` (keys of ``_CliSplit.fired``) timed some work in the
+    run; returns (parts, results, launches, split stats)."""
+    from tracklab_torch import main as TM
+    from tracklab_torch.callbacks.timer import Timer
+    from tracklab_torch.kernels.csp import fused_csplayer
+    from tracklab_torch.kernels.jv import solve_square_batched
+    from tracklab_torch.kernels.oru_replay import oru_replay
+
+    counters = {"K1": solve_square_batched, "K3": fused_csplayer,
+                "ORU": oru_replay}
+    for c in counters.values():
+        c.launches = 0
+    with _CliSplit(torch) as split:
+        t0 = time.perf_counter()
+        parts, results = TM.main(args)
+        wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    for key in timed:
+        check(split.fired[key] > 0, f"cli {args}: the split's {key} patch "
+              "timed nothing, so its time would count as host time")
+    timer = next(c for c in parts["callbacks"] if isinstance(c, Timer))
+    track_s = timer.dataset_seconds
+    frames = timer.total_frames
+    host = track_s - split.t["loader"] - split.t["device"]
+    stats = dict(frames=frames, track_dataset_s=track_s,
+                 fps=frames / track_s, loader_s=split.t["loader"],
+                 device_s=split.t["device"], dataframes_and_host_s=host,
+                 eval_s=split.t["eval"], main_wall_s=wall,
+                 host_syncs_in_fused_program=split.syncs,
+                 fused_program_frames=split.program_frames,
+                 patch_calls=dict(split.fired))
+    return parts, results, launches, stats
+
+
+def _same_rows(a, b, what, box_col="bbox_ltwh"):
+    """tests/test_fused_engine.py's assertions: the same rows, ids and
+    categories, boxes within rtol 1e-4 / atol 1e-3, the same track ids."""
+    check(len(a) > 0, f"{what}: no detections")
+    check(a.index.equals(b.index), f"{what}: row ids differ")
+    for col in ("image_id", "video_id", "category_id"):
+        check(np.array_equal(a[col].to_numpy(float), b[col].to_numpy(float)),
+              f"{what}: {col} differs")
+    check(np.allclose(np.stack(a[box_col].to_numpy()),
+                      np.stack(b[box_col].to_numpy()), rtol=1e-4, atol=1e-3),
+          f"{what}: {box_col} differs")
+    av, bv = a["track_id"].notna(), b["track_id"].notna()
+    check(bool(bv.any()), f"{what}: the tracker emitted nothing")
+    check(np.array_equal(av.to_numpy(), bv.to_numpy()),
+          f"{what}: tracked rows differ")
+    check(np.array_equal(a.loc[av, "track_id"].to_numpy(float),
+                         b.loc[bv, "track_id"].to_numpy(float)),
+          f"{what}: track ids differ")
+    check(np.allclose(np.stack(a.loc[av, "track_bbox_ltwh"].to_numpy()),
+                      np.stack(b.loc[bv, "track_bbox_ltwh"].to_numpy()),
+                      rtol=1e-4, atol=1e-3), f"{what}: track boxes differ")
+
+
+def _calibrate_cli(torch, dev, n_objects, per_frame=25, born=15):
+    """The score thresholds that leave ~``per_frame`` detections per frame
+    (detector and tracker pre-filter) and ~``born`` above the tracker's
+    det_thresh, from the seeded YOLOX-s (yolox.yaml) on the first 8 frames
+    of the CLI's validation video."""
+    from tracklab_torch.utils.cv2 import cv2_load_image
+    from tracklab_torch.wrappers.bbox_detector.yolox_api import (
+        YOLOXDetector, letterbox)
+    from tracklab_torch.wrappers.dataset.synthetic import make_synthetic_set
+
+    s = make_synthetic_set(n_videos=1, n_frames=8, n_objects=n_objects,
+                           seed=1, id_offset=2)
+    boxes = [letterbox(cv2_load_image(p), (640, 640))
+             for p in s.image_metadatas["file_path"]]
+    det = YOLOXDetector(min_confidence=0.0, device=dev)
+    out = det.device_detect_fn()(
+        torch.from_numpy(np.stack([b["image"] for b in boxes])).to(dev),
+        {k: torch.from_numpy(np.stack([b[k] for b in boxes])).to(dev)
+         for k in ("scale", "pad", "shape")})
+    scores = [np.sort(c[v].cpu().numpy())[::-1]
+              for c, v in zip(out.conf, out.valid)]
+    check(min(len(x) for x in scores) > per_frame + 1,
+          f"calibration: only {[len(x) for x in scores]} NMS survivors")
+
+    def at(k):
+        return float(round(np.mean([(x[k - 1] + x[k]) / 2 for x in scores]),
+                           6))
+    return at(per_frame), at(born)
+
+
+def phase_cli(torch, dev, card, n_frames=300, n_objects=24):
+    """The port's command line in this process, twice.
+
+    (a) The quick start at its own size (synthetic.yaml: 2 videos x 100
+    frames x 8 objects at 1920 x 1080; oc_sort.yaml): GT -> OC-SORT on the
+    card; COMBINED_SEQ HOTA, MOTA and IDF1 100.0 and IDSW 0; the track
+    table equal to the same run with device=cpu id for id; K1 and the ORU
+    replay launched.
+    (b) The detector CLI at full width: synthetic 2 videos x ``n_frames``
+    x ``n_objects`` at 1920 x 1080 (the MOT17 frame size; its sequences
+    run 600-1050 frames with ~20-40 people) -> yolox.yaml (YOLOX-s 640
+    f32, max_dets 64, batch 8, seeded weights) -> oc_sort.yaml, with the
+    score thresholds calibrated to leave 10-40 detections per frame; once
+    with engine.fused=true and once false: fused equals staged
+    (tests/test_fused_engine.py's assertions), K3, K1 and ORU launched in
+    the fused run, 0 host syncs inside the fused device program (the
+    per-video upload and readback are outside it). Each run's frames/s of
+    track_dataset and its split into loader, device programs, host
+    DataFrame work and evaluation are printed with ``card`` (the card's
+    name and power limit)."""
+    stats = {}
+    base = ["use_rich=false", GT_OVERRIDE]
+    gpu_parts, res, launches, split = _cli_run(
+        torch, base + [f"device={dev.type}"], ("scan", "eval"))
+    c = res["COMBINED_SEQ"]
+    log(f"cli (a) quick start on {card}: HOTA {c['HOTA']}, MOTA "
+        f"{c['MOTA']}, IDF1 {c['IDF1']}, IDSW {c['IDSW']}; launches "
+        f"{launches}; {split}")
+    for k in ("HOTA", "MOTA", "IDF1"):
+        check(c[k] == 100.0, f"cli quick start: {k} {c[k]} != 100.0")
+    check(c["IDSW"] == 0, f"cli quick start: IDSW {c['IDSW']}")
+    check(launches["K1"] > 0, "cli quick start: K1 never launched")
+    check(launches["ORU"] > 0, "cli quick start: ORU never launched")
+    cpu_parts, cpu_res, _, cpu_split = _cli_run(
+        torch, base + ["device=cpu"], ("scan", "eval"))
+    a = gpu_parts["tracker_state"].detections_pred
+    b = cpu_parts["tracker_state"].detections_pred
+    check(a.index.equals(b.index), "cli quick start: card and CPU rows differ")
+    check(np.array_equal(a["track_id"].to_numpy(float),
+                         b["track_id"].to_numpy(float)),
+          "cli quick start: card and CPU track ids differ")
+    tv = a["track_id"].notna().to_numpy()
+    d = float(np.abs(np.stack(a["track_bbox_ltwh"].to_numpy()[tv])
+                     - np.stack(b["track_bbox_ltwh"].to_numpy()[tv])).max())
+    check(d <= 1e-3, f"cli quick start: card vs CPU boxes {d}")
+    log(f"cli (a): card equals the CPU run id for id ({int(tv.sum())} "
+        f"tracked rows, max box diff {d:.2e}); CPU {cpu_split['fps']:.2f} "
+        "frames/s")
+    stats["quick_start"] = dict(
+        HOTA=c["HOTA"], MOTA=c["MOTA"], IDF1=c["IDF1"], IDSW=c["IDSW"],
+        launches=launches, split=split, cpu_fps=cpu_split["fps"],
+        max_box_diff_vs_cpu=d)
+
+    det_thr, birth_thr = _calibrate_cli(torch, dev, n_objects)
+    log(f"cli (b): calibrated detector/tracker min_confidence {det_thr}, "
+        f"tracker det_thresh {birth_thr}")
+    args = ["use_rich=false", f"device={dev.type}",
+            "pipeline=[bbox_detector,track]",
+            "+modules/bbox_detector=yolox",
+            f"modules.bbox_detector.min_confidence={det_thr}",
+            f"modules.track.min_confidence={det_thr}",
+            f"modules.track.det_thresh={birth_thr}",
+            "dataset.n_videos=2", f"dataset.n_frames={n_frames}",
+            f"dataset.n_objects={n_objects}"]
+    runs = {}
+    for fused in (True, False):
+        parts, res, launches, split = _cli_run(
+            torch, args + [f"engine.fused={str(fused).lower()}"],
+            ("loader", "program", "eval") if fused
+            else ("loader", "detect", "scan", "eval"))
+        pred = parts["tracker_state"].detections_pred
+        mean_dets = len(pred) / split["frames"]
+        runs[fused] = pred
+        name = "fused" if fused else "staged"
+        log(f"cli (b) {name} on {card}: {split['frames']} frames, "
+            f"{mean_dets:.2f} "
+            f"detections/frame, {split['fps']:.2f} frames/s of "
+            f"track_dataset ({split['track_dataset_s']:.2f} s: loader "
+            f"{split['loader_s']:.2f}, device {split['device_s']:.2f}, "
+            f"DataFrames and host {split['dataframes_and_host_s']:.2f}; "
+            f"eval {split['eval_s']:.2f}); HOTA "
+            f"{res['COMBINED_SEQ']['HOTA']:.3f}; launches {launches}; host "
+            f"syncs in the fused program {split['host_syncs_in_fused_program']}")
+        check(10 <= mean_dets <= 40,
+              f"cli (b): {mean_dets:.2f} detections per frame")
+        if fused:
+            for k in ("K3", "K1", "ORU"):
+                check(launches[k] > 0, f"cli (b) fused: {k} never launched")
+            check(split["fused_program_frames"] >= split["frames"],
+                  "cli (b): the fused program did not run")
+            check(split["host_syncs_in_fused_program"] == 0,
+                  f"cli (b): {split['host_syncs_in_fused_program']} host "
+                  "syncs inside the fused program")
+        stats[name] = dict(split, detections_per_frame=mean_dets,
+                           launches=launches,
+                           HOTA=res["COMBINED_SEQ"]["HOTA"])
+    _same_rows(runs[True], runs[False], "cli (b) fused vs staged")
+    log("cli (b): fused equals staged (rows, ids, categories, boxes, track "
+        "ids)")
+    stats["thresholds"] = dict(min_confidence=det_thr, det_thresh=birth_thr)
+    return stats
+
+
+def phase_k3_routes_f32(torch, dev, batch=8, size=640):
+    """K3's f32 route for each dense CSPLayer of YOLOX-s at ``size``, batch
+    ``batch`` (the CLI detector's shapes): the planner's route, K3's time
+    and the plain layer's (cuDNN convolutions) on the layer's own input
+    from one seeded forward, and K3 within rel 1e-4 of the plain layer."""
+    from tracklab_torch.kernels.csp import choose_tile
+    from tracklab_torch.models.yolox import CSP_MAX_PIXELS, YOLOX, CSPLayer
+
+    model = YOLOX(num_classes=1, variant="s", device=dev).randomize_(0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randint(0, 256, (batch, size, size, 3), generator=g,
+                      device=dev).float()
+    taken = []
+    hooks = [mod.register_forward_pre_hook(
+        lambda mod, inp, name=name: taken.append((name, mod,
+                                                  inp[0].clone())))
+        for name, mod in model.named_modules() if isinstance(mod, CSPLayer)]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    rows, tot = [], dict(k3_ms=0.0, plain_ms=0.0)
+    for name, mod, inp in taken:
+        H, W = inp.shape[2:]
+        if mod.depthwise or H * W > CSP_MAX_PIXELS:
+            continue
+        w1, w3 = mod.conv1.conv.weight, mod.conv3.conv.weight
+        tile = choose_tile(H, W, len(mod.m), w1.shape[1], w1.shape[0],
+                           w3.shape[0], mod.dtype)
+        route = ("wide ring", "compact ring", "staged")[tile[2]]
+        with torch.no_grad():
+            got, want = mod(inp), mod.forward_plain(inp)
+            r = _rel(got, want)
+            k3 = cuda_ms(lambda: mod(inp), 10)
+            plain = cuda_ms(lambda: mod.forward_plain(inp), 10)
+        check(r <= 1e-4, f"K3 f32 {name}: rel {r:.2e} from the plain layer")
+        rows.append(dict(layer=name, hw=[H, W], cin=w1.shape[1],
+                         n=len(mod.m), route=route, tile=list(tile[:2]),
+                         k3_ms=k3, plain_ms=plain, rel=r))
+        tot["k3_ms"] += k3
+        tot["plain_ms"] += plain
+    for r in rows:
+        log(f"K3 f32 YOLOX-s {size} batch {batch} {r['layer']} "
+            f"{r['hw'][0]}x{r['hw'][1]} cin {r['cin']} n {r['n']}: "
+            f"{r['route']} tile {r['tile']}, K3 {r['k3_ms']:.3f} ms, plain "
+            f"(cuDNN) {r['plain_ms']:.3f} ms, rel {r['rel']:.1e}")
+    log(f"K3 f32 YOLOX-s {size} batch {batch}: {len(rows)} layers, K3 "
+        f"{tot['k3_ms']:.3f} ms against plain {tot['plain_ms']:.3f} ms")
+    return dict(layers=rows, **tot)
+
+
 def _kernel_ms_in(torch, fn, name, top=8):
     """Device time of the kernels whose name contains ``name`` during one
     call of ``fn``, and the ``top`` kernels by device time (name, ms), from
@@ -2625,11 +3012,15 @@ def _kernel_ms_in(torch, fn, name, top=8):
 
 
 def _host_packages():
-    """Whether pandas and yaml import here, with their versions."""
+    """Whether pandas, yaml, cv2, scipy, tqdm and rich import here, with
+    their versions."""
+    from importlib.metadata import version
+
     out = {}
-    for name in ("pandas", "yaml"):
+    for name in ("pandas", "yaml", "cv2", "scipy", "tqdm", "rich"):
         try:
-            out[name] = __import__(name).__version__
+            out[name] = getattr(__import__(name), "__version__", None) \
+                or version(name)
         except ImportError as e:
             out[name] = f"not importable ({e})"
     return out
@@ -2677,6 +3068,8 @@ def main() -> int:
     nkf_in = {}
     m_launches, motion_stats = phase_motion(torch, dev, oru=nkf_in)
     oru_nkf, motion_stats["oru_nkf"] = phase_oru_nkf(torch, dev, nkf_in)
+    k3_f32 = phase_k3_routes_f32(torch, dev)
+    cli_stats = phase_cli(torch, dev, smi)
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -2697,12 +3090,18 @@ def main() -> int:
                       "parts_path": parts_stats, "reid_path": reid_stats,
                       "camera_path": motion_stats,
                       "kpr_check": kpr_stats, "yolox_l_x": lx_stats,
+                      "k3_f32_yolox_s_640_b8": k3_f32, "cli": cli_stats,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,
                                    "reid_path": r_launches,
                                    "reid_batched_tracker": rb_launches,
-                                   "camera_path": m_launches}}))
+                                   "camera_path": m_launches,
+                                   "cli_quick_start":
+                                       cli_stats["quick_start"]["launches"],
+                                   "cli_fused": cli_stats["fused"]["launches"],
+                                   "cli_staged":
+                                       cli_stats["staged"]["launches"]}}))
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3, k4, oru, oru_nkf]}))
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,10 @@ from tracklab_torch.trackers import bytetrack as TB
 from tracklab_torch.trackers import common as TC
 from tracklab_torch.trackers import ocsort as TO
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 V, F, T, D = 4, 30, 32, 16
 BT_KW = dict(track_thresh=0.5, track_buffer=12)
 

@@ -32,6 +32,10 @@ from tracklab_torch.ops import kalman as TKF
 from tracklab_torch.trackers import botsort as TS
 from tracklab_torch.trackers.common import Detections as TDet
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 T, D, F = 32, 16, 40
 V, FV = 3, 30
 STREAMS = ["plain", "warps", "warps_empty"]

@@ -26,6 +26,10 @@ from tracklab_torch.ops import oks as TO
 from tracklab_torch.trackers import bpbreid_strongsort as TB
 from tracklab_torch.trackers.common import Detections as TDet
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 F, D, P, E, K, T, V = 30, 8, 4, 16, 17, 16, 3
 CFG_KW = dict(n_parts=P, embed_dim=E, n_keypoints=K, max_tracks=T,
               max_dets=D, n_init=2, max_dist=0.3)

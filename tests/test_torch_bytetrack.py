@@ -26,6 +26,10 @@ from tracklab_torch.trackers import common as TC
 from tracklab_torch.trackers.bytetrack import (ByteTrackConfig,
                                                bytetrack_scan)
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def test_xyah_box_formats_match_jax():
     rng = np.random.default_rng(0)

@@ -24,6 +24,10 @@ from tracklab_torch.models.yolox import (CSP_MAX_PIXELS, YOLOX_VARIANTS,
                                          CSPLayer, ConvBnAct, _round_depth,
                                          _round_width)
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 SHAPES = [(1, True, 64, 64, 16, 24), (3, True, 128, 128, 8, 8),
           (1, False, 96, 64, 8, 16)]
 

@@ -30,6 +30,10 @@ from tracklab_torch.kernels.oru_replay import (oru_replay_nkf,
 from tracklab_torch.trackers import deepocsort as TD
 from tracklab_torch.trackers.common import Detections as TDet
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 T, D, F = 32, 16, 40
 V, FV = 3, 30
 

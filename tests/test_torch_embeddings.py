@@ -10,6 +10,10 @@ import torch
 from tracklab_tpu.ops import embeddings as J
 from tracklab_torch.ops import embeddings as T
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 RTOL = 1e-12
 
 

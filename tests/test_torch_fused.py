@@ -16,6 +16,10 @@ from tracklab_torch.models.convert import yolox_from_flax
 from tracklab_torch.models.yolox import YOLOX
 from tracklab_torch.trackers import ocsort as TO
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 F, CHUNK, D, SIZE = 8, 4, 16, 128
 CONF, DET_THRESH = 0.25, 0.3
 
@@ -31,8 +35,9 @@ def _static_frames(n, seed):
 @pytest.fixture(scope="module")
 def models():
     jm = JYOLOX(num_classes=1, variant="tiny")
-    v = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)),
-                train=False)
+    # jitted init: the eager values, one compile instead of one per op
+    v = jax.jit(partial(jm.init, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
     tm = YOLOX(num_classes=1, variant="tiny", device="cpu")
     tm.load_state_dict(yolox_from_flax(jax.tree_util.tree_map(np.asarray, v)),
                        strict=True)

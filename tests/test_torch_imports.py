@@ -69,8 +69,9 @@ def test_port_imports_in_a_clean_interpreter():
     assert int(res.stdout.split()[-1]) >= 19
 
 
-# modules of the ReID slice, the ORU replay kernels and the Deep-OC-SORT /
-# BoT-SORT / camera-motion slice, which the checks above must cover
+# modules of the ReID slice, the ORU replay kernels, the Deep-OC-SORT /
+# BoT-SORT / camera-motion slice and the command line's host layers, which
+# the checks above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
@@ -78,10 +79,80 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/trackers/deepocsort.py",
                  "tracklab_torch/trackers/botsort.py",
                  "tracklab_torch/motion/lk.py",
-                 "tracklab_torch/motion/gmc.py")
+                 "tracklab_torch/motion/gmc.py",
+                 "tracklab_torch/main.py",
+                 "tracklab_torch/config/compose.py",
+                 "tracklab_torch/config/plugins.py",
+                 "tracklab_torch/pipeline/module.py",
+                 "tracklab_torch/pipeline/levels.py",
+                 "tracklab_torch/utils/collate.py",
+                 "tracklab_torch/utils/parallel.py",
+                 "tracklab_torch/utils/cv2.py",
+                 "tracklab_torch/datastruct/tracking_dataset.py",
+                 "tracklab_torch/datastruct/tracker_state.py",
+                 "tracklab_torch/datastruct/datapipe.py",
+                 "tracklab_torch/callbacks/callback.py",
+                 "tracklab_torch/callbacks/progress.py",
+                 "tracklab_torch/callbacks/timer.py",
+                 "tracklab_torch/engine/engine.py",
+                 "tracklab_torch/engine/offline.py",
+                 "tracklab_torch/eval/metrics.py",
+                 "tracklab_torch/eval/evaluator.py",
+                 "tracklab_torch/wrappers/dataset/synthetic.py",
+                 "tracklab_torch/wrappers/track/scan_tracker.py",
+                 "tracklab_torch/wrappers/bbox_detector/yolox_api.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
 def test_slice_modules_are_checked(rel):
     assert rel in PORT_FILES
     test_port_file_imports_nothing_of_jax(rel)
+
+
+_QUICK_START = r"""
+import sys
+BLOCK = {"jax", "jaxlib", "flax", "optax", "tracklab_tpu", "triton"}
+sys.modules["cv2"] = None      # OpenCV absent: import cv2 raises
+
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError("blocked import: " + name)
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+import tracklab_torch.main as M
+from tracklab_torch.utils.cv2 import cv2_load_image
+parts, res = M.main(["device=cpu", "dataset.n_videos=1",
+                     "dataset.n_frames=12", "dataset.n_objects=3",
+                     "dataset.img_w=320", "dataset.img_h=240",
+                     "state.load_from_groundtruth={detection: [bbox_ltwh, "
+                     "bbox_conf, category_id]}",
+                     "use_rich=false"])
+assert res["COMBINED_SEQ"]["HOTA"] == 100.0, res["COMBINED_SEQ"]["HOTA"]
+path = parts["tracker_state"].image_metadatas["file_path"].iloc[0]
+assert cv2_load_image(path).shape == (240, 320, 3)
+try:
+    cv2_load_image("frame.jpg")
+except ImportError as e:
+    assert "cv2" in str(e), e
+else:
+    raise AssertionError("a file path loaded without OpenCV")
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCK)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_cli_quick_start_without_opencv_or_jax():
+    """``tracklab_torch.main`` imports, and the synthetic quick start runs,
+    in an interpreter where cv2, JAX and the JAX package cannot be
+    imported; a file path then raises ImportError naming cv2."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _QUICK_START], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split()[-1] == "ok"

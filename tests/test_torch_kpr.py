@@ -21,6 +21,10 @@ from tracklab_torch.models import kpr as TK
 from tracklab_torch.models.convert import kpr_from_flax
 from tracklab_torch.models.preprocess import crop_resize
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 ARCH = dict(num_parts=5, dim_reduce_output=32, img_size=(64, 32),
             patch_size=16, stride=16, embed_dim=64, depth=2,
             num_heads=2, n_prompt_ch=7)

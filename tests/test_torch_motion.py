@@ -22,6 +22,10 @@ from tracklab_tpu.parallel.time_shard import gmc_warps_time_sharded
 from tracklab_torch.motion import gmc as TG
 from tracklab_torch.motion import lk as TL
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _pairs():
     """{name: (prev, cur, expected warp)}: a shift by (-2, 3) and a

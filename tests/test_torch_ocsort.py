@@ -19,6 +19,10 @@ from tracklab_torch.ops.kalman import XYSRFilter as TKF
 from tracklab_torch.trackers import common as TC
 from tracklab_torch.trackers import ocsort as TO
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _kf_inputs(seed, T=8):
     rng = np.random.default_rng(seed)

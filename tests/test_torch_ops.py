@@ -18,6 +18,10 @@ from tracklab_torch.kernels.jv import solve_square_batched
 from tracklab_torch.ops import assignment as TA
 from tracklab_torch.ops import boxes as TB
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _boxes(rng, n):
     xy = rng.uniform(0, 200, (n, 2))

@@ -23,6 +23,10 @@ from tracklab_torch.models.convert import (convert_osnet_torch,
                                            osnet_from_flax, osnet_torch_key)
 from tracklab_torch.models.osnet import OSNet
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 KEYS = ("embeddings", "part_features", "visibility")
 
 

@@ -31,6 +31,10 @@ from tracklab_torch.models.kpr import KPR
 from tracklab_torch.models.yolox import YOLOX
 from tracklab_torch.trackers import bpbreid_strongsort as TB
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 F, CHUNK, D, K, SIZE = 8, 4, 12, 17, 128
 KPR_ARCH = dict(num_parts=2, dim_reduce_output=16, img_size=(32, 16),
                 patch_size=8, stride=8, embed_dim=32, depth=1, num_heads=2)
@@ -73,11 +77,13 @@ def _cfg(mod, with_pose):
 @pytest.fixture(scope="module")
 def setup():
     jy = JYOLOX(num_classes=1, variant="tiny")
-    yv = jy.init(jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)),
-                 train=False)
+    # jitted inits: the eager values, one compile instead of one per op
+    yv = jax.jit(partial(jy.init, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
     jk = JKPR(**KPR_ARCH)
-    kv = jk.init(jax.random.PRNGKey(3), jnp.zeros((1, 32, 16, 3)),
-                 jnp.zeros((1, 32, 16, jk.n_prompt_ch)), train=False)
+    kv = jax.jit(partial(jk.init, train=False))(
+        jax.random.PRNGKey(3), jnp.zeros((1, 32, 16, 3)),
+        jnp.zeros((1, 32, 16, jk.n_prompt_ch)))
     rng = np.random.default_rng(1)
     kv = jax.tree_util.tree_map(
         lambda a: np.asarray(a, np.float32)

@@ -31,6 +31,10 @@ from tracklab_torch.models import kpr as TK
 from tracklab_torch.models.yolox import CSP_MAX_PIXELS
 from tracklab_torch.ops.kalman import XYSRFilter as TKF
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 MAX_AGE = 12
 
 

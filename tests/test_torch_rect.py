@@ -24,6 +24,10 @@ from tracklab_torch.kernels.jv_rect import (solve_rect_batched,
                                             solve_rect_batched_plain)
 from tracklab_torch.ops import assignment as TA
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _rect_objective(c, col2row):
     R = c.shape[0]

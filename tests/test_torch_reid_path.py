@@ -28,6 +28,10 @@ from tracklab_torch.models.convert import osnet_from_flax, yolox_from_flax
 from tracklab_torch.models.yolox import YOLOX
 from tracklab_torch.trackers import strongsort as TS
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 F, CHUNK, D, SIZE, E = 8, 4, 16, 128, 32
 CROP = (128, 64)
 OSNET = dict(variant="x0_25", feat_dim=E, n_parts=4)
@@ -67,8 +71,9 @@ def _osnet_variables(jo):
 @pytest.fixture(scope="module")
 def setup():
     jy = JYOLOX(num_classes=1, variant="nano")
-    yv = jy.init(jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)),
-                 train=False)
+    # jitted init: the eager values, one compile instead of one per op
+    yv = jax.jit(partial(jy.init, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
     jo = JOSNet(**OSNET)
     ov = _osnet_variables(jo)
     frames = _static_frames(F, seed=12)

@@ -27,6 +27,10 @@ from tracklab_torch.trackers import strongsort as TS
 from tracklab_torch.trackers.common import Detections as TDet
 from tracklab_torch.trackers.common import pad_detections
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 D, T = 16, 64
 STREAMS = {"seed0": dict(seed=0), "seed1": dict(seed=1),
            "heavy_occlusion": dict(seed=5, n_frames=70, n_obj=4, drop=0.3,

@@ -19,6 +19,10 @@ from tracklab_torch.kernels.vit_attention import (MAX_HEAD_DIM, MAX_TOKENS,
                                                   vit_attention,
                                                   vit_attention_plain)
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 CASES = [((3, 33, 4, 16), None), ((2, 40, 4, 16), 20)]
 TOL = {"f32": 1e-5, "bf16": 2e-2}
 _DT = {"f32": (jnp.float32, torch.float32),

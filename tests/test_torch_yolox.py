@@ -16,23 +16,30 @@ from tracklab_torch.models.convert import yolox_from_flax
 from tracklab_torch.models.yolox import YOLOX
 from tracklab_torch.ops import nms as TN
 
+# one intra-op thread per process: the suite runs in parallel workers,
+# and a torch thread pool per worker oversubscribes the cores
+torch.set_num_threads(1)
+
 
 @functools.lru_cache(maxsize=None)
 def _flax_yolox(variant, size):
-    """Flax YOLOX with random BN statistics (the regime of trained
-    checkpoints), as numpy trees."""
+    """Flax YOLOX with seeded numpy weights: the init's tree structure
+    (from ``jax.eval_shape``, no compile), lecun-normal conv kernels, small
+    biases and random BN statistics (the regime of trained checkpoints), as
+    numpy trees."""
     model = JYOLOX(num_classes=2, variant=variant)
-    v = model.init(jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3)),
-                   train=False)
+    shapes = jax.eval_shape(functools.partial(model.init, train=False),
+                            jax.random.PRNGKey(0),
+                            jnp.zeros((1, size, size, 3)))
     rng = np.random.default_rng(3)
-    leaves, treedef = jtu.tree_flatten(v)
-    out = []
-    for leaf in leaves:
-        if leaf.ndim == 1:
-            out.append(np.abs(rng.normal(size=leaf.shape)) * 0.3 + 0.5)
-        else:
-            out.append(np.asarray(leaf))
-    v = jtu.tree_unflatten(treedef, [np.asarray(o, np.float32) for o in out])
+
+    def draw(leaf):
+        if len(leaf.shape) == 1:
+            return np.abs(rng.normal(size=leaf.shape)) * 0.3 + 0.5
+        fan_in = int(np.prod(leaf.shape[:-1]))
+        return rng.normal(size=leaf.shape) / np.sqrt(fan_in)
+
+    v = jtu.tree_map(lambda leaf: np.asarray(draw(leaf), np.float32), shapes)
     return model, v
 
 

@@ -2,7 +2,9 @@
 of tracklab_tpu.engine.fused).
 
 Three paths: detect -> NMS -> track (:func:`make_yolox_detect_fn`,
-:func:`fused_detect_track`, :func:`fused_detect_track_concat`); the ReID
+:func:`fused_detect_track`, :func:`fused_detect_track_concat`, and
+:func:`run_fused_video`, the offline engine's fused branch, which drives it
+from the detector and tracker modules and emits their DataFrames); the ReID
 path, detect -> NMS -> device crops -> OSNet embeddings -> an embedding
 tracker, StrongSORT, Deep-OC-SORT or BoT-SORT, with optional camera warps
 (e.g. from ``motion/lk.py:gmc_warps``) (:func:`make_osnet_embed_fn`,
@@ -35,9 +37,9 @@ from tracklab_torch.trackers.common import (Detections, concat_resets,
                                             reset_wrapped_step, stack_frames)
 
 __all__ = ["make_yolox_detect_fn", "fused_detect_track",
-           "fused_detect_track_concat", "make_osnet_embed_fn",
-           "fused_detect_reid_track", "make_kpr_embed_fn",
-           "fused_detect_parts_track"]
+           "fused_detect_track_concat", "run_fused_video",
+           "make_osnet_embed_fn", "fused_detect_reid_track",
+           "make_kpr_embed_fn", "fused_detect_parts_track"]
 
 
 def make_yolox_detect_fn(model, conf_threshold: float = 0.4,
@@ -161,6 +163,104 @@ def fused_detect_track_concat(detect_fn, step_fn, init_state, videos,
     if return_detections:
         dets = Detections(*(split(x) for x in dets))
     return final, dets, outs
+
+
+def _collect_frames(detector, loader):
+    """Drain the detector's loader on the host: (frame_ids, images (F, H, W,
+    3) uint8, letterbox meta dict, F0 real frames, chunk, frame_valid), the
+    frames padded to a multiple of the detector's batch size (padded
+    frames: zero images, meta of ones, frame_valid False)."""
+    import numpy as np
+
+    frame_ids, imgs, metas = [], [], {"scale": [], "pad": [], "shape": []}
+    for ids, samples in loader:
+        frame_ids.extend(np.asarray(ids).tolist())
+        imgs.append(np.asarray(samples["image"]))
+        for k, v in metas.items():
+            v.append(np.asarray(samples[k], np.float32))
+    if not frame_ids:
+        return [], None, None, 0, 0, None
+    images = np.concatenate(imgs)
+    meta = {k: np.concatenate(v) for k, v in metas.items()}
+    F0 = len(frame_ids)
+    chunk = min(max(int(getattr(detector, "batch_size", 8)), 1), F0)
+    pad_n = -(-F0 // chunk) * chunk - F0
+    if pad_n:
+        images = np.concatenate(
+            [images, np.zeros((pad_n,) + images.shape[1:], images.dtype)])
+        meta = {k: np.concatenate([v, np.ones((pad_n,) + v.shape[1:],
+                                              v.dtype)])
+                for k, v in meta.items()}
+    return frame_ids, images, meta, F0, chunk, np.arange(F0 + pad_n) < F0
+
+
+def _detector_df(detector, dets, frame_ids, metadatas, F0, F_pad):
+    """The fused run's detections -> the detector module's output rows,
+    with the staged run's row ids (``detector.id`` counts on), and the lut
+    from a detection's ref (frame * D + slot) to its row id (-1 where the
+    slot holds no row). Read back from the card once."""
+    import numpy as np
+
+    D = dets.valid.shape[1]
+    valid, ltrb, score, cls = (x[:F0].cpu().numpy() for x in
+                               (dets.valid, dets.ltrb, dets.conf, dets.cls))
+    fs, ds = np.nonzero(valid)
+    lt = ltrb[fs, ds, 0:2]
+    rows = detector._rows(metadatas.loc[frame_ids[:F0]], fs, lt,
+                          ltrb[fs, ds, 2:4] - lt, cls[fs, ds],
+                          score[fs, ds])
+    lut = np.full(F_pad * D, -1, np.int64)
+    lut[fs * D + ds] = rows.index.to_numpy()
+    return rows, lut
+
+
+def run_fused_video(detector, tracker, loader, metadatas):
+    """One video through the fused path: drain the detector's loader (host
+    threads decode and letterbox), run detector -> NMS -> device
+    unletterbox -> tracker as one device program with no host sync per
+    frame (:func:`fused_detect_track`), read it back once and emit both
+    modules' DataFrames with the staged run's rows, row ids and columns.
+    The tracker wrapper's pre-filter (bbox_conf > min_confidence) is a mask
+    on the NMS output, and the tracker's boxes take the staged path's
+    round trip through ltwh. Returns ``(detector_df, tracker_df)``."""
+    import pandas as pd
+
+    frame_ids, images, meta, F0, chunk, frame_valid = _collect_frames(
+        detector, loader)
+    if not frame_ids:
+        return pd.DataFrame(), pd.DataFrame()
+    detect_fn = detector.device_detect_fn()
+    D = detector.max_dets
+    cfg = tracker._make_config()
+    trk_D = cfg.max_dets
+    base_step = tracker._step_fn()
+    min_conf = float(getattr(tracker, "min_confidence", 0.0))
+
+    def step(state, det):
+        if trk_D < D:
+            det = Detections(*(x[:trk_D] for x in det))
+        # the staged tracker reads the detector's rows: its class is
+        # category_id (the class index + class_offset; OC-SORT scales its
+        # velocity cost by it) and its boxes come back from bbox_ltwh
+        # (right = left + width in f32, within an ulp of the detector's
+        # right); the same here gives both paths equal tracker inputs
+        lt = det.ltrb[..., 0:2]
+        det = det._replace(
+            ltrb=torch.cat([lt, lt + (det.ltrb[..., 2:4] - lt)], dim=-1),
+            cls=det.cls + detector.class_offset,
+            valid=det.valid & (det.conf > min_conf))
+        return base_step(cfg, state, det)
+
+    dev = detector.device
+    _, dets, outs = fused_detect_track(
+        detect_fn, step, tracker._init_state(cfg),
+        torch.from_numpy(images).to(dev), chunk,
+        meta={k: torch.from_numpy(v).to(dev) for k, v in meta.items()},
+        frame_valid=torch.from_numpy(frame_valid).to(dev))
+    det_df, lut = _detector_df(detector, dets, frame_ids, metadatas, F0,
+                               len(frame_valid))
+    trk_df = tracker._emissions_to_df(outs, F0, lut)
+    return det_df, trk_df[trk_df.index >= 0]
 
 
 def _detect_chunk(detect_fn, frames, sl, meta, frame_valid):

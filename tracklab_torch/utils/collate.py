@@ -1,0 +1,28 @@
+"""Collate for the engine's loader: stack numpy leaves (counterpart of
+tracklab_tpu.utils.collate)."""
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["default_collate"]
+
+
+def default_collate(batch):
+    """Collate a list of samples: dict -> dict of collated values; numpy
+    arrays of one shape -> a stacked array; scalars -> an array; anything
+    else -> a list."""
+    if len(batch) == 0:
+        return batch
+    elem = batch[0]
+    if isinstance(elem, dict):
+        return {k: default_collate([b[k] for b in batch]) for k in elem}
+    if isinstance(elem, (tuple, list)):
+        return type(elem)(default_collate(list(vals))
+                          for vals in zip(*batch))
+    if isinstance(elem, np.ndarray):
+        if len({b.shape for b in batch}) == 1:
+            return np.stack(batch)
+        return list(batch)
+    if isinstance(elem, (int, float, np.integer, np.floating)):
+        return np.asarray(batch)
+    return list(batch)

@@ -1,0 +1,3 @@
+from tracklab_torch.wrappers.track.scan_tracker import (  # noqa
+    OCSORT, ByteTrack,
+)
