@@ -155,11 +155,30 @@ Then K3's f32 route per layer and the command line:
      -> OC-SORT, with engine.fused true and false: fused equals staged,
      K3, K1 and ORU launched and 0 host syncs inside the fused program,
      each run's frames/s and its split into loader, device programs, host
-     DataFrame work and evaluation printed.
+     DataFrame work and evaluation printed;
+ 20. phase cli_reid: ``tracklab_torch.main.main`` in this process, (a) 2
+     synthetic 640 x 640 videos x 150 frames x 24 objects -> YOLOX-s 640
+     f32 (yolox.yaml, calibrated thresholds) -> OSNet x1_0 on the card
+     (osnet_batched.yaml, work size 640 x 640, 64 slots) -> StrongSORT
+     (strong_sort.yaml), with engine.fused true and false: fused equals
+     staged (rows, boxes, embeddings within rel 1e-3 of their scale, track
+     ids), K3 and K1 launched, 0 host syncs inside the fused program;
+     (b) +experiment=dancetrack_strongsort on a DanceTrack-layout tree
+     written to a temporary directory (96 PNG frames of 1920 x 1080, the
+     texture of phase 17 panning by (+2, -1) px per frame), staged with
+     OSNetReId on host crops, once as typed with no other override, then
+     with calibrated thresholds: K3 and K1 launched, HOTA printed (random
+     weights), its first 16 frames equal to a device=cpu run on the rows
+     matched by IoU; (c) the same tree through camera motion
+     (sparse_opt_flow.yaml, method lk_jax: LK on the card) before
+     Deep-OC-SORT and then BoT-SORT: every warp within 0.5 px of the pan,
+     K1 launched, ORU-NKF in the Deep-OC-SORT run. Each run's frames/s and
+     its split (loader, device, camera motion, host, evaluation) printed.
 
 The last three lines are the card's name and power limit, a JSON line with
-each kernel's check and times (K1-K4, the ORU replay and ORU-NKF), and
-{"ok": true, "device": ...}.
+each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
+launches on its own path, and per run of phase cli_reid under
+``launches_by_path``), and {"ok": true, "device": ...}.
 """
 from __future__ import annotations
 
@@ -2295,16 +2314,17 @@ BOTSORT_YAML = dict(track_high_thresh=0.33824964456239337,
 
 
 def panning_video(torch, dev, n_frames, size, drift=(2, -1), seed=5):
-    """``n_frames`` uint8 (size, size, 3) frames cut from one seeded smooth
-    texture (uniform noise, Gaussian blur of sigma 3 px, stretched to
-    0..255) whose content moves by ``drift`` (x, y) whole pixels per frame,
-    so the camera warp from each frame to the next translates by
-    ``drift``."""
+    """``n_frames`` uint8 (h, w, 3) frames, ``size`` an int (square) or (h,
+    w), cut from one seeded smooth texture (uniform noise, Gaussian blur of
+    sigma 3 px, stretched to 0..255) whose content moves by ``drift`` (x,
+    y) whole pixels per frame, so the camera warp from each frame to the
+    next translates by ``drift``."""
     import torch.nn.functional as nnF
 
     dx, dy = drift
-    H = size + abs(dy) * (n_frames - 1) + 32
-    W = size + abs(dx) * (n_frames - 1) + 32
+    h, w = (size, size) if isinstance(size, int) else size
+    H = h + abs(dy) * (n_frames - 1) + 32
+    W = w + abs(dx) * (n_frames - 1) + 32
     g = torch.Generator(device=dev).manual_seed(seed)
     tex = torch.rand((3, 1, H, W), generator=g, device=dev)
     r = torch.arange(-12, 13, dtype=torch.float32, device=dev)
@@ -2316,8 +2336,8 @@ def panning_video(torch, dev, n_frames, size, drift=(2, -1), seed=5):
     tex = tex.round().to(torch.uint8).permute(1, 2, 0)
     ox = 16 + max(dx, 0) * (n_frames - 1)
     oy = 16 + max(dy, 0) * (n_frames - 1)
-    return torch.stack([tex[oy - dy * t:oy - dy * t + size,
-                            ox - dx * t:ox - dx * t + size]
+    return torch.stack([tex[oy - dy * t:oy - dy * t + h,
+                            ox - dx * t:ox - dx * t + w]
                         for t in range(n_frames)])
 
 
@@ -2626,30 +2646,43 @@ GT_OVERRIDE = ("state.load_from_groundtruth="
 
 class _CliSplit:
     """Where a CLI run's host wall time goes: seconds blocked on the
-    loader (render and letterbox on its threads), in device programs (the
-    fused program, or the staged detector calls and tracker scans, each
-    synchronised), and in evaluation; host syncs counted inside the fused
-    program (sync debug mode); frames through it. ``fired`` counts the
-    calls each patch timed, so that a run can check that every patch it
-    relies on saw its work (a patch that a refactor bypasses would move
-    its time into "DataFrames and host" silently)."""
+    loader (decode, letterbox and crops on its threads), in device programs
+    (the fused program, or the staged detector, ReID and tracker scan
+    calls, each synchronised), in camera-motion estimates (GMC.apply), and
+    in evaluation; host syncs counted inside the fused program (sync debug
+    mode); frames through it. ``fired`` counts the calls each patch timed,
+    so that a run can check that every patch it relies on saw its work (a
+    patch that a refactor bypasses would move its time into "DataFrames and
+    host" silently). A timed call inside another (OSNet inside the staged
+    batched ReID) is not timed again."""
 
     def __init__(self, torch):
         import tracklab_torch.engine.fused as TF
         from tracklab_torch.datastruct.datapipe import PrefetchLoader
         from tracklab_torch.eval.evaluator import TrackEvalEvaluator
-        from tracklab_torch.wrappers.track.scan_tracker import \
-            _ScanTrackerBase
+        from tracklab_torch.models.osnet import OSNet
+        from tracklab_torch.motion.gmc import GMC
+        from tracklab_torch.wrappers.track.scan_tracker import (
+            _EmbScanTrackerBase, _ScanTrackerBase)
 
-        self.torch, self.t = torch, dict(loader=0.0, device=0.0, eval=0.0)
-        self.syncs, self.program_frames, self.inside = 0, 0, False
-        self.fired = dict.fromkeys(("loader", "program", "detect", "scan",
-                                    "eval"), 0)
-        self.patches = [(PrefetchLoader, "__iter__", self._loader),
-                        (TF, "fused_detect_track", self._program),
-                        (TF, "make_yolox_detect_fn", self._detect_fn),
-                        (_ScanTrackerBase, "process", self._tracker),
-                        (TrackEvalEvaluator, "run", self._eval)]
+        self.torch = torch
+        self.t = dict(loader=0.0, device=0.0, camera=0.0, eval=0.0)
+        self.syncs, self.program_frames = 0, 0
+        self.inside = self.busy = False
+        self.fired = dict.fromkeys(("loader", "program", "detect", "embed",
+                                    "reid", "scan", "camera", "eval"), 0)
+        self.patches = [
+            (PrefetchLoader, "__iter__", self._loader),
+            (TF, "fused_detect_track", partial(self._program, frames_at=3)),
+            (TF, "fused_detect_reid_track",
+             partial(self._program, frames_at=4)),
+            (TF, "make_yolox_detect_fn", partial(self._staged_fn, "detect")),
+            (TF, "make_osnet_embed_fn", partial(self._staged_fn, "embed")),
+            (OSNet, "forward", self._forward),
+            (_ScanTrackerBase, "process", self._tracker),
+            (_EmbScanTrackerBase, "process", self._tracker),
+            (GMC, "apply", self._camera),
+            (TrackEvalEvaluator, "run", self._eval)]
 
     def __enter__(self):
         self.saved = [(o, n, getattr(o, n)) for o, n, _ in self.patches]
@@ -2658,16 +2691,22 @@ class _CliSplit:
         return self
 
     def __exit__(self, *exc):
-        for o, n, orig in self.saved:
+        for o, n, orig in reversed(self.saved):
             setattr(o, n, orig)
         return False
 
     def _timed(self, key, fired, fn, *a, **kw):
+        if self.inside or self.busy:
+            return fn(*a, **kw)
         self.fired[fired] += 1
-        self.torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        self.torch.cuda.synchronize()
+        self.busy = True
+        try:
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+        finally:
+            self.busy = False
         self.t[key] += time.perf_counter() - t0
         return out
 
@@ -2686,8 +2725,8 @@ class _CliSplit:
                 yield item
         return it
 
-    def _program(self, orig):
-        def run(detect_fn, step_fn, init_state, frames, chunk, **kw):
+    def _program(self, orig, frames_at):
+        def run(*a, **kw):
             torch = self.torch
             torch.cuda.synchronize()
             self.inside = True
@@ -2696,8 +2735,7 @@ class _CliSplit:
             try:
                 with warnings.catch_warnings(record=True) as caught:
                     warnings.simplefilter("always")
-                    out = orig(detect_fn, step_fn, init_state, frames, chunk,
-                               **kw)
+                    out = orig(*a, **kw)
                     torch.cuda.synchronize()
             finally:
                 torch.cuda.set_sync_debug_mode("default")
@@ -2705,36 +2743,42 @@ class _CliSplit:
             self.t["device"] += time.perf_counter() - t0
             self.syncs += sum("synchroniz" in str(w.message) for w in caught)
             self.fired["program"] += 1
-            self.program_frames += frames.shape[0]
+            self.program_frames += a[frames_at].shape[0]
             return out
         return run
 
-    def _detect_fn(self, orig):
+    def _staged_fn(self, key, orig):
+        """A ``make_*_fn`` whose functions are timed as device work."""
         def make(*a, **kw):
-            detect = orig(*a, **kw)
-
-            def timed(frames, meta=None):
-                if self.inside:
-                    return detect(frames, meta)
-                return self._timed("device", "detect", detect, frames,
-                                    meta)
-            return timed
+            fn = orig(*a, **kw)
+            return lambda *x, **y: self._timed("device", key, fn, *x, **y)
         return make
+
+    def _forward(self, orig):
+        def forward(model, images):
+            return self._timed("device", "reid", orig, model, images)
+        return forward
 
     def _tracker(self, orig):
         def process(module, detections, metadatas):
-            scan = module._scan_fn
-
-            def timed_scan():
-                fn = scan()
-                return lambda cfg, d: self._timed("device", "scan", fn, cfg,
-                                                  d)
-            module._scan_fn = timed_scan
+            names = [n for n in ("_scan_fn", "_scan3") if hasattr(module, n)]
+            for n in names:
+                def timed_getter(getter=getattr(module, n)):
+                    fn = getter()
+                    return lambda *a, **kw: self._timed("device", "scan", fn,
+                                                        *a, **kw)
+                setattr(module, n, timed_getter)
             try:
                 return orig(module, detections, metadatas)
             finally:
-                del module._scan_fn
+                for n in names:
+                    delattr(module, n)
         return process
+
+    def _camera(self, orig):
+        def apply(gmc, *a, **kw):
+            return self._timed("camera", "camera", orig, gmc, *a, **kw)
+        return apply
 
     def _eval(self, orig):
         def run(evaluator, state):
@@ -2746,6 +2790,21 @@ class _CliSplit:
         return run
 
 
+_CLI_COUNTERS = ("K1", "K2", "K3", "K4", "ORU", "ORU-NKF")
+
+
+def _launch_counters():
+    from tracklab_torch.kernels.csp import fused_csplayer
+    from tracklab_torch.kernels.jv import solve_square_batched
+    from tracklab_torch.kernels.jv_rect import solve_rect_batched
+    from tracklab_torch.kernels.oru_replay import oru_replay, oru_replay_nkf
+    from tracklab_torch.kernels.vit_attention import vit_attention
+
+    return dict(zip(_CLI_COUNTERS, (solve_square_batched, solve_rect_batched,
+                                    fused_csplayer, vit_attention,
+                                    oru_replay, oru_replay_nkf)))
+
+
 def _cli_run(torch, args, timed):
     """``tracklab_torch.main.main(args)`` in this process with the kernels'
     launch counters set to 0 just before and read just after; checks that
@@ -2753,12 +2812,8 @@ def _cli_run(torch, args, timed):
     run; returns (parts, results, launches, split stats)."""
     from tracklab_torch import main as TM
     from tracklab_torch.callbacks.timer import Timer
-    from tracklab_torch.kernels.csp import fused_csplayer
-    from tracklab_torch.kernels.jv import solve_square_batched
-    from tracklab_torch.kernels.oru_replay import oru_replay
 
-    counters = {"K1": solve_square_batched, "K3": fused_csplayer,
-                "ORU": oru_replay}
+    counters = _launch_counters()
     for c in counters.values():
         c.launches = 0
     with _CliSplit(torch) as split:
@@ -2772,10 +2827,12 @@ def _cli_run(torch, args, timed):
     timer = next(c for c in parts["callbacks"] if isinstance(c, Timer))
     track_s = timer.dataset_seconds
     frames = timer.total_frames
-    host = track_s - split.t["loader"] - split.t["device"]
+    host = (track_s - split.t["loader"] - split.t["device"]
+            - split.t["camera"])
     stats = dict(frames=frames, track_dataset_s=track_s,
                  fps=frames / track_s, loader_s=split.t["loader"],
-                 device_s=split.t["device"], dataframes_and_host_s=host,
+                 device_s=split.t["device"], camera_s=split.t["camera"],
+                 dataframes_and_host_s=host,
                  eval_s=split.t["eval"], main_wall_s=wall,
                  host_syncs_in_fused_program=split.syncs,
                  fused_program_frames=split.program_frames,
@@ -2806,20 +2863,24 @@ def _same_rows(a, b, what, box_col="bbox_ltwh"):
                       rtol=1e-4, atol=1e-3), f"{what}: track boxes differ")
 
 
-def _calibrate_cli(torch, dev, n_objects, per_frame=25, born=15):
+def _calibrate_cli(torch, dev, n_objects, per_frame=25, born=15,
+                   img_wh=(1920, 1080), frames=None):
     """The score thresholds that leave ~``per_frame`` detections per frame
     (detector and tracker pre-filter) and ~``born`` above the tracker's
-    det_thresh, from the seeded YOLOX-s (yolox.yaml) on the first 8 frames
-    of the CLI's validation video."""
+    birth threshold, from the seeded YOLOX-s (yolox.yaml) on ``frames``
+    (RGB uint8), by default the first 8 frames of the CLI's validation
+    video at ``img_wh``."""
     from tracklab_torch.utils.cv2 import cv2_load_image
     from tracklab_torch.wrappers.bbox_detector.yolox_api import (
         YOLOXDetector, letterbox)
     from tracklab_torch.wrappers.dataset.synthetic import make_synthetic_set
 
-    s = make_synthetic_set(n_videos=1, n_frames=8, n_objects=n_objects,
-                           seed=1, id_offset=2)
-    boxes = [letterbox(cv2_load_image(p), (640, 640))
-             for p in s.image_metadatas["file_path"]]
+    if frames is None:
+        s = make_synthetic_set(n_videos=1, n_frames=8, n_objects=n_objects,
+                               seed=1, id_offset=2, img_w=img_wh[0],
+                               img_h=img_wh[1])
+        frames = [cv2_load_image(p) for p in s.image_metadatas["file_path"]]
+    boxes = [letterbox(f, (640, 640)) for f in frames]
     det = YOLOXDetector(min_confidence=0.0, device=dev)
     out = det.device_detect_fn()(
         torch.from_numpy(np.stack([b["image"] for b in boxes])).to(dev),
@@ -2936,6 +2997,297 @@ def phase_cli(torch, dev, card, n_frames=300, n_objects=24):
     log("cli (b): fused equals staged (rows, ids, categories, boxes, track "
         "ids)")
     stats["thresholds"] = dict(min_confidence=det_thr, det_thresh=birth_thr)
+    return stats
+
+
+# ------------------------------------------------------- phase cli_reid
+def _same_embeddings(a, b, what, rel=1e-3):
+    """The rows' embeddings (and visibility) within ``rel`` of their scale;
+    returns the largest difference over that scale."""
+    ea = np.stack(a["embeddings"].to_numpy())
+    eb = np.stack(b["embeddings"].to_numpy())
+    check(ea.shape == eb.shape, f"{what}: embedding shapes {ea.shape} "
+          f"and {eb.shape}")
+    scale = float(np.abs(eb).max())
+    d = float(np.abs(ea - eb).max()) / scale
+    check(d <= rel, f"{what}: embeddings {d:.2e} of their scale apart")
+    va = np.stack(a["visibility_scores"].to_numpy())
+    vb = np.stack(b["visibility_scores"].to_numpy())
+    check(np.abs(va - vb).max() <= rel, f"{what}: visibility differs")
+    return d
+
+
+def _dancetrack_tree(torch, dev, root, n_frames, wh=(1920, 1080),
+                     n_objects=24):
+    """A DanceTrack-layout validation split under ``root``: one sequence of
+    ``n_frames`` lossless PNG frames of ``wh`` (phase 17's smooth texture
+    panning by (+2, -1) px per frame), its seqinfo.ini (imExt .png) and a
+    gt.txt of the synthetic set's boxes at that size. Returns the frames
+    (RGB uint8, on the host)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+
+    from tracklab_torch.wrappers.dataset.synthetic import make_synthetic_set
+
+    w, h = wh
+    seq = root / "DanceTrack" / "val" / "dancetrack0001"
+    (seq / "img1").mkdir(parents=True)
+    (seq / "gt").mkdir()
+    (seq / "seqinfo.ini").write_text(
+        f"[Sequence]\nname={seq.name}\nimDir=img1\nframeRate=20\n"
+        f"seqLength={n_frames}\nimWidth={w}\nimHeight={h}\nimExt=.png\n")
+    video = panning_video(torch, dev, n_frames, (h, w)).cpu().numpy()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda f: cv2.imwrite(
+            str(seq / "img1" / f"{f + 1:06d}.png"), video[f][..., ::-1],
+            [cv2.IMWRITE_PNG_COMPRESSION, 1]), range(n_frames)))
+    gt = make_synthetic_set(n_videos=1, n_frames=n_frames,
+                            n_objects=n_objects, seed=3, img_w=w,
+                            img_h=h).detections_gt
+    (seq / "gt" / "gt.txt").write_text("".join(
+        f"{f},{t},{b[0]:.3f},{b[1]:.3f},{b[2]:.3f},{b[3]:.3f},1,1,1.0\n"
+        for f, t, b in zip(gt["frame"], gt["track_id"], gt["bbox_ltwh"])))
+    return video
+
+
+def _iou_ltwh(a, b):
+    """(n, 4) x (m, 4) ltwh boxes -> (n, m) IoU."""
+    a_lo, a_hi = a[:, None, :2], a[:, None, :2] + a[:, None, 2:]
+    b_lo, b_hi = b[None, :, :2], b[None, :, :2] + b[None, :, 2:]
+    inter = np.clip(np.minimum(a_hi, b_hi) - np.maximum(a_lo, b_lo), 0,
+                    None).prod(-1)
+    area = a[:, None, 2:].prod(-1) + b[None, :, 2:].prod(-1) - inter
+    return inter / np.maximum(area, 1e-9)
+
+
+def _match_prefix(card, cpu, image_ids):
+    """The detection rows of ``image_ids`` of two runs matched frame by
+    frame by IoU (Hungarian on 1 - IoU, pairs of IoU >= 0.5 kept): counts of
+    rows, matched rows and of matched rows tracked in both, the smallest
+    IoU of a match, and the matched rows whose track ids differ."""
+    from scipy.optimize import linear_sum_assignment
+
+    out = dict(card_rows=0, cpu_rows=0, matched=0, tracked_in_both=0,
+               tracked_in_one=0, other_track_ids=0, min_iou=1.0)
+    for iid in image_ids:
+        a = card[card["image_id"] == iid]
+        b = cpu[cpu["image_id"] == iid]
+        out["card_rows"] += len(a)
+        out["cpu_rows"] += len(b)
+        if not len(a) or not len(b):
+            continue
+        iou = _iou_ltwh(np.stack(a["bbox_ltwh"].to_numpy()),
+                        np.stack(b["bbox_ltwh"].to_numpy()))
+        r, c = linear_sum_assignment(-iou)
+        keep = iou[r, c] >= 0.5
+        r, c = r[keep], c[keep]
+        out["matched"] += len(r)
+        if len(r):
+            out["min_iou"] = min(out["min_iou"], float(iou[r, c].min()))
+        ta = a["track_id"].to_numpy(float)[r]
+        tb = b["track_id"].to_numpy(float)[c]
+        both = ~np.isnan(ta) & ~np.isnan(tb)
+        out["tracked_in_both"] += int(both.sum())
+        out["tracked_in_one"] += int((np.isnan(ta) != np.isnan(tb)).sum())
+        out["other_track_ids"] += int((ta[both] != tb[both]).sum())
+    return out
+
+
+def _pan_error(warps, wh, drift=(2, -1)):
+    """The largest distance, over the frame's four corners, between where
+    each warp after the first maps a corner and where the pan moves it; and
+    whether the first warp is the identity."""
+    w, h = wh
+    corners = np.array([[0, 0, 1], [w, 0, 1], [0, h, 1], [w, h, 1]],
+                       np.float64)
+    want = corners[:, :2] + np.asarray(drift, np.float64)
+    err = max(float(np.linalg.norm(corners @ np.asarray(W, np.float64).T
+                                   - want, axis=1).max()) for W in warps[1:])
+    return err, bool(np.array_equal(warps[0], np.eye(2, 3)))
+
+
+def phase_cli_reid(torch, dev, card, n_frames=150, n_objects=24,
+                   tree_frames=96, prefix_frames=16):
+    """The port's ReID configurations through ``tracklab_torch.main.main``
+    in this process.
+
+    (a) Fused against staged at full width: synthetic 2 videos x
+    ``n_frames`` x ``n_objects`` rendered at 640 x 640 (the letterbox is the
+    identity) -> yolox.yaml (YOLOX-s 640 f32, batch 8, max_dets 64,
+    thresholds calibrated by ``_calibrate_cli``) -> osnet_batched.yaml
+    (OSNet x1_0, 512-d, 6 parts, 256 x 128; work_size 640 x 640, 64 slots,
+    batch 8 as the detector's) -> strong_sort.yaml, with engine.fused true
+    and false: the same rows, boxes, embeddings (within rel 1e-3 of their
+    scale) and track ids; K3 and K1 launched; 0 host syncs inside the fused
+    program; each run's frames/s and its split printed.
+    (b) ``+experiment=dancetrack_strongsort`` on a DanceTrack-layout tree
+    written to a temporary directory (1 sequence x ``tree_frames`` lossless
+    PNG frames at 1920 x 1080, phase 17's texture panning by (+2, -1) px
+    per frame, gt.txt from the synthetic boxes), first as typed with no
+    other override (it must run on the card), then with the thresholds
+    calibrated, staged with the
+    detection-level OSNetReId (host crops): K3 and K1 launched, HOTA
+    printed (random weights: no tracking result); the first
+    ``prefix_frames`` frames rerun with device=cpu, detections matched by
+    IoU, track ids equal on the matched rows.
+    (c) The same tree with pipeline [bbox_detector, reid, cmc, track],
+    sparse_opt_flow.yaml with method lk_jax (the LK of motion/lk.py on the
+    card, downscale 2), first deep_oc_sort.yaml, then bot_sort.yaml: every
+    gmc_warp within 0.5 px of the pan at the frame's corners, K1 launched
+    in both runs and ORU-NKF in Deep-OC-SORT's."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    stats = {}
+    det_thr, _ = _calibrate_cli(torch, dev, n_objects, img_wh=(640, 640))
+    log(f"cli_reid (a): calibrated min_confidence {det_thr}")
+    args = ["use_rich=false", f"device={dev.type}",
+            "pipeline=[bbox_detector,reid,track]",
+            "+modules/bbox_detector=yolox", "+modules/reid=osnet_batched",
+            "modules.reid.work_size=[640,640]", "modules.reid.max_dets=64",
+            "modules.reid.batch_size=8", "modules/track=strong_sort",
+            f"modules.bbox_detector.min_confidence={det_thr}",
+            f"modules.track.min_confidence={det_thr}",
+            "dataset.n_videos=2", f"dataset.n_frames={n_frames}",
+            f"dataset.n_objects={n_objects}", "dataset.img_w=640",
+            "dataset.img_h=640"]
+    runs = {}
+    for fused in (True, False):
+        name = "fused" if fused else "staged"
+        parts, res, launches, split = _cli_run(
+            torch, args + [f"engine.fused={str(fused).lower()}"],
+            ("loader", "program", "eval") if fused
+            else ("loader", "detect", "embed", "scan", "eval"))
+        pred = parts["tracker_state"].detections_pred
+        runs[fused] = pred
+        mean_dets = len(pred) / split["frames"]
+        log(f"cli_reid (a) {name} on {card}: {split['frames']} frames, "
+            f"{mean_dets:.2f} detections/frame, {split['fps']:.2f} frames/s "
+            f"of track_dataset ({split['track_dataset_s']:.2f} s: loader "
+            f"{split['loader_s']:.2f}, device {split['device_s']:.2f}, "
+            f"DataFrames and host {split['dataframes_and_host_s']:.2f}; "
+            f"eval {split['eval_s']:.2f}); launches {launches}; host syncs "
+            f"in the fused program {split['host_syncs_in_fused_program']}")
+        check(10 <= mean_dets <= 64,
+              f"cli_reid (a): {mean_dets:.2f} detections per frame")
+        for k in ("K3", "K1"):
+            check(launches[k] > 0, f"cli_reid (a) {name}: {k} never "
+                  "launched")
+        if fused:
+            check(split["fused_program_frames"] >= split["frames"],
+                  "cli_reid (a): the fused program did not run")
+            check(split["host_syncs_in_fused_program"] == 0,
+                  f"cli_reid (a): {split['host_syncs_in_fused_program']} "
+                  "host syncs inside the fused program")
+        stats[name] = dict(split, detections_per_frame=mean_dets,
+                           launches=launches,
+                           HOTA=res["COMBINED_SEQ"]["HOTA"])
+    _same_rows(runs[True], runs[False], "cli_reid (a) fused vs staged")
+    d = _same_embeddings(runs[True], runs[False],
+                         "cli_reid (a) fused vs staged")
+    tracked = int(runs[True]["track_id"].notna().sum())
+    log(f"cli_reid (a): fused equals staged ({len(runs[True])} rows, "
+        f"{tracked} tracked, embeddings within {d:.2e} of their scale)")
+    stats["fused_vs_staged"] = dict(rows=len(runs[True]), tracked=tracked,
+                                    embedding_rel_diff=d)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dancetrack_"))
+    try:
+        t0 = time.perf_counter()
+        video = _dancetrack_tree(torch, dev, tmp, tree_frames)
+        log(f"cli_reid (b): wrote {tree_frames} PNG frames of 1920 x 1080 "
+            f"in {time.perf_counter() - t0:.1f} s")
+        # the command as a user types it, with no other override
+        bare = ["+experiment=dancetrack_strongsort", f"data_dir={tmp}"]
+        parts, res, launches, split = _cli_run(
+            torch, bare, ("loader", "detect", "reid", "scan", "eval"))
+        rows = len(parts["tracker_state"].detections_pred)
+        log(f"cli_reid (b) {' '.join(bare)} on {card}: {split['frames']} "
+            f"frames, {rows / split['frames']:.2f} detections/frame, "
+            f"{split['fps']:.2f} frames/s; launches {launches}")
+        check(rows > 0 and launches["K3"] > 0 and launches["K1"] > 0,
+              "cli_reid (b): the bare experiment command did not run its "
+              "detector and tracker on the card")
+        stats["experiment_bare"] = dict(split, launches=launches,
+                                        detections=rows)
+        det_thr, birth_thr = _calibrate_cli(torch, dev, n_objects,
+                                            frames=list(video[:8]))
+        exp = ["use_rich=false", "+experiment=dancetrack_strongsort",
+               f"data_dir={tmp}",
+               f"modules.bbox_detector.min_confidence={det_thr}",
+               f"modules.track.min_confidence={det_thr}"]
+        parts, res, launches, split = _cli_run(
+            torch, exp + [f"device={dev.type}"],
+            ("loader", "detect", "reid", "scan", "eval"))
+        card_pred = parts["tracker_state"].detections_pred
+        c = res["COMBINED_SEQ"]
+        log(f"cli_reid (b) +experiment=dancetrack_strongsort on {card}: "
+            f"{split['frames']} frames, {len(card_pred) / split['frames']:.2f}"
+            f" detections/frame, {split['fps']:.2f} frames/s of "
+            f"track_dataset ({split['track_dataset_s']:.2f} s: loader "
+            f"{split['loader_s']:.2f}, device {split['device_s']:.2f}, "
+            f"DataFrames and host {split['dataframes_and_host_s']:.2f}; eval "
+            f"{split['eval_s']:.2f}); HOTA {c['HOTA']:.3f} with random "
+            f"weights (not a tracking result); launches {launches}")
+        for k in ("K3", "K1"):
+            check(launches[k] > 0, f"cli_reid (b): {k} never launched")
+        stats["experiment"] = dict(split, launches=launches, HOTA=c["HOTA"],
+                                   min_confidence=det_thr)
+        cpu_parts, _, _, cpu_split = _cli_run(
+            torch, exp + ["device=cpu", f"dataset.nframes={prefix_frames}"],
+            ("loader", "detect", "reid", "scan", "eval"))
+        cpu_pred = cpu_parts["tracker_state"].detections_pred
+        m = _match_prefix(card_pred, cpu_pred,
+                          cpu_parts["tracker_state"].image_metadatas.index)
+        log(f"cli_reid (b): the first {prefix_frames} frames on the card "
+            f"against device=cpu ({cpu_split['fps']:.2f} frames/s): {m}")
+        check(m["matched"] > 0 and m["tracked_in_both"] > 0,
+              "cli_reid (b): no tracked detection matched the CPU run's")
+        check(m["other_track_ids"] == 0 and m["tracked_in_one"] == 0,
+              f"cli_reid (b): card and CPU tracks differ on matched rows: "
+              f"{m}")
+        stats["experiment"]["cpu_prefix"] = dict(m, cpu_fps=cpu_split["fps"])
+
+        for tracker in ("deep_oc_sort", "bot_sort"):
+            extra = ([f"modules.track.track_high_thresh={birth_thr}",
+                      f"modules.track.new_track_thresh={birth_thr}"]
+                     if tracker == "bot_sort" else [])
+            parts, res, launches, split = _cli_run(
+                torch, exp + [f"device={dev.type}",
+                              "pipeline=[bbox_detector,reid,cmc,track]",
+                              "+modules/cmc=sparse_opt_flow",
+                              "modules.cmc.method=lk_jax",
+                              f"modules/track={tracker}"] + extra,
+                ("loader", "detect", "reid", "camera", "scan", "eval"))
+            st = parts["tracker_state"]
+            warps = np.stack(st.image_pred.sort_values("frame")["gmc_warp"]
+                             .to_numpy())
+            err, first_identity = _pan_error(warps, (1920, 1080))
+            tracked = int(st.detections_pred["track_id"].notna().sum())
+            log(f"cli_reid (c) {tracker} with camera motion (LK on the "
+                f"card, downscale 2) on {card}: {split['fps']:.2f} frames/s "
+                f"({split['track_dataset_s']:.2f} s: loader "
+                f"{split['loader_s']:.2f}, device {split['device_s']:.2f}, "
+                f"camera motion {split['camera_s']:.2f}, DataFrames and host "
+                f"{split['dataframes_and_host_s']:.2f}); {tracked} tracked "
+                f"rows; warps within {err:.4f} px of the pan at the "
+                f"corners; launches {launches}")
+            check(first_identity, "cli_reid (c): the first warp is not the "
+                  "identity")
+            check(err <= 0.5, f"cli_reid (c) {tracker}: a warp {err:.4f} px "
+                  "off the pan")
+            check(tracked > 0, f"cli_reid (c) {tracker}: nothing tracked")
+            check(launches["K1"] > 0, f"cli_reid (c) {tracker}: K1 never "
+                  "launched")
+            if tracker == "deep_oc_sort":
+                check(launches["ORU-NKF"] > 0, "cli_reid (c): ORU-NKF "
+                      "never launched")
+            stats[tracker] = dict(split, launches=launches,
+                                  pan_error_px=err, tracked_rows=tracked)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return stats
 
 
@@ -3070,6 +3422,7 @@ def main() -> int:
     oru_nkf, motion_stats["oru_nkf"] = phase_oru_nkf(torch, dev, nkf_in)
     k3_f32 = phase_k3_routes_f32(torch, dev)
     cli_stats = phase_cli(torch, dev, smi)
+    reid_cli = phase_cli_reid(torch, dev, smi)
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -3084,6 +3437,14 @@ def main() -> int:
                                   "steps", "longest_problem_steps",
                                   "ns_per_step")}
     main_stats["k1_s64"] = k1_steps
+    # the command line's ReID runs (phase cli_reid), each counted apart
+    cli_reid_runs = {f"cli_reid_{k}": reid_cli[k]["launches"]
+                     for k in ("fused", "staged", "experiment_bare",
+                               "experiment",
+                               "deep_oc_sort", "bot_sort")}
+    for entry, key in zip((k1, k2, k3, k4, oru, oru_nkf), _CLI_COUNTERS):
+        entry["launches_by_path"] = {run: n[key]
+                                     for run, n in cli_reid_runs.items()}
 
     print(json.dumps({"main_path": main_stats,
                       "multi_video_path": videos_stats,
@@ -3091,6 +3452,7 @@ def main() -> int:
                       "camera_path": motion_stats,
                       "kpr_check": kpr_stats, "yolox_l_x": lx_stats,
                       "k3_f32_yolox_s_640_b8": k3_f32, "cli": cli_stats,
+                      "cli_reid": reid_cli,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,
@@ -3101,7 +3463,8 @@ def main() -> int:
                                        cli_stats["quick_start"]["launches"],
                                    "cli_fused": cli_stats["fused"]["launches"],
                                    "cli_staged":
-                                       cli_stats["staged"]["launches"]}}))
+                                       cli_stats["staged"]["launches"],
+                                   **cli_reid_runs}}))
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3, k4, oru, oru_nkf]}))
     print(json.dumps({"ok": True, "device": {

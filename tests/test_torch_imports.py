@@ -70,8 +70,8 @@ def test_port_imports_in_a_clean_interpreter():
 
 
 # modules of the ReID slice, the ORU replay kernels, the Deep-OC-SORT /
-# BoT-SORT / camera-motion slice and the command line's host layers, which
-# the checks above must cover
+# BoT-SORT / camera-motion slice, the command line's host layers and its
+# ReID wrappers and MOT-format datasets, which the checks above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
@@ -100,7 +100,13 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/eval/evaluator.py",
                  "tracklab_torch/wrappers/dataset/synthetic.py",
                  "tracklab_torch/wrappers/track/scan_tracker.py",
-                 "tracklab_torch/wrappers/bbox_detector/yolox_api.py")
+                 "tracklab_torch/wrappers/bbox_detector/yolox_api.py",
+                 "tracklab_torch/wrappers/reid/__init__.py",
+                 "tracklab_torch/wrappers/reid/osnet_api.py",
+                 "tracklab_torch/wrappers/reid/batched_api.py",
+                 "tracklab_torch/wrappers/dataset/mot_like.py",
+                 "tracklab_torch/engine/fused.py",
+                 "tracklab_torch/motion/__init__.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

@@ -8,8 +8,9 @@ Semantics the config tree uses:
     the ``dataset`` key; ``- _self_`` sets the merge order);
   * CLI overrides: ``group=option`` re-selects a group file,
     ``a.b.c=value`` overrides a leaf, ``+a.b=value`` adds a leaf and
-    ``+group=option`` adds a group's subtree (the JAX package's
-    ``+experiment=`` configs wait for the port's experiment configs);
+    ``+group=option`` adds a group's subtree, and ``+experiment=name``
+    applies an experiment config (its defaults re-select groups, its body
+    merges into the root);
   * ``${a.b}`` interpolation against the final merged tree;
   * ``_target_`` object instantiation (:func:`instantiate`).
 """
@@ -166,15 +167,26 @@ def compose(config_dir, config_name: str = "config",
 
     group_overrides: Dict[str, str] = {}
     value_overrides: List[tuple] = []
+    experiment_bodies: List[OmegaDict] = []
     for ov in overrides or []:
         if ov.startswith("+"):
             key, _, val = ov[1:].partition("=")
             rel = key.replace(".", "/")
-            if (config_dir / rel / f"{val}.yaml").exists():
+            candidate = config_dir / rel / f"{val}.yaml"
+            if not candidate.exists():
+                value_overrides.append((key, _parse_value(val)))
+            elif rel.split("/")[0] == "experiment":
+                # an experiment's defaults re-select whole groups; its body
+                # merges into the root after _self_
+                exp = load_yaml(candidate)
+                for entry in exp.pop("defaults", []):
+                    if isinstance(entry, dict):
+                        (g, opt), = entry.items()
+                        group_overrides[str(g).lstrip("/")] = str(opt)
+                experiment_bodies.append(exp)
+            else:
                 # +group=option adds that group's subtree at its own path
                 group_overrides[rel] = str(val)
-            else:
-                value_overrides.append((key, _parse_value(val)))
             continue
         key, _, val = ov.partition("=")
         group_dir = config_dir / key.replace(".", "/")
@@ -206,9 +218,29 @@ def compose(config_dir, config_name: str = "config",
     for group, option in group_overrides.items():
         cfg.set_dotted(group.replace("/", "."),
                        _load_group(config_dir, group, option))
+    for body in experiment_bodies:
+        _merge_experiment(cfg, body)
     for key, val in value_overrides:
         cfg.set_dotted(key, val)
     return _resolve_node(cfg, cfg)
+
+
+def _merge_experiment(cfg: OmegaDict, body: OmegaDict):
+    """An experiment's body over the composed tree: leaves set, a second
+    level node with a ``_target_`` replaces its subtree, any other dict
+    merges into the existing one."""
+    for k, v in body.items():
+        if not isinstance(v, dict):
+            cfg.set_dotted(k, v)
+            continue
+        for k2, v2 in v.items():
+            existing = cfg.select(f"{k}.{k2}")
+            if isinstance(v2, dict) and "_target_" in v2:
+                cfg.set_dotted(f"{k}.{k2}", OmegaDict.wrap(v2))
+            elif isinstance(v2, dict) and isinstance(existing, dict):
+                existing.merge(v2)
+            else:
+                cfg.set_dotted(f"{k}.{k2}", v2)
 
 
 def instantiate(node, *args, **extra_kwargs):

@@ -6,8 +6,9 @@ zip of pickles ({video_id}.pkl, {video_id}_image.pkl and a summary.json
 column manifest), the same file layout as the JAX package's, so a state
 file written by one package loads in the other. Supports column-level
 resume (loaded columns = stored columns minus the pipeline's outputs, plus
-its inputs) and bootstrapping from the ground truth. The JAX package's
-public-detection and JSON bootstraps wait for datasets that provide them.
+its inputs) and bootstrapping from the ground truth or from a dataset's
+public detections. The JAX package's JSON bootstrap waits for a dataset
+that provides it.
 """
 from __future__ import annotations
 
@@ -35,14 +36,11 @@ class TrackerState:
                  save_file=None, load_file=None,
                  load_from_groundtruth: bool = False,
                  load_from_public_dets: bool = False, **kwargs):
-        if load_from_public_dets:
-            raise NotImplementedError(
-                "load_from_public_dets: no dataset of tracklab_torch "
-                "provides public detections yet")
         self.pipeline = pipeline if pipeline is not None else Pipeline([])
         self.save_file = Path(save_file) if save_file else None
         self.load_file = Path(load_file) if load_file else None
         self.load_from_groundtruth = load_from_groundtruth
+        self.load_from_public_dets = load_from_public_dets
         self.after_saved_state = True  # callback ordering flag
 
         self.video_metadatas = tracking_set.video_metadatas
@@ -69,6 +67,12 @@ class TrackerState:
                     dets = dets[[c for c in dict.fromkeys(base + list(keep))
                                  if c in dets.columns]]
             self.detections_pred_gt = dets
+        if load_from_public_dets:
+            dets = getattr(tracking_set, "detections_public", None)
+            if dets is None:
+                raise ValueError("load_from_public_dets: the dataset "
+                                 "provides no public detections")
+            self.detections_public = dets.copy()
 
         levels = ("detection", "image")
         self.input_columns = {lv: set() for lv in levels}
@@ -138,6 +142,9 @@ class TrackerState:
         if self.load_from_groundtruth:
             video_detections = self.detections_pred_gt[
                 self.detections_pred_gt.video_id == self.video_id]
+        if self.load_from_public_dets:
+            video_detections = self.detections_public[
+                self.detections_public.video_id == self.video_id]
         if self.load_file is not None and "load" in self.zf:
             zf = self.zf["load"]
             name = f"{self.video_id}.pkl"

@@ -2,8 +2,9 @@
 tracklab_tpu.datastruct.tracking_dataset).
 
 A ``TrackingSet`` is four DataFrames (video_metadatas, image_metadatas,
-detections_gt, image_gt); a ``TrackingDataset`` maps a split name to a set,
-with nvid/nframes/vids_dict subsampling and MOT-format export. The JAX
+detections_gt, image_gt), and a ``detections_public`` DataFrame where the
+dataset has public detections; a ``TrackingDataset`` maps a split name to
+a set, with nvid/nframes/vids_dict subsampling and MOT-format export. The JAX
 package's person-disjoint set splits (for ReID training) wait for training.
 """
 from __future__ import annotations
@@ -84,15 +85,22 @@ class TrackingDataset:
         images = tracking_set.image_metadatas
         images = images[images["video_id"].isin(videos.index)]
         if nframes >= 1:
-            images = images.groupby("video_id", group_keys=False).apply(
-                lambda g: g.head(nframes))
+            # each video's first nframes rows (groupby.apply would drop the
+            # video_id column under pandas 3)
+            images = images[images.groupby("video_id").cumcount() < nframes]
         dets = tracking_set.detections_gt
         if len(dets):
             dets = dets[dets["image_id"].isin(images.index)]
         image_gt = tracking_set.image_gt
         if image_gt is not None and len(image_gt):
             image_gt = image_gt[image_gt.index.isin(images.index)]
-        return TrackingSet(videos, images, dets, image_gt)
+        subset = TrackingSet(videos, images, dets, image_gt)
+        public = getattr(tracking_set, "detections_public", None)
+        if public is not None:
+            # the JAX package drops a set's public detections here
+            subset.detections_public = public[
+                public["image_id"].isin(images.index)]
+        return subset
 
     # ------------------------------------------------------------------
     # MOTChallenge-format export for evaluation

@@ -19,10 +19,17 @@ log = logging.getLogger(__name__)
 __all__ = ["TrackingEngine", "merge_dataframes"]
 
 
-def merge_dataframes(main_df: pd.DataFrame, appended_piece: pd.DataFrame):
-    """Merge a module's output rows and columns into the running frame: new
-    columns and new rows are appended, existing cells are overridden by the
-    new values."""
+def merge_dataframes(main_df: pd.DataFrame, appended_piece):
+    """Merge a module's output rows and columns (a DataFrame, a Series of
+    one row, or a list of either) into the running frame: new columns and
+    new rows are appended, existing cells are overridden by the new
+    values."""
+    if isinstance(appended_piece, pd.Series):
+        appended_piece = appended_piece.to_frame().T
+    elif isinstance(appended_piece, list):
+        appended_piece = pd.concat(
+            [p.to_frame().T if isinstance(p, pd.Series) else p
+             for p in appended_piece]) if appended_piece else pd.DataFrame()
     if main_df is None or len(main_df) == 0:
         return appended_piece
     if len(appended_piece) == 0:
@@ -81,8 +88,9 @@ class TrackingEngine:
         self.datapipes = {}
         self.dataloaders = {}
         for name, model in self.models.items():
-            if model.level == "image":
-                self.datapipes[name] = EngineDatapipe(model)
+            if model.level in ("image", "detection"):
+                self.datapipes[name] = EngineDatapipe(
+                    model, decode_workers=num_workers)
                 self.dataloaders[name] = PrefetchLoader(
                     self.datapipes[name],
                     batch_size=getattr(model, "batch_size", 1),
@@ -117,15 +125,25 @@ class TrackingEngine:
 
     def default_step(self, batch, task: str, detections: pd.DataFrame,
                      image_pred: pd.DataFrame, **kwargs):
-        """One image-module batch: select its rows, run ``process`` and
-        merge the output back."""
+        """One batch of an image- or detection-level module: select its
+        rows, run ``process`` and merge the output back. A module may
+        return ``(detection rows, image rows)``; the image rows (e.g. a
+        camera warp per frame) are merged into ``image_pred``."""
         model = self.models[task]
         self.fire("on_module_step_start", task=task, batch=batch)
         ids, samples = batch
-        batch_metadatas = image_pred.loc[np.asarray(ids)]
-        batch_detections = detections[detections["image_id"].isin(
-            batch_metadatas.index)] if len(detections) else detections
+        if model.level == "image":
+            batch_metadatas = image_pred.loc[np.asarray(ids)]
+            batch_detections = detections[detections["image_id"].isin(
+                batch_metadatas.index)] if len(detections) else detections
+        else:
+            batch_detections = detections.loc[np.asarray(ids)]
+            batch_metadatas = image_pred.loc[
+                batch_detections["image_id"].unique()]
         outputs = model.process(samples, batch_detections, batch_metadatas)
+        if isinstance(outputs, tuple):
+            outputs, image_outputs = outputs
+            image_pred = merge_dataframes(image_pred, image_outputs)
         detections = merge_dataframes(detections, outputs)
         self.fire("on_module_step_end", task=task, batch=batch,
                   detections=detections)

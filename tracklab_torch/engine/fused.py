@@ -8,7 +8,8 @@ from the detector and tracker modules and emits their DataFrames); the ReID
 path, detect -> NMS -> device crops -> OSNet embeddings -> an embedding
 tracker, StrongSORT, Deep-OC-SORT or BoT-SORT, with optional camera warps
 (e.g. from ``motion/lk.py:gmc_warps``) (:func:`make_osnet_embed_fn`,
-:func:`fused_detect_reid_track`); and the promptless KPR parts path,
+:func:`fused_detect_reid_track`, and :func:`run_fused_reid_video`, the
+offline engine's 3-module branch); and the promptless KPR parts path,
 detect -> NMS -> device crops -> KPR part features -> BPBReID-StrongSORT
 (:func:`make_kpr_embed_fn`, :func:`fused_detect_parts_track`). By default
 both crop paths embed every detection slot and issue no host sync; with
@@ -39,6 +40,7 @@ from tracklab_torch.trackers.common import (Detections, concat_resets,
 __all__ = ["make_yolox_detect_fn", "fused_detect_track",
            "fused_detect_track_concat", "run_fused_video",
            "make_osnet_embed_fn", "fused_detect_reid_track",
+           "run_fused_reid_video",
            "make_kpr_embed_fn", "fused_detect_parts_track"]
 
 
@@ -214,6 +216,14 @@ def _detector_df(detector, dets, frame_ids, metadatas, F0, F_pad):
     return rows, lut
 
 
+def _staged_boxes(ltrb):
+    """ltrb after the staged path's round trip through ltwh (right = left +
+    width in f32, within an ulp of the detector's right): what a module
+    that reads the detector's ``bbox_ltwh`` rows sees."""
+    lt = ltrb[..., 0:2]
+    return torch.cat([lt, lt + (ltrb[..., 2:4] - lt)], dim=-1)
+
+
 def run_fused_video(detector, tracker, loader, metadatas):
     """One video through the fused path: drain the detector's loader (host
     threads decode and letterbox), run detector -> NMS -> device
@@ -244,9 +254,8 @@ def run_fused_video(detector, tracker, loader, metadatas):
         # velocity cost by it) and its boxes come back from bbox_ltwh
         # (right = left + width in f32, within an ulp of the detector's
         # right); the same here gives both paths equal tracker inputs
-        lt = det.ltrb[..., 0:2]
         det = det._replace(
-            ltrb=torch.cat([lt, lt + (det.ltrb[..., 2:4] - lt)], dim=-1),
+            ltrb=_staged_boxes(det.ltrb),
             cls=det.cls + detector.class_offset,
             valid=det.valid & (det.conf > min_conf))
         return base_step(cfg, state, det)
@@ -261,6 +270,84 @@ def run_fused_video(detector, tracker, loader, metadatas):
                                len(frame_valid))
     trk_df = tracker._emissions_to_df(outs, F0, lut)
     return det_df, trk_df[trk_df.index >= 0]
+
+
+def run_fused_reid_video(detector, reid, tracker, loader, metadatas):
+    """One video through the fused ReID path: drain the detector's loader
+    (host threads decode and letterbox), run detector -> NMS -> device
+    unletterbox -> device crops -> ReID -> embedding tracker as one device
+    program with no host sync (:func:`fused_detect_reid_track`), read it
+    back once and emit the three modules' DataFrames with the staged run's
+    rows, row ids and columns (the ReID rows by the ReID module's
+    ``_rows``, as its ``process`` gives them).
+
+    The crops come from the detector's letterboxed frames; the staged
+    module crops its own work image, the same pixels when the work size
+    equals the detector's input and the frame size. As in
+    :func:`run_fused_video`, the ReID crops and the tracker take the boxes
+    the staged modules read back from ``bbox_ltwh`` and the tracker's class
+    is ``category_id`` (the class index + ``class_offset``). Camera warps
+    come from the ``gmc_warp`` image column when a camera-motion module
+    filled it (identity otherwise, or with the tracker's ``cmc_off``).
+    Returns ``(detector_df, reid_df, tracker_df)``."""
+    import numpy as np
+    import pandas as pd
+
+    frame_ids, images, meta, F0, chunk, frame_valid = _collect_frames(
+        detector, loader)
+    if not frame_ids:
+        return pd.DataFrame(), pd.DataFrame(), pd.DataFrame()
+    F_pad = len(frame_valid)
+    detect_fn = detector.device_detect_fn()
+    crop_meta = detector.crop_meta(meta)
+    base_embed = reid.device_embed_fn()
+    D = detector.max_dets
+    cfg = tracker._make_config()
+    trk_D = cfg.max_dets
+    base_step = tracker._step3()
+    min_conf = float(getattr(tracker, "min_confidence", 0.0))
+    embed_dim = int(getattr(tracker, "embed_dim", 512))
+
+    warps = np.broadcast_to(np.eye(2, 3, dtype=np.float32),
+                            (F_pad, 2, 3)).copy()
+    if ("gmc_warp" in metadatas.columns
+            and not getattr(tracker, "cmc_off", False)):
+        for f, fid in enumerate(frame_ids):
+            w = metadatas.loc[fid, "gmc_warp"]
+            if isinstance(w, np.ndarray) and w.shape == (2, 3):
+                warps[f] = w
+
+    def embed(frames, boxes):
+        return base_embed(frames, _staged_boxes(boxes))
+
+    def step(state, inputs):
+        det, emb, warp = inputs
+        if trk_D < D:
+            det = Detections(*(x[:trk_D] for x in det))
+            emb = emb[:trk_D]
+        det = det._replace(ltrb=_staged_boxes(det.ltrb),
+                           cls=det.cls + detector.class_offset)
+        return base_step(cfg, state, (det, emb, warp))
+
+    dev = detector.device
+
+    def up(a):
+        return torch.from_numpy(a).to(dev)
+
+    _, dets, reid_out, outs = fused_detect_reid_track(
+        detect_fn, embed, step, tracker._init_state(cfg), up(images), chunk,
+        meta={k: up(v) for k, v in meta.items()},
+        crop_meta={k: up(v) for k, v in crop_meta.items()},
+        warps=up(warps), frame_valid=up(frame_valid),
+        min_confidence=min_conf, embed_dim=embed_dim,
+        embed_buckets=getattr(reid, "embed_buckets", None),
+        return_embeddings=True)
+    det_df, lut = _detector_df(detector, dets, frame_ids, metadatas, F0,
+                               F_pad)
+    reid_df = reid._rows(reid_out, lut.reshape(F_pad, D),
+                         np.nonzero(dets.valid[:F0].cpu().numpy()))
+    trk_df = tracker._emissions_to_df(outs, F0, lut)
+    return det_df, reid_df, trk_df[trk_df.index >= 0]
 
 
 def _detect_chunk(detect_fn, frames, sl, meta, frame_valid):
@@ -324,9 +411,12 @@ def make_osnet_embed_fn(model, crop_size=(256, 128),
 
     ``frames`` (B, H, W, 3) uint8, ``boxes`` (B, D, 4) ltrb in frame
     coordinates. Returns f32 ``embeddings`` (B, D, E), ``part_features``
-    (B, D, P + 1, E') and ``visibility`` (B, D, P + 1)."""
+    (B, D, P + 1, E') and ``visibility`` (B, D, P + 1). The normalisation
+    constants are put on the model's device here, so that a program that
+    calls ``embed_fn`` makes no host-to-device copy."""
     ch, cw = crop_size
     consts = {}
+    _imagenet_consts(consts, next(model.parameters()).device)
 
     def embed(frames, boxes):
         mean, std = _imagenet_consts(consts, frames.device)

@@ -2,11 +2,11 @@
 (counterpart of tracklab_tpu.engine.offline).
 
 Video-level modules (the scan trackers) take the whole video's detections
-at once. With ``fused=True`` a detector -> tracker prefix whose modules
-support it runs as one device program per video
-(``engine/fused.py:run_fused_video``) and emits the same DataFrames as the
-staged run. The JAX engine's 3- and 4-module fused branches (ReID, pose,
-parts) wait for their wrappers in the port.
+at once. With ``fused=True`` a fusable prefix runs as one device program
+per video and emits the same DataFrames as the staged run: detector ->
+ReID -> embedding tracker (``engine/fused.py:run_fused_reid_video``) or
+detector -> tracker (``run_fused_video``). The JAX engine's pose and parts
+branches (3 and 4 modules) wait for their wrappers in the port.
 """
 from __future__ import annotations
 
@@ -23,9 +23,40 @@ class OfflineTrackingEngine(TrackingEngine):
                                     image_pred, detections)
         return self.dataloaders[name]
 
+    def _fused_prefix(self, run_fused, names, detections, image_pred):
+        """Run the modules ``names`` as one device program and merge each
+        one's DataFrame in pipeline order, firing its module hooks."""
+        loader = self._loader(names[0], detections, image_pred)
+        self.fire("on_module_start", task=names[0], dataloader=loader)
+        dfs = run_fused(*(self.models[n] for n in names), loader,
+                        image_pred)
+        for i, (name, df) in enumerate(zip(names, dfs)):
+            if i:
+                self.fire("on_module_start", task=name, dataloader=[])
+            detections = merge_dataframes(detections, df)
+            self.fire("on_module_end", task=name, detections=detections)
+        return detections
+
     def video_loop(self, video_metadata: pd.Series, video_id):
+        for model in self.models.values():
+            if hasattr(model, "reset"):
+                model.reset()
         detections, image_pred = self.tracker_state.load()
         model_names = list(self.module_names)
+        if self.fused and len(model_names) >= 3 and len(detections) == 0:
+            det_m, mid_m, trk_m = (self.models[n] for n in model_names[:3])
+            if (getattr(det_m, "supports_fused_detect", False)
+                    and getattr(mid_m, "supports_fused_embed", False)
+                    and getattr(trk_m, "supports_fused_emb_track", False)):
+                # detector -> NMS -> device crops -> ReID -> embedding
+                # tracker as one device program
+                from tracklab_torch.engine.fused import run_fused_reid_video
+                detections = self._fused_prefix(
+                    run_fused_reid_video, model_names[:3], detections,
+                    image_pred)
+                model_names = model_names[3:]
+                if len(detections) == 0 or not model_names:
+                    return detections, image_pred
         if self.fused and len(model_names) >= 2 and len(detections) == 0:
             det_name, trk_name = model_names[:2]
             det_m, trk_m = self.models[det_name], self.models[trk_name]
@@ -33,18 +64,9 @@ class OfflineTrackingEngine(TrackingEngine):
                     and getattr(trk_m, "supports_fused_track", False)):
                 # detector -> NMS -> tracker as one device program
                 from tracklab_torch.engine.fused import run_fused_video
-                loader = self._loader(det_name, detections, image_pred)
-                self.fire("on_module_start", task=det_name,
-                          dataloader=loader)
-                det_df, trk_df = run_fused_video(det_m, trk_m, loader,
-                                                 image_pred)
-                detections = merge_dataframes(detections, det_df)
-                self.fire("on_module_end", task=det_name,
-                          detections=detections)
-                self.fire("on_module_start", task=trk_name, dataloader=[])
-                detections = merge_dataframes(detections, trk_df)
-                self.fire("on_module_end", task=trk_name,
-                          detections=detections)
+                detections = self._fused_prefix(
+                    run_fused_video, [det_name, trk_name], detections,
+                    image_pred)
                 model_names = model_names[2:]
                 if len(detections) == 0:
                     return detections, image_pred

@@ -1,5 +1,5 @@
 """Global (camera) motion compensation on the host (counterpart of
-tracklab_tpu.motion.gmc's ``GMC``).
+tracklab_tpu.motion.gmc's ``GMC`` and ``CameraMotion``).
 
 Frame-pair registration as the reference's GMC (plugins/track/bot_sort/
 gmc.py:80-317): OpenCV's ECC, sparse optical flow, ORB or SIFT features,
@@ -8,6 +8,8 @@ playback of a precomputed warp file, or the dense pyramidal Lucas-Kanade of
 package's name for its device-side option, kept so configs carry over).
 OpenCV is imported inside the methods that use it; "lk_jax" prepares its
 frames with it (grayscale, downscale), as the JAX package does.
+``CameraMotion`` is the pipeline module that runs a ``GMC`` over a video's
+frames and emits each frame's warp as the image column ``gmc_warp``.
 """
 from __future__ import annotations
 
@@ -15,13 +17,16 @@ import logging
 import os
 
 import numpy as np
+import pandas as pd
 import torch
 
 from tracklab_torch.device import resolve_device
+from tracklab_torch.pipeline.levels import ImageLevelModule
+from tracklab_torch.utils.collate import Unbatchable, default_collate
 
 log = logging.getLogger(__name__)
 
-__all__ = ["GMC"]
+__all__ = ["GMC", "CameraMotion"]
 
 IDENTITY = np.eye(2, 3, dtype=np.float32)
 
@@ -242,3 +247,40 @@ class GMC:
             log.debug("GMC failed (%s); identity warp", e)
             return IDENTITY.copy()
         return self._full_res(H).astype(np.float32)
+
+
+class CameraMotion(ImageLevelModule):
+    """Pipeline module: each frame's ``GMC`` warp from the previous frame
+    (identity on a video's first frame), stored as the image-level column
+    ``gmc_warp``, which the embedding trackers' wrappers read."""
+
+    input_columns = []
+    output_columns = {"image": ["gmc_warp"], "detection": []}
+    collate_fn = staticmethod(default_collate)
+
+    def __init__(self, method: str = "sparseOptFlow", downscale: int = 2,
+                 batch_size: int = 4, device=None, gmc_file=None,
+                 gmc_file_dir=None, seq_name=None, **kwargs):
+        super().__init__(batch_size)
+        self.gmc = GMC(method, downscale, gmc_file=gmc_file,
+                       gmc_file_dir=gmc_file_dir, seq_name=seq_name,
+                       device=device)
+        self.reset()
+
+    def reset(self):
+        """Start of a new video."""
+        self._prev = None
+        self.gmc.reset()
+
+    def preprocess(self, image, detections, metadata):
+        return {"image": Unbatchable(image)}
+
+    def process(self, batch, detections, metadatas: pd.DataFrame):
+        """No detection rows; one image row per frame of the batch, in
+        order."""
+        warps = []
+        for image, image_id in zip(batch["image"], metadatas.index):
+            w = self.gmc.apply(self._prev, image)
+            self._prev = image
+            warps.append(pd.Series(dict(gmc_warp=w), name=image_id))
+        return [], warps

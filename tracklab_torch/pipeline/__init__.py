@@ -1,4 +1,4 @@
 from tracklab_torch.pipeline.module import Module, Pipeline, Skip  # noqa
 from tracklab_torch.pipeline.levels import (  # noqa
-    ImageLevelModule, VideoLevelModule, Evaluator,
+    ImageLevelModule, DetectionLevelModule, VideoLevelModule, Evaluator,
 )

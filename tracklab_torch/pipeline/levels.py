@@ -1,10 +1,10 @@
 """Granularity-level module ABCs and the Evaluator contract (counterpart of
-tracklab_tpu.pipeline.levels; its detection-level modules wait for the
-port's crop wrappers).
+tracklab_tpu.pipeline.levels).
 
-Image-level modules are fed by the engine's thread-pool loader
-(``datastruct/datapipe.py``): decode and ``preprocess`` run on host
-threads, ``process`` runs a collated batch on the module's device.
+Image- and detection-level modules are fed by the engine's thread-pool
+loader (``datastruct/datapipe.py``): decode and ``preprocess`` (of a frame,
+or of one detection row's crop) run on host threads, ``process`` runs a
+collated batch on the module's device.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import pandas as pd
 from tracklab_torch.pipeline.module import Module
 from tracklab_torch.utils.collate import default_collate
 
-__all__ = ["ImageLevelModule", "VideoLevelModule", "Evaluator"]
+__all__ = ["ImageLevelModule", "DetectionLevelModule", "VideoLevelModule",
+           "Evaluator"]
 
 
 class ImageLevelModule(Module):
@@ -34,6 +35,31 @@ class ImageLevelModule(Module):
 
     @abstractmethod
     def preprocess(self, image, detections: pd.DataFrame,
+                   metadata: pd.Series) -> Any:
+        ...
+
+    @abstractmethod
+    def process(self, batch: Any, detections: pd.DataFrame,
+                metadatas: pd.DataFrame):
+        ...
+
+
+class DetectionLevelModule(Module):
+    """Modules that process one detection row at a time (ReID on host
+    crops, ...).
+
+    Subclasses implement
+      ``preprocess(image, detection, metadata) -> sample`` (host thread) and
+      ``process(batch, detections, metadatas) -> detection rows``.
+    """
+
+    collate_fn = staticmethod(default_collate)
+
+    def __init__(self, batch_size: int):
+        self.batch_size = batch_size
+
+    @abstractmethod
+    def preprocess(self, image, detection: pd.Series,
                    metadata: pd.Series) -> Any:
         ...
 

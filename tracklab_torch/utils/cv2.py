@@ -1,5 +1,5 @@
-"""Image loading for the engine's loader (counterpart of
-``register_virtual_renderer`` and ``cv2_load_image`` in
+"""Image loading and box crops for the engine's loader (counterpart of
+``register_virtual_renderer``, ``cv2_load_image`` and ``crop_bbox`` in
 tracklab_tpu.utils.cv2).
 
 Virtual schemes (``synthetic://...``) render in numpy and need no OpenCV.
@@ -12,7 +12,7 @@ import functools
 
 import numpy as np
 
-__all__ = ["register_virtual_renderer", "cv2_load_image"]
+__all__ = ["register_virtual_renderer", "cv2_load_image", "crop_bbox"]
 
 _VIRTUAL_RENDERERS: dict = {}
 
@@ -62,3 +62,17 @@ def cv2_load_image(file_path) -> np.ndarray:
         if image is None:
             raise FileNotFoundError(file_path)
     return cv2.cvtColor(image, cv2.COLOR_BGR2RGB)
+
+
+def crop_bbox(image: np.ndarray, bbox_ltwh, pad: int = 0) -> np.ndarray:
+    """The pixels of an ltwh box (grown by ``pad``), clamped to the image;
+    a 1 x 1 black crop where the clamped box is empty."""
+    h, w = image.shape[:2]
+    l, t, bw, bh = np.asarray(bbox_ltwh, float)
+    x1 = int(max(l - pad, 0))
+    y1 = int(max(t - pad, 0))
+    x2 = int(min(l + bw + pad, w))
+    y2 = int(min(t + bh + pad, h))
+    if x2 <= x1 or y2 <= y1:
+        return np.zeros((1, 1, image.shape[2]), image.dtype)
+    return image[y1:y2, x1:x2]

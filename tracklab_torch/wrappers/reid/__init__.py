@@ -1,0 +1,2 @@
+from tracklab_torch.wrappers.reid.osnet_api import OSNetReId  # noqa
+from tracklab_torch.wrappers.reid.batched_api import OSNetReIdBatched  # noqa

@@ -5,9 +5,11 @@ A tracker is a VideoLevelModule: the whole video's detections are padded
 into fixed-capacity tensors once (:func:`_pad_video`), the scan runs on the
 module's device, its emissions are read back once and joined onto the
 detection rows by row id (columns track_id, track_bbox_ltwh,
-track_bbox_conf). The JAX package's streaming (``process_online``) and
-multi-video (``process_video_batch``) modes and the embedding trackers'
-wrappers are not ported yet.
+track_bbox_conf). The embedding trackers (StrongSORT, BoT-SORT,
+Deep-OC-SORT) also take each row's ``embeddings`` and each frame's camera
+warp (the ``gmc_warp`` image column, or StrongSORT's own ECC). The JAX
+package's streaming (``process_online``) and multi-video
+(``process_video_batch``) modes wait for the video and batched engines.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from tracklab_torch.trackers.common import Detections
 
 log = logging.getLogger(__name__)
 
-__all__ = ["OCSORT", "ByteTrack"]
+__all__ = ["OCSORT", "ByteTrack", "StrongSORT", "BotSORT", "DeepOCSORT"]
 
 
 def _ltwh_to_ltrb(b):
@@ -34,6 +36,41 @@ def _ltwh_to_ltrb(b):
 def _ltrb_to_ltwh(b):
     b = np.asarray(b, np.float64)
     return np.concatenate([b[..., :2], b[..., 2:4] - b[..., :2]], axis=-1)
+
+
+def _collect_embeddings(dets_in, dets, lut, n_frames, embed_dim):
+    """(F, D, E) f32 embeddings aligned with the padded detections ``dets``
+    (fields on the CPU or numpy): each valid slot gets its row's
+    ``embeddings``, cut or zero-padded to ``embed_dim``; a part layout
+    (n_parts + 1, E) gives its row 0, the global feature. Rows without an
+    embedding (None) stay zero."""
+    ref, valid = (np.asarray(x) for x in (dets.ref, dets.valid))
+    F, D = valid.shape
+    emb = np.zeros((F, D, embed_dim), np.float32)
+    if len(dets_in) and "embeddings" in dets_in.columns:
+        by_row = {idx: e for idx, e in dets_in["embeddings"].items()
+                  if e is not None}
+        for f, d in zip(*np.nonzero(valid[:n_frames])):
+            e = by_row.get(lut[ref[f, d]])
+            if e is None:
+                continue
+            e = np.asarray(e, np.float32)
+            if e.ndim == 2:
+                e = e[0]
+            emb[f, d, :min(len(e), embed_dim)] = e[:embed_dim]
+    return emb
+
+
+def _collect_warps(metadatas, n_frames, bucketed_frames):
+    """(F, 2, 3) per-frame camera warps from the image-level ``gmc_warp``
+    column (``motion/gmc.py:CameraMotion``); identity where absent."""
+    warps = np.broadcast_to(np.eye(2, 3, dtype=np.float32),
+                            (bucketed_frames, 2, 3)).copy()
+    if "gmc_warp" in metadatas.columns:
+        for f, w in enumerate(metadatas["gmc_warp"].to_numpy()[:n_frames]):
+            if isinstance(w, np.ndarray) and w.shape == (2, 3):
+                warps[f] = w
+    return warps
 
 
 def _pad_video(detections: pd.DataFrame, image_pred: pd.DataFrame,
@@ -213,3 +250,200 @@ class ByteTrack(_ScanTrackerBase):
     def _step_fn(self):
         from tracklab_torch.trackers.bytetrack import bytetrack_step
         return bytetrack_step
+
+
+class _EmbScanTrackerBase(_ScanTrackerBase):
+    """The embedding trackers' wrapper: each row's ``embeddings`` and each
+    frame's camera warp go into the scan beside the padded detections; the
+    emissions are joined back by row (the last emission of a row wins)."""
+
+    input_columns = ["bbox_ltwh", "bbox_conf", "category_id", "embeddings"]
+    output_columns = ["track_id", "track_bbox_ltwh", "track_bbox_conf"]
+    # a (Detections, emb, warp) step: fusable with a device detector and
+    # device-crop ReID into one program (engine/fused.py:
+    # run_fused_reid_video)
+    supports_fused_emb_track = True
+
+    embed_dim = 512
+
+    def _scan3(self):
+        raise NotImplementedError
+
+    def _step3(self):
+        raise NotImplementedError
+
+    def _video_warps(self, metadatas, n_frames, bucketed_frames):
+        """The wrapper's warp policy: identity with ``cmc_off``, else
+        StrongSORT's own ECC when it is asked for and no camera-motion
+        module filled ``gmc_warp``, else that column (identity where
+        absent)."""
+        if getattr(self, "cmc_off", False):
+            return np.broadcast_to(np.eye(2, 3, dtype=np.float32),
+                                   (bucketed_frames, 2, 3)).copy()
+        w = self._maybe_ecc_warps(metadatas, n_frames, bucketed_frames)
+        return w if w is not None else _collect_warps(
+            metadatas, n_frames, bucketed_frames)
+
+    def _maybe_ecc_warps(self, metadatas, n_frames, bucketed_frames):
+        """ECC camera warps between consecutive frames (``GMC("ecc")`` on
+        the host, frames loaded from ``file_path``), when ``ecc`` is set
+        and no ``gmc_warp`` column exists; else None."""
+        if not getattr(self, "ecc", False) \
+                or "gmc_warp" in metadatas.columns:
+            return None
+        from tracklab_torch.motion.gmc import GMC
+        from tracklab_torch.utils.cv2 import cv2_load_image
+        g = GMC(method="ecc")
+        warps = np.broadcast_to(np.eye(2, 3, dtype=np.float32),
+                                (bucketed_frames, 2, 3)).copy()
+        prev = None
+        for f, path in enumerate(metadatas["file_path"].to_numpy()
+                                 [:n_frames]):
+            img = cv2_load_image(path)
+            warps[f] = g.apply(prev, img)
+            prev = img
+        return warps
+
+    def process(self, detections: pd.DataFrame,
+                metadatas: pd.DataFrame) -> pd.DataFrame:
+        if len(detections) == 0:
+            return detections
+        dets_in = self._prefilter(detections)
+        dets, n_frames, lut = _pad_video(dets_in, metadatas, self.max_dets,
+                                         self.n_frame_bucket, device="cpu")
+        F = dets.valid.shape[0]
+        emb = _collect_embeddings(dets_in, dets, lut, n_frames,
+                                  self.embed_dim)
+        warps = self._video_warps(metadatas, n_frames, F)
+        dev = self.device
+        _, out = self._scan3()(
+            self._make_config(), Detections(*(x.to(dev) for x in dets)),
+            torch.from_numpy(emb).to(dev), torch.from_numpy(warps).to(dev))
+        return self._emissions_to_df(out, n_frames, lut)
+
+
+class StrongSORT(_EmbScanTrackerBase):
+    """StrongSORT wrapper; names and defaults of strong_sort.yaml."""
+
+    def __init__(self, max_dist: float = 0.1594,
+                 max_iou_dist: float = 0.5432, max_age: int = 40,
+                 n_init: int = 3, nn_budget: int = 100,
+                 mc_lambda: float = 0.995, ema_alpha: float = 0.8962,
+                 embed_dim: int = 512, min_confidence: float = 0.4,
+                 max_tracks: int = 128, max_dets: int = 64,
+                 ecc: bool = False, device=None, **kwargs):
+        super().__init__(max_dets=max_dets, device=device, **kwargs)
+        self.params = dict(
+            max_dist=max_dist, max_iou_dist=max_iou_dist, max_age=max_age,
+            n_init=n_init, nn_budget=nn_budget, mc_lambda=mc_lambda,
+            ema_alpha=ema_alpha, embed_dim=embed_dim,
+            max_tracks=max_tracks, max_dets=max_dets)
+        self.min_confidence = min_confidence
+        self.ecc = ecc
+        self.embed_dim = embed_dim
+
+    def _make_config(self):
+        from tracklab_torch.trackers.strongsort import StrongSortConfig
+        return StrongSortConfig(**self.params)
+
+    def _scan3(self):
+        from tracklab_torch.trackers.strongsort import strongsort_scan
+        return strongsort_scan
+
+    def _step3(self):
+        from tracklab_torch.trackers.strongsort import strongsort_step
+        return strongsort_step
+
+    def _init_state(self, cfg):
+        from tracklab_torch.trackers.strongsort import strongsort_init
+        return strongsort_init(cfg, device=self.device)
+
+
+class BotSORT(_EmbScanTrackerBase):
+    """BoT-SORT wrapper; names and defaults of bot_sort.yaml. Camera
+    compensation comes from the camera-motion module's ``gmc_warp``
+    column."""
+
+    def __init__(self, track_high_thresh: float = 0.3382,
+                 new_track_thresh: float = 0.2114, track_buffer: int = 60,
+                 match_thresh: float = 0.2273,
+                 proximity_thresh: float = 0.5945,
+                 appearance_thresh: float = 0.4818,
+                 lambda_: float = 0.9896, frame_rate: int = 30,
+                 ema_alpha: float = 0.9, embed_dim: int = 512,
+                 min_confidence: float = 0.4, max_tracks: int = 128,
+                 max_dets: int = 64, device=None, **kwargs):
+        super().__init__(max_dets=max_dets, device=device, **kwargs)
+        self.params = dict(
+            track_high_thresh=track_high_thresh,
+            new_track_thresh=new_track_thresh, track_buffer=track_buffer,
+            match_thresh=match_thresh, proximity_thresh=proximity_thresh,
+            appearance_thresh=appearance_thresh, lambda_=lambda_,
+            frame_rate=frame_rate, ema_alpha=ema_alpha,
+            embed_dim=embed_dim, max_tracks=max_tracks, max_dets=max_dets)
+        self.min_confidence = min_confidence
+        self.embed_dim = embed_dim
+
+    def _make_config(self):
+        from tracklab_torch.trackers.botsort import BotSortConfig
+        return BotSortConfig(**self.params)
+
+    def _scan3(self):
+        from tracklab_torch.trackers.botsort import botsort_scan
+        return botsort_scan
+
+    def _step3(self):
+        from tracklab_torch.trackers.botsort import botsort_step
+        return botsort_step
+
+    def _init_state(self, cfg):
+        from tracklab_torch.trackers.botsort import botsort_init
+        return botsort_init(cfg, device=self.device)
+
+
+class DeepOCSORT(_EmbScanTrackerBase):
+    """Deep-OC-SORT wrapper; names and defaults of deep_oc_sort.yaml."""
+
+    def __init__(self, det_thresh: float = 0.0, max_age: int = 50,
+                 min_hits: int = 1, iou_threshold: float = 0.2214,
+                 delta_t: int = 1, asso_func: str = "giou",
+                 inertia: float = 0.3942,
+                 w_association_emb: float = 0.75,
+                 alpha_fixed_emb: float = 0.95, aw_param: float = 0.5,
+                 embedding_off: bool = False, aw_off: bool = False,
+                 cmc_off: bool = False, new_kf_off: bool = False,
+                 embed_dim: int = 512, min_confidence: float = 0.4,
+                 max_tracks: int = 128, max_dets: int = 64, device=None,
+                 **kwargs):
+        super().__init__(max_dets=max_dets, device=device, **kwargs)
+        if new_kf_off:
+            log.warning("DeepOCSORT: new_kf_off is not supported; the "
+                        "tracker always uses the xywh dynamic-noise KF")
+        self.params = dict(
+            det_thresh=det_thresh, max_age=max_age, min_hits=min_hits,
+            iou_threshold=iou_threshold, delta_t=delta_t,
+            asso_func=asso_func, inertia=inertia,
+            w_association_emb=w_association_emb,
+            alpha_fixed_emb=alpha_fixed_emb, aw_param=aw_param,
+            embedding_off=embedding_off, aw_off=aw_off,
+            embed_dim=embed_dim, max_tracks=max_tracks,
+            max_dets=max_dets)
+        self.min_confidence = min_confidence
+        self.embed_dim = embed_dim
+        self.cmc_off = cmc_off
+
+    def _make_config(self):
+        from tracklab_torch.trackers.deepocsort import DeepOCSortConfig
+        return DeepOCSortConfig(**self.params)
+
+    def _scan3(self):
+        from tracklab_torch.trackers.deepocsort import deepocsort_scan
+        return deepocsort_scan
+
+    def _step3(self):
+        from tracklab_torch.trackers.deepocsort import deepocsort_step
+        return deepocsort_step
+
+    def _init_state(self, cfg):
+        from tracklab_torch.trackers.deepocsort import deepocsort_init
+        return deepocsort_init(cfg, device=self.device)
