@@ -175,9 +175,29 @@ Then K3's f32 route per layer and the command line:
      K1 launched, ORU-NKF in the Deep-OC-SORT run. Each run's frames/s and
      its split (loader, device, camera motion, host, evaluation) printed.
 
+ 21. phase engines: ``tracklab_torch.main.main`` in this process, (a)
+     BASELINE config 5 (+experiment=batched_8videos, 8 videos of GT) on
+     the batched engine, HOTA 100.0 and rows equal to the offline engine;
+     then 8 synthetic 640 x 640 videos x 150 frames -> YOLOX-s f32 ->
+     OC-SORT through the batched engine (one V = 8 scan) and the offline
+     engine (8 per-video scans), rows equal, 0 host syncs in the scans,
+     the tracker stages' seconds, K1 held to its plain version on the
+     V-axis scan's own inputs, 16 of its steps profiled beside 16 steps
+     of one video; (b) the online engine (engine=video,
+     dataset=external_video) on mp4 files of 1920 x 1080 the script
+     writes: YOLOX-s (batch 1) -> OC-SORT over 150 frames and YOLOX-s ->
+     OSNet on host crops -> StrongSORT over 100, tracks equal to the
+     tracker's process() over the run's own detections, detections within
+     IoU 0.999 of the staged offline run on the same file, host syncs per
+     frame of each module (the tracker's <= 1); (c) the pipelined engine
+     on phase cli's (b) and phase cli_reid's (a) configurations, rows equal
+     to their staged runs; (d) one video of (a) cut to 50 frames with
+     visualization=save_videos and TorchProfiler: an mp4 of 50 frames, a
+     trace that names K1's and K3's kernels. Frames/s of every run.
+
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
-launches on its own path, and per run of phase cli_reid under
+launches on its own path, and per run of phases cli_reid and engines under
 ``launches_by_path``), and {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -196,8 +216,13 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK = {"bf16": 989e12, "f32": 67e12}
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A line of the run's log, after the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *a, flush=True)
 
 
 def check(cond, msg):
@@ -1019,7 +1044,8 @@ def _keep_oru(store, args, n_keep=32):
     del store[key][:-(n_keep if key == "replay" else 4)]
 
 
-def _k1_on_path(torch, step, init, frames, n_keep=48, oru=None):
+def _k1_on_path(torch, step, init, frames, n_keep=48, oru=None,
+                what="the main path"):
     """A second, untimed pass of the main path's tracker over ``frames``
     that records every K1 input (cost, k_eff, active). Reports the share
     of launches that solve (a problem active with k_eff > 0; the others
@@ -1067,7 +1093,7 @@ def _k1_on_path(torch, step, init, frames, n_keep=48, oru=None):
                 want[b, :kb] = _solve_square_plain(c[b, :kb, :kb].cpu(),
                                                    stats)
         check(torch.equal(solve_square_batched(c, k, a).cpu(), want),
-              "K1 differs from its plain version on a main-path input")
+              f"K1 differs from its plain version on an input of {what}")
         steps.append(stats.get("steps", 0))
     n_steps = sum(steps[:len(kept)])
 
@@ -1082,7 +1108,7 @@ def _k1_on_path(torch, step, init, frames, n_keep=48, oru=None):
                ms_per_solving_launch=ms,
                ns_per_step=ms * len(kept) * 1e6 / max(n_steps, 1),
                shape=list(inputs[-1][0].shape) if inputs else None)
-    log(f"K1 on the main path's own inputs ({len(frames)} tracker steps): "
+    log(f"K1 on {what}'s own inputs ({len(frames)} tracker steps): "
         f"{len(inputs)} launches, {len(solving)} solve "
         f"({out['solving_share']:.3f}); the last {len(kept)} solving and "
         f"{len(idle)} idle launches identical to the plain version; "
@@ -2644,13 +2670,32 @@ GT_OVERRIDE = ("state.load_from_groundtruth="
                "{detection: [bbox_ltwh, bbox_conf, category_id]}")
 
 
+def _timed_sync_count(torch, fn, *a, **kw):
+    """``fn(*a, **kw)`` synchronised before and after: (its result, its
+    seconds, the host syncs inside it, counted in sync debug mode)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn(*a, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            sum("synchroniz" in str(w.message) for w in caught))
+
+
 class _CliSplit:
     """Where a CLI run's host wall time goes: seconds blocked on the
     loader (decode, letterbox and crops on its threads), in device programs
     (the fused program, or the staged detector, ReID and tracker scan
-    calls, each synchronised), in camera-motion estimates (GMC.apply), and
-    in evaluation; host syncs counted inside the fused program (sync debug
-    mode); frames through it. ``fired`` counts the calls each patch timed,
+    calls, each synchronised; the scans, single-video or over the batched
+    engine's video axis, also apart), in camera-motion estimates
+    (GMC.apply), and in evaluation; host syncs counted inside the fused
+    program and inside the tracker scans (sync debug mode); frames through
+    the fused program. ``fired`` counts the calls each patch timed,
     so that a run can check that every patch it relies on saw its work (a
     patch that a refactor bypasses would move its time into "DataFrames and
     host" silently). A timed call inside another (OSNet inside the staged
@@ -2662,12 +2707,13 @@ class _CliSplit:
         from tracklab_torch.eval.evaluator import TrackEvalEvaluator
         from tracklab_torch.models.osnet import OSNet
         from tracklab_torch.motion.gmc import GMC
-        from tracklab_torch.wrappers.track.scan_tracker import (
-            _EmbScanTrackerBase, _ScanTrackerBase)
+        from tracklab_torch.wrappers.track.scan_tracker import \
+            _ScanTrackerBase
 
         self.torch = torch
         self.t = dict(loader=0.0, device=0.0, camera=0.0, eval=0.0)
         self.syncs, self.program_frames = 0, 0
+        self.scan_s, self.scan_syncs = 0.0, 0
         self.inside = self.busy = False
         self.fired = dict.fromkeys(("loader", "program", "detect", "embed",
                                     "reid", "scan", "camera", "eval"), 0)
@@ -2679,8 +2725,7 @@ class _CliSplit:
             (TF, "make_yolox_detect_fn", partial(self._staged_fn, "detect")),
             (TF, "make_osnet_embed_fn", partial(self._staged_fn, "embed")),
             (OSNet, "forward", self._forward),
-            (_ScanTrackerBase, "process", self._tracker),
-            (_EmbScanTrackerBase, "process", self._tracker),
+            (_ScanTrackerBase, "process_video_batch", self._tracker),
             (GMC, "apply", self._camera),
             (TrackEvalEvaluator, "run", self._eval)]
 
@@ -2727,21 +2772,13 @@ class _CliSplit:
 
     def _program(self, orig, frames_at):
         def run(*a, **kw):
-            torch = self.torch
-            torch.cuda.synchronize()
             self.inside = True
-            t0 = time.perf_counter()
-            torch.cuda.set_sync_debug_mode("warn")
             try:
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    out = orig(*a, **kw)
-                    torch.cuda.synchronize()
+                out, dt, syncs = _timed_sync_count(self.torch, orig, *a, **kw)
             finally:
-                torch.cuda.set_sync_debug_mode("default")
                 self.inside = False
-            self.t["device"] += time.perf_counter() - t0
-            self.syncs += sum("synchroniz" in str(w.message) for w in caught)
+            self.t["device"] += dt
+            self.syncs += syncs
             self.fired["program"] += 1
             self.program_frames += a[frames_at].shape[0]
             return out
@@ -2759,21 +2796,31 @@ class _CliSplit:
             return self._timed("device", "reid", orig, model, images)
         return forward
 
+    def _scan(self, fn, *a, **kw):
+        """A tracker scan, synchronised and timed as device work, with the
+        host syncs inside it counted."""
+        self.fired["scan"] += 1
+        out, dt, syncs = _timed_sync_count(self.torch, fn, *a, **kw)
+        self.t["device"] += dt
+        self.scan_s += dt
+        self.scan_syncs += syncs
+        return out
+
     def _tracker(self, orig):
-        def process(module, detections, metadatas):
-            names = [n for n in ("_scan_fn", "_scan3") if hasattr(module, n)]
-            for n in names:
-                def timed_getter(getter=getattr(module, n)):
-                    fn = getter()
-                    return lambda *a, **kw: self._timed("device", "scan", fn,
-                                                        *a, **kw)
-                setattr(module, n, timed_getter)
+        """A tracker wrapper's ``process_video_batch`` (``process`` is its
+        V = 1 case) with its scan (``_scan_videos_fn``) timed."""
+        def run(module, *a, **kw):
+            getter = module._scan_videos_fn
+
+            def timed_getter():
+                fn = getter()
+                return lambda *x, **y: self._scan(fn, *x, **y)
+            module._scan_videos_fn = timed_getter
             try:
-                return orig(module, detections, metadatas)
+                return orig(module, *a, **kw)
             finally:
-                for n in names:
-                    delattr(module, n)
-        return process
+                del module._scan_videos_fn
+        return run
 
     def _camera(self, orig):
         def apply(gmc, *a, **kw):
@@ -2805,28 +2852,38 @@ def _launch_counters():
                                     oru_replay, oru_replay_nkf)))
 
 
-def _cli_run(torch, args, timed):
+def _cli_run(torch, args, timed, split=True):
     """``tracklab_torch.main.main(args)`` in this process with the kernels'
     launch counters set to 0 just before and read just after; checks that
     each of ``timed`` (keys of ``_CliSplit.fired``) timed some work in the
-    run; returns (parts, results, launches, split stats)."""
+    run; returns (parts, results, launches, split stats). With
+    ``split=False`` nothing is patched or synchronised (the pipelined
+    engine's stages overlap on threads): the stats hold frames/s only."""
+    import contextlib
+
     from tracklab_torch import main as TM
     from tracklab_torch.callbacks.timer import Timer
 
     counters = _launch_counters()
     for c in counters.values():
         c.launches = 0
-    with _CliSplit(torch) as split:
+    with (_CliSplit(torch) if split else contextlib.nullcontext()) as sp:
         t0 = time.perf_counter()
         parts, results = TM.main(args)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
-    for key in timed:
-        check(split.fired[key] > 0, f"cli {args}: the split's {key} patch "
-              "timed nothing, so its time would count as host time")
     timer = next(c for c in parts["callbacks"] if isinstance(c, Timer))
     track_s = timer.dataset_seconds
     frames = timer.total_frames
+    if not split:
+        return parts, results, launches, dict(
+            frames=frames, track_dataset_s=track_s, fps=frames / track_s,
+            main_wall_s=wall)
+    split = sp
+    for key in timed:
+        check(split.fired[key] > 0, f"cli {args}: the split's {key} patch "
+              "timed nothing, so its time would count as host time")
     host = (track_s - split.t["loader"] - split.t["device"]
             - split.t["camera"])
     stats = dict(frames=frames, track_dataset_s=track_s,
@@ -2834,6 +2891,8 @@ def _cli_run(torch, args, timed):
                  device_s=split.t["device"], camera_s=split.t["camera"],
                  dataframes_and_host_s=host,
                  eval_s=split.t["eval"], main_wall_s=wall,
+                 tracker_scan_s=split.scan_s,
+                 host_syncs_in_scans=split.scan_syncs,
                  host_syncs_in_fused_program=split.syncs,
                  fused_program_frames=split.program_frames,
                  patch_calls=dict(split.fired))
@@ -2897,7 +2956,7 @@ def _calibrate_cli(torch, dev, n_objects, per_frame=25, born=15,
     return at(per_frame), at(born)
 
 
-def phase_cli(torch, dev, card, n_frames=300, n_objects=24):
+def phase_cli(torch, dev, card, n_frames=300, n_objects=24, keep=None):
     """The port's command line in this process, twice.
 
     (a) The quick start at its own size (synthetic.yaml: 2 videos x 100
@@ -2916,7 +2975,8 @@ def phase_cli(torch, dev, card, n_frames=300, n_objects=24):
     per-video upload and readback are outside it). Each run's frames/s of
     track_dataset and its split into loader, device programs, host
     DataFrame work and evaluation are printed with ``card`` (the card's
-    name and power limit)."""
+    name and power limit). ``keep``, a dict, receives (b)'s arguments and
+    its staged run's rows under "cli_staged"."""
     stats = {}
     base = ["use_rich=false", GT_OVERRIDE]
     gpu_parts, res, launches, split = _cli_run(
@@ -2996,6 +3056,8 @@ def phase_cli(torch, dev, card, n_frames=300, n_objects=24):
     _same_rows(runs[True], runs[False], "cli (b) fused vs staged")
     log("cli (b): fused equals staged (rows, ids, categories, boxes, track "
         "ids)")
+    if keep is not None:
+        keep["cli_staged"] = (args, runs[False], stats["staged"]["fps"])
     stats["thresholds"] = dict(min_confidence=det_thr, det_thresh=birth_thr)
     return stats
 
@@ -3108,7 +3170,7 @@ def _pan_error(warps, wh, drift=(2, -1)):
 
 
 def phase_cli_reid(torch, dev, card, n_frames=150, n_objects=24,
-                   tree_frames=96, prefix_frames=16):
+                   tree_frames=96, prefix_frames=16, keep=None):
     """The port's ReID configurations through ``tracklab_torch.main.main``
     in this process.
 
@@ -3135,7 +3197,8 @@ def phase_cli_reid(torch, dev, card, n_frames=150, n_objects=24,
     sparse_opt_flow.yaml with method lk_jax (the LK of motion/lk.py on the
     card, downscale 2), first deep_oc_sort.yaml, then bot_sort.yaml: every
     gmc_warp within 0.5 px of the pan at the frame's corners, K1 launched
-    in both runs and ORU-NKF in Deep-OC-SORT's."""
+    in both runs and ORU-NKF in Deep-OC-SORT's. ``keep``, a dict, receives
+    (a)'s arguments and its staged run's rows under "cli_reid_staged"."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -3192,6 +3255,8 @@ def phase_cli_reid(torch, dev, card, n_frames=150, n_objects=24,
         f"{tracked} tracked, embeddings within {d:.2e} of their scale)")
     stats["fused_vs_staged"] = dict(rows=len(runs[True]), tracked=tracked,
                                     embedding_rel_diff=d)
+    if keep is not None:
+        keep["cli_reid_staged"] = (args, runs[False], stats["staged"]["fps"])
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dancetrack_"))
     try:
@@ -3289,6 +3354,430 @@ def phase_cli_reid(torch, dev, card, n_frames=150, n_objects=24,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return stats
+
+
+# -------------------------------------------------------- phase engines
+class _ModuleCalls:
+    """Calls, seconds (synchronised around each call) and host syncs (sync
+    debug mode) of some modules' methods during a run: ``methods`` maps a
+    name to (the class that defines the method, its name)."""
+
+    def __init__(self, torch, methods):
+        self.torch = torch
+        self.methods = methods
+        self.stats = {n: dict(calls=0, s=0.0, syncs=0, max_syncs=0)
+                      for n in methods}
+
+    def __enter__(self):
+        self.saved = {n: getattr(c, a) for n, (c, a) in self.methods.items()}
+        for n, (c, a) in self.methods.items():
+            setattr(c, a, self._wrap(self.stats[n], self.saved[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, (c, a) in self.methods.items():
+            setattr(c, a, self.saved[n])
+        return False
+
+    def _wrap(self, st, orig):
+        torch = self.torch
+
+        def call(*a, **kw):
+            out, dt, n = _timed_sync_count(torch, orig, *a, **kw)
+            st["calls"] += 1
+            st["s"] += dt
+            st["syncs"] += n
+            st["max_syncs"] = max(st["max_syncs"], n)
+            return out
+        return call
+
+
+def _write_mp4(torch, dev, path, n_frames, n_objects, wh=(1920, 1080)):
+    """An mp4 (cv2.VideoWriter, mp4v, 30 fps) of ``n_frames`` frames of
+    ``wh``: phase 17's smooth texture panning by (+2, -1) px per frame with
+    the ``n_objects`` moving boxes of a synthetic set painted on it, each
+    track in its own colour."""
+    import cv2
+
+    from tracklab_torch.wrappers.dataset.synthetic import make_synthetic_set
+
+    w, h = wh
+    video = panning_video(torch, dev, n_frames, (h, w)).cpu().numpy()
+    gt = make_synthetic_set(n_videos=1, n_frames=n_frames,
+                            n_objects=n_objects, seed=4, img_w=w,
+                            img_h=h).detections_gt
+    for f, t, b in zip(gt["frame"], gt["track_id"], gt["bbox_ltwh"]):
+        x1, y1 = max(int(b[0]), 0), max(int(b[1]), 0)
+        x2, y2 = min(int(b[0] + b[2]), w), min(int(b[1] + b[3]), h)
+        if x2 > x1 and y2 > y1:
+            video[f - 1, y1:y2, x1:x2] = (40 + (t * 53) % 200,
+                                          40 + (t * 101) % 200,
+                                          240 - (t * 37) % 200)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (w, h))
+    try:
+        for frame in video:
+            writer.write(np.ascontiguousarray(frame[..., ::-1]))
+    finally:
+        writer.release()
+    return video
+
+
+def _frames_of(parts):
+    """A run's detection rows and each row's frame number."""
+    st = parts["tracker_state"]
+    pred = st.detections_pred
+    return pred, st.image_pred["frame"].reindex(pred["image_id"]).to_numpy()
+
+
+def _same_detections(a, b, what, min_iou=0.999):
+    """Two runs' detections frame by frame (each ``_frames_of``): the same
+    number in every frame, matched one to one (Hungarian on IoU) with IoU
+    >= ``min_iou``. Returns (rows, the smallest IoU of a match)."""
+    from scipy.optimize import linear_sum_assignment
+
+    (pa, fa), (pb, fb) = a, b
+    rows, lo = 0, 1.0
+    for f in np.union1d(fa, fb):
+        ba = pa["bbox_ltwh"].to_numpy()[fa == f]
+        bb = pb["bbox_ltwh"].to_numpy()[fb == f]
+        check(len(ba) == len(bb), f"{what}: frame {f} has {len(ba)} and "
+              f"{len(bb)} detections")
+        if not len(ba):
+            continue
+        iou = _iou_ltwh(np.stack(ba), np.stack(bb))
+        r, c = linear_sum_assignment(-iou)
+        rows += len(r)
+        lo = min(lo, float(iou[r, c].min()))
+    check(rows > 0, f"{what}: no detections")
+    check(lo >= min_iou, f"{what}: a detection matched at IoU {lo:.6f}")
+    return rows, lo
+
+
+def _tracks_equal_process(parts, what):
+    """A run's track columns against its tracker's ``process`` over the
+    run's own detections (track columns dropped), id for id; returns the
+    tracked rows."""
+    st = parts["tracker_state"]
+    pred = st.detections_pred
+    want = parts["modules"][-1].process(
+        pred.drop(columns=["track_id", "track_bbox_ltwh",
+                           "track_bbox_conf"]), st.image_pred).sort_index()
+    got = pred[pred["track_id"].notna()].sort_index()
+    check(len(want) > 0, f"{what}: process() tracked nothing")
+    check(got.index.equals(want.index), f"{what}: {len(got)} tracked rows "
+          f"against process()'s {len(want)}")
+    check(np.array_equal(got["track_id"].to_numpy(float),
+                         want["track_id"].to_numpy(float)),
+          f"{what}: track ids differ from process()'s")
+    d = float(np.abs(np.stack(got["track_bbox_ltwh"].to_numpy())
+                     - np.stack(want["track_bbox_ltwh"].to_numpy())).max())
+    check(d <= 1e-3, f"{what}: track boxes {d} from process()'s")
+    return len(want)
+
+
+def phase_engines(torch, dev, card, keep, n_videos=8, n_frames=100,
+                  n_objects=24, file_frames=100, reid_frames=100,
+                  vis_frames=50, k1_keep=16):
+    """The batched, online and pipelined engines through
+    ``tracklab_torch.main.main`` in this process.
+
+    (a) BASELINE config 5, ``+experiment=batched_8videos`` with
+    ``dataset.n_videos`` 8 and the quick start's ground truth: HOTA 100.0,
+    rows equal to the offline engine's; then with ``pipeline=[bbox_detector,
+    track]`` and yolox.yaml on ``n_videos`` x ``n_frames`` synthetic frames
+    of 640 x 640 (thresholds calibrated by ``_calibrate_cli``): rows and
+    track ids equal to the offline engine's staged run; each run's frames/s
+    and tracker-stage seconds (one V-axis scan against V per-video scans),
+    0 host syncs inside the scans; the V-axis scan's K1 inputs recorded and
+    the last ``k1_keep`` solving launches held to the plain solver
+    (``_k1_on_path``); 16 steps over its recorded frames profiled, over
+    the V videos and over one.
+    (b) ``engine=video`` with ``dataset=external_video`` on an mp4 of 1920
+    x 1080 the script writes (``_write_mp4``): YOLOX-s (batch 1) ->
+    OC-SORT over ``file_frames`` frames, then YOLOX-s -> OSNet (osnet.yaml,
+    host crops) -> StrongSORT over the first ``reid_frames``: tracks equal
+    to the tracker's ``process`` over the run's own detections, detections
+    within IoU 0.999 of the offline engine's staged run on the same file;
+    frames/s of a plain run, after an instrumented run (``_ModuleCalls``)
+    for each module's ms and host syncs per frame (the tracker's <= 1).
+    (c) ``engine=pipelined`` on phase cli's (b) and phase cli_reid's (a)
+    configurations (``keep``, from those phases): rows equal to their
+    staged runs; frames/s beside the staged runs'.
+    (d) (a)'s detector configuration on one video cut to ``vis_frames``,
+    with ``visualization=save_videos`` and TorchProfiler enabled: the mp4
+    has ``vis_frames`` frames; the trace names K1's and K3's kernels.
+    Returns (stats, launches per run)."""
+    import json
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import cv2
+
+    import tracklab_torch.trackers.ocsort as OC
+    from tracklab_torch.trackers.common import Detections, repeat_state
+    from tracklab_torch.wrappers.bbox_detector.yolox_api import YOLOXDetector
+    from tracklab_torch.wrappers.reid.osnet_api import OSNetReId
+    from tracklab_torch.wrappers.track.scan_tracker import _ScanTrackerBase
+
+    stats, runs_launches = {}, {}
+
+    def run(name, args, timed, split=True):
+        parts, res, launches, sp = _cli_run(torch, args, timed, split)
+        runs_launches[f"engines_{name}"] = launches
+        stats[name] = dict(sp, launches=launches)
+        return parts, res, launches, sp
+
+    # (a) BASELINE config 5 as typed
+    cfg5 = ["use_rich=false", f"device={dev.type}",
+            "+experiment=batched_8videos", f"dataset.n_videos={n_videos}",
+            GT_OVERRIDE]
+    preds = {}
+    for name, args in (("config5_batched", cfg5),
+                       ("config5_offline", [a for a in cfg5 if a !=
+                                            "+experiment=batched_8videos"])):
+        parts, res, launches, sp = run(name, args, ("scan", "eval"))
+        preds[name] = parts["tracker_state"].detections_pred
+        c = res["COMBINED_SEQ"]
+        stats[name]["HOTA"] = c["HOTA"]
+        log(f"engines (a) {name} on {card}: {sp['frames']} frames, "
+            f"{sp['fps']:.2f} frames/s of track_dataset "
+            f"({sp['track_dataset_s']:.2f} s; tracker scans "
+            f"{sp['tracker_scan_s']:.2f} s, {sp['host_syncs_in_scans']} host "
+            f"syncs in them); HOTA {c['HOTA']}; launches {launches}")
+        check(c["HOTA"] == 100.0, f"engines (a) {name}: HOTA {c['HOTA']}")
+        check(sp["host_syncs_in_scans"] == 0, f"engines (a) {name}: "
+              f"{sp['host_syncs_in_scans']} host syncs in the scans")
+        for k in ("K1", "ORU"):
+            check(launches[k] > 0, f"engines (a) {name}: {k} never launched")
+    _same_rows(preds["config5_batched"], preds["config5_offline"],
+               "engines (a) config 5, batched vs offline")
+    log("engines (a): config 5 as typed equals the offline engine")
+
+    # (a) config 5 with the detector
+    det_thr, birth_thr = _calibrate_cli(torch, dev, n_objects,
+                                        img_wh=(640, 640))
+    det = ["use_rich=false", f"device={dev.type}",
+           "pipeline=[bbox_detector,track]", "+modules/bbox_detector=yolox",
+           f"modules.bbox_detector.min_confidence={det_thr}",
+           f"modules.track.min_confidence={det_thr}",
+           f"modules.track.det_thresh={birth_thr}",
+           f"dataset.n_videos={n_videos}", f"dataset.n_frames={n_frames}",
+           f"dataset.n_objects={n_objects}", "dataset.img_w=640",
+           "dataset.img_h=640"]
+    recorded, scans = {}, {}
+    scan_videos = OC.ocsort_scan_videos
+
+    def recording(cfg, dets):
+        # each run's scans by their number of videos; the V-axis scan's
+        # inputs kept for K1
+        scans[name].append(dets.ltrb.shape[0])
+        if dets.ltrb.shape[0] == n_videos:
+            recorded["cfg"] = cfg
+            recorded["dets"] = Detections(*(x.clone() for x in dets))
+        return scan_videos(cfg, dets)
+
+    OC.ocsort_scan_videos = recording
+    try:
+        for name, args in (("detector_batched",
+                            det + ["+experiment=batched_8videos"]),
+                           ("detector_offline", det)):
+            scans[name] = []
+            parts, res, launches, sp = run(
+                name, args, ("loader", "detect", "scan", "eval"))
+            preds[name] = parts["tracker_state"].detections_pred
+            per_frame = len(preds[name]) / sp["frames"]
+            log(f"engines (a) {name} on {card}: {sp['frames']} frames, "
+                f"{per_frame:.2f} detections/frame, {sp['fps']:.2f} "
+                f"frames/s of track_dataset ({sp['track_dataset_s']:.2f} s: "
+                f"loader {sp['loader_s']:.2f}, device {sp['device_s']:.2f} "
+                f"of which tracker scans {sp['tracker_scan_s']:.2f} with "
+                f"{sp['host_syncs_in_scans']} host syncs, DataFrames and "
+                f"host {sp['dataframes_and_host_s']:.2f}); launches "
+                f"{launches}")
+            stats[name]["detections_per_frame"] = per_frame
+            check(10 <= per_frame <= 64, f"engines (a) {name}: "
+                  f"{per_frame:.2f} detections per frame")
+            check(sp["host_syncs_in_scans"] == 0, f"engines (a) {name}: "
+                  f"{sp['host_syncs_in_scans']} host syncs in the scans")
+            for k in ("K3", "K1", "ORU"):
+                check(launches[k] > 0, f"engines (a) {name}: {k} never "
+                      "launched")
+    finally:
+        OC.ocsort_scan_videos = scan_videos
+    check(scans == {"detector_batched": [n_videos],
+                    "detector_offline": [1] * n_videos},
+          f"engines (a): videos per scan {scans}, not one scan of "
+          f"{n_videos} batched and {n_videos} of 1 offline")
+    _same_rows(preds["detector_batched"], preds["detector_offline"],
+               "engines (a) detector, batched vs offline")
+    cfg, dets = recorded["cfg"], recorded["dets"]
+    frames = [Detections(*(x[:, f] for x in dets))
+              for f in range(dets.ltrb.shape[1])]
+    stats["k1_on_the_v_axis_scan"] = _k1_on_path(
+        torch, partial(OC.ocsort_step, cfg),
+        repeat_state(OC.ocsort_init(cfg, device=dev), n_videos), frames,
+        n_keep=k1_keep, what="the batched engine's V-axis scan")
+    # the default mode's step over the video axis (stacked K1) against one
+    # video's, on the same recorded frames: up to 64 steps unprofiled, 16
+    # profiled
+    profiles = {}
+    lo = max(min(64, n_frames - 16), 0)
+    for v in (n_videos, 1):
+        fr = [Detections(*(x[:v] for x in d)) for d in frames[:lo + 16]]
+        st = repeat_state(OC.ocsort_init(cfg, device=dev), v)
+        for d in fr[:lo]:
+            st, _ = OC.ocsort_step(cfg, st, d)
+
+        def steps(st=st, fr=fr):
+            for d in fr[lo:]:
+                st, _ = OC.ocsort_step(cfg, st, d)
+        profiles[f"V={v}"] = profile_window(torch, steps, len(fr) - lo,
+                                            kernel="jv_warp")
+        p = profiles[f"V={v}"]
+        log(f"engines (a): the OC-SORT step over V = {v} (frames {lo}-"
+            f"{len(fr) - 1} of the batched run's inputs) on {card}: host "
+            f"{p['host_ms_per_frame']:.2f} ms, device "
+            f"{p['device_ms_per_frame']:.3f} ms, "
+            f"{p['launches_per_frame']:.1f} launches and "
+            f"{p['jv_warp']['launches_per_frame']:.1f} K1 launches per step, "
+            f"device idle {p['device_idle_share']:.3f}")
+    stats["v_axis_step_profile"] = profiles
+    log(f"engines (a): config 5 with YOLOX-s equals the offline engine's "
+        f"staged run ({len(preds['detector_batched'])} rows); tracker stage "
+        f"{stats['detector_batched']['tracker_scan_s']:.2f} s for one V = "
+        f"{n_videos} scan against "
+        f"{stats['detector_offline']['tracker_scan_s']:.2f} s for "
+        f"{n_videos} per-video scans")
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_engines_"))
+    try:
+        # (b) the online engine on a file
+        t0 = time.perf_counter()
+        clips = {}
+        for n in sorted({file_frames, reid_frames}):
+            (tmp / f"clip{n}").mkdir()
+            clips[n] = tmp / f"clip{n}" / "scene.mp4"
+            video = _write_mp4(torch, dev, clips[n], n, n_objects)
+        log(f"engines (b): wrote {len(clips)} mp4 files of 1920 x 1080 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        f_thr, f_birth = _calibrate_cli(torch, dev, n_objects,
+                                        frames=list(video[:8]))
+        for name, n, extra in (
+                ("online_ocsort", file_frames, []),
+                ("online_strongsort", reid_frames,
+                 ["pipeline=[bbox_detector,reid,track]",
+                  "+modules/reid=osnet", "modules/track=strong_sort"])):
+            base = (["use_rich=false", f"device={dev.type}",
+                     "dataset=external_video",
+                     f"dataset.video_path={clips[n]}",
+                     "pipeline=[bbox_detector,track]",
+                     "+modules/bbox_detector=yolox",
+                     f"modules.bbox_detector.min_confidence={f_thr}",
+                     f"modules.track.min_confidence={f_thr}"] + extra
+                    + ([] if extra else
+                       [f"modules.track.det_thresh={f_birth}"]))
+            online_args = base + ["engine=video",
+                                  "modules.bbox_detector.batch_size=1"]
+            # first a run with each module synchronised around its calls
+            # and its host syncs counted (its frames/s is not the engine's;
+            # it also takes the detector's first calls at batch 1), then
+            # the engine's own run
+            methods = {"detector": (YOLOXDetector, "process"),
+                       "tracker": (_ScanTrackerBase, "process_online")}
+            if extra:
+                methods["reid"] = (OSNetReId, "process")
+            with _ModuleCalls(torch, methods) as calls:
+                _, _, _, i_sp = _cli_run(torch, online_args, (), split=False)
+            per = {k: dict(v, syncs_per_frame=v["syncs"] / i_sp["frames"],
+                           ms_per_frame=v["s"] * 1e3 / i_sp["frames"])
+                   for k, v in calls.stats.items()}
+            parts, _, launches, sp = run(name, online_args, (), split=False)
+            stats[name].update(modules=per, instrumented_fps=i_sp["fps"])
+            tracked = _tracks_equal_process(parts, f"engines (b) {name}")
+            online = _frames_of(parts)
+            staged, _, s_launches, s_sp = run(
+                f"{name}_staged", base, ("loader", "detect", "scan"))
+            rows, lo = _same_detections(online, _frames_of(staged),
+                                        f"engines (b) {name}, online vs "
+                                        "staged")
+            stats[name].update(tracked_rows=tracked, rows=rows,
+                               min_iou_vs_staged=lo,
+                               staged_fps=s_sp["fps"])
+            log(f"engines (b) {name} on {card}: {sp['frames']} frames, "
+                f"{rows / sp['frames']:.2f} detections/frame, "
+                f"{sp['fps']:.2f} frames/s online (staged offline "
+                f"{s_sp['fps']:.2f}); tracks equal process() on the run's "
+                f"own detections ({tracked} rows); detections within IoU "
+                f"{lo:.6f} of the staged run's; instrumented run "
+                f"{i_sp['fps']:.2f} frames/s, per module "
+                + "; ".join(f"{k} {v['ms_per_frame']:.2f} ms and "
+                            f"{v['syncs_per_frame']:.2f} host syncs per "
+                            f"frame (max {v['max_syncs']} in a call)"
+                            for k, v in per.items())
+                + f"; launches {launches}")
+            check(per["tracker"]["syncs_per_frame"] <= 1, f"engines (b) "
+                  f"{name}: {per['tracker']['syncs_per_frame']:.3f} host "
+                  "syncs per frame in the tracker")
+            for k in ("K3", "K1"):
+                check(launches[k] > 0, f"engines (b) {name}: {k} never "
+                      "launched")
+
+        # (c) the pipelined engine on phase cli's and cli_reid's runs
+        for name, key, timed in (("pipelined_cli", "cli_staged", ()),
+                                 ("pipelined_cli_reid", "cli_reid_staged",
+                                  ())):
+            args, staged, staged_fps = keep[key]
+            parts, _, launches, sp = run(name, args + ["engine=pipelined"],
+                                         timed, split=False)
+            _same_rows(parts["tracker_state"].detections_pred, staged,
+                       f"engines (c) {name} vs staged")
+            stats[name]["staged_fps"] = staged_fps
+            log(f"engines (c) {name} on {card}: {sp['frames']} frames, "
+                f"{sp['fps']:.2f} frames/s of track_dataset against the "
+                f"staged run's {staged_fps:.2f}; rows equal to the staged "
+                f"run's; launches {launches}")
+            for k in ("K3", "K1"):
+                check(launches[k] > 0, f"engines (c) {name}: {k} never "
+                      "launched")
+
+        # (d) visualization and the profiler
+        vis = [a for a in det + ["+experiment=batched_8videos"]
+               if not a.startswith(("dataset.n_videos", "dataset.n_frames"))]
+        parts, _, launches, sp = run("visualization_profiler", vis + [
+            "dataset.n_videos=1", f"dataset.n_frames={vis_frames}",
+            "visualization=save_videos",
+            f"visualization.save_folder={tmp / 'visuals'}",
+            "+callbacks.profiler={_target_: tracklab_torch.callbacks."
+            f"TorchProfiler, enabled: true, trace_dir: {tmp / 'trace'}}}"],
+            ("loader", "detect", "scan"))
+        mp4 = next((tmp / "visuals").glob("*.mp4"))
+        cap = cv2.VideoCapture(str(mp4))
+        n_rendered = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+        prof = next(c for c in parts["callbacks"]
+                    if type(c).__name__ == "TorchProfiler")
+        names = {str(e.get("name", "")) for e in json.loads(
+            prof.trace_path.read_text())["traceEvents"]
+            if e.get("cat") == "kernel"}
+        k1 = sorted(n for n in names if "jv_warp" in n)
+        k3 = sorted(n for n in names if "csp" in n)
+        stats["visualization_profiler"].update(
+            rendered_frames=n_rendered, k1_kernels=k1[:3], k3_kernels=k3[:3],
+            trace_mb=prof.trace_path.stat().st_size / 2**20,
+            kernel_names=len(names))
+        log(f"engines (d) on {card}: {mp4.name} with {n_rendered} frames; "
+            f"the trace ({stats['visualization_profiler']['trace_mb']:.1f} "
+            f"MB, {len(names)} kernel names) names K1 {k1[:1]} and K3 "
+            f"{k3[:1]}")
+        check(n_rendered == vis_frames, f"engines (d): the mp4 has "
+              f"{n_rendered} frames, not {vis_frames}")
+        check(k1 and k3, "engines (d): the trace does not name K1's and "
+              "K3's kernels")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return stats, runs_launches
 
 
 def phase_k3_routes_f32(torch, dev, batch=8, size=640):
@@ -3421,8 +3910,10 @@ def main() -> int:
     m_launches, motion_stats = phase_motion(torch, dev, oru=nkf_in)
     oru_nkf, motion_stats["oru_nkf"] = phase_oru_nkf(torch, dev, nkf_in)
     k3_f32 = phase_k3_routes_f32(torch, dev)
-    cli_stats = phase_cli(torch, dev, smi)
-    reid_cli = phase_cli_reid(torch, dev, smi)
+    keep = {}
+    cli_stats = phase_cli(torch, dev, smi, keep=keep)
+    reid_cli = phase_cli_reid(torch, dev, smi, keep=keep)
+    engines, engine_runs = phase_engines(torch, dev, smi, keep)
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -3437,14 +3928,16 @@ def main() -> int:
                                   "steps", "longest_problem_steps",
                                   "ns_per_step")}
     main_stats["k1_s64"] = k1_steps
-    # the command line's ReID runs (phase cli_reid), each counted apart
+    # the command line's ReID runs (phase cli_reid) and the engines' runs
+    # (phase engines), each counted apart
     cli_reid_runs = {f"cli_reid_{k}": reid_cli[k]["launches"]
                      for k in ("fused", "staged", "experiment_bare",
                                "experiment",
                                "deep_oc_sort", "bot_sort")}
+    by_path = dict(cli_reid_runs, **engine_runs)
     for entry, key in zip((k1, k2, k3, k4, oru, oru_nkf), _CLI_COUNTERS):
         entry["launches_by_path"] = {run: n[key]
-                                     for run, n in cli_reid_runs.items()}
+                                     for run, n in by_path.items()}
 
     print(json.dumps({"main_path": main_stats,
                       "multi_video_path": videos_stats,
@@ -3452,7 +3945,7 @@ def main() -> int:
                       "camera_path": motion_stats,
                       "kpr_check": kpr_stats, "yolox_l_x": lx_stats,
                       "k3_f32_yolox_s_640_b8": k3_f32, "cli": cli_stats,
-                      "cli_reid": reid_cli,
+                      "cli_reid": reid_cli, "engines": engines,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,
@@ -3464,7 +3957,7 @@ def main() -> int:
                                    "cli_fused": cli_stats["fused"]["launches"],
                                    "cli_staged":
                                        cli_stats["staged"]["launches"],
-                                   **cli_reid_runs}}))
+                                   **by_path}}))
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3, k4, oru, oru_nkf]}))
     print(json.dumps({"ok": True, "device": {

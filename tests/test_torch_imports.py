@@ -66,12 +66,14 @@ def test_port_imports_in_a_clean_interpreter():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert int(res.stdout.split()[-1]) >= 19
+    assert int(res.stdout.split()[-1]) >= 35
 
 
 # modules of the ReID slice, the ORU replay kernels, the Deep-OC-SORT /
 # BoT-SORT / camera-motion slice, the command line's host layers and its
-# ReID wrappers and MOT-format datasets, which the checks above must cover
+# ReID wrappers and MOT-format datasets, the batched, pipelined and online
+# engines with their datasets, callbacks and visualization, which the
+# checks above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
@@ -106,7 +108,23 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/wrappers/reid/batched_api.py",
                  "tracklab_torch/wrappers/dataset/mot_like.py",
                  "tracklab_torch/engine/fused.py",
-                 "tracklab_torch/motion/__init__.py")
+                 "tracklab_torch/motion/__init__.py",
+                 "tracklab_torch/engine/batched.py",
+                 "tracklab_torch/engine/pipelined.py",
+                 "tracklab_torch/engine/video.py",
+                 "tracklab_torch/wrappers/dataset/external_video.py",
+                 "tracklab_torch/wrappers/tracklet_agg/__init__.py",
+                 "tracklab_torch/wrappers/tracklet_agg/majority_vote.py",
+                 "tracklab_torch/callbacks/profiler.py",
+                 "tracklab_torch/callbacks/handle_regions.py",
+                 "tracklab_torch/visualization/__init__.py",
+                 "tracklab_torch/visualization/image.py",
+                 "tracklab_torch/visualization/detection.py",
+                 "tracklab_torch/visualization/keypoints.py",
+                 "tracklab_torch/visualization/tracking.py",
+                 "tracklab_torch/visualization/visualizer.py",
+                 "tracklab_torch/visualization/visualization_engine.py",
+                 "tracklab_torch/utils/notebook.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

@@ -17,30 +17,32 @@ __all__ = ["Timer"]
 
 class Timer(Callback):
     def __init__(self, **kwargs):
-        self.video_start = None
+        # per video: its start time and frame count (the batched engine
+        # starts a batch's videos before it ends any)
+        self.videos = {}
         self.dataset_start = None
         self.dataset_seconds = None
         self.module_start = {}
         self.module_time = defaultdict(float)
-        self.frames = 0
         self.total_frames = 0
 
     def on_dataset_track_start(self, engine):
         self.dataset_start = time.perf_counter()
 
     def on_video_loop_start(self, engine, video_metadata, video_idx, index):
-        self.video_start = time.perf_counter()
-        self.frames = int(video_metadata.get("nframes", 0) or 0)
+        self.videos[video_idx] = (time.perf_counter(),
+                                  int(video_metadata.get("nframes", 0) or 0))
 
     def on_video_loop_end(self, engine, video_metadata, video_idx,
                           detections, image_pred):
-        dt = time.perf_counter() - self.video_start
-        if self.frames == 0 and image_pred is not None:
-            self.frames = len(image_pred)
-        self.total_frames += self.frames
+        start, frames = self.videos.pop(video_idx)
+        dt = time.perf_counter() - start
+        if frames == 0 and image_pred is not None:
+            frames = len(image_pred)
+        self.total_frames += frames
         log.info("Video %s: %.2fs (%.1f FPS)",
                  video_metadata.get("name", video_idx), dt,
-                 self.frames / dt if dt > 0 else float("nan"))
+                 frames / dt if dt > 0 else float("nan"))
 
     def on_module_start(self, engine, task, dataloader):
         self.module_start[task] = time.perf_counter()

@@ -304,7 +304,7 @@ def run_fused_reid_video(detector, reid, tracker, loader, metadatas):
     D = detector.max_dets
     cfg = tracker._make_config()
     trk_D = cfg.max_dets
-    base_step = tracker._step3()
+    base_step = tracker._step_fn()
     min_conf = float(getattr(tracker, "min_confidence", 0.0))
     embed_dim = int(getattr(tracker, "embed_dim", 512))
 

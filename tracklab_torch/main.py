@@ -59,9 +59,6 @@ def build(cfg, device):
     from tracklab_torch.datastruct.tracker_state import TrackerState
     from tracklab_torch.pipeline.module import Pipeline
 
-    if cfg.get("visualization"):
-        raise NotImplementedError(
-            "visualization is not ported to tracklab_torch yet (ROADMAP)")
     dataset = instantiate(cfg["dataset"])
     evaluator = instantiate(cfg["eval"]) if cfg.get("eval") else None
     modules = [instantiate(cfg["modules"][name], device=device)
@@ -74,6 +71,9 @@ def build(cfg, device):
     callbacks = [instantiate(node)
                  for node in (cfg.get("callbacks") or {}).values()
                  if node is not None]
+    # the visualization engine runs as a callback after the state is saved
+    if cfg.get("visualization"):
+        callbacks.append(instantiate(cfg["visualization"]))
     engine = instantiate(cfg["engine"], tracker_state=tracker_state,
                          modules=modules, callbacks=callbacks, device=device)
     return dict(dataset=dataset, evaluator=evaluator, pipeline=pipeline,
@@ -82,10 +82,16 @@ def build(cfg, device):
 
 
 def evaluate(cfg, evaluator, tracker_state):
-    if (cfg.get("test_tracking", True) and evaluator is not None
+    """The evaluator's results, or None where there is nothing to hold the
+    tracks against (a dataset without ground truth, such as a user's own
+    video)."""
+    if not (cfg.get("test_tracking", True) and evaluator is not None
             and len(tracker_state.video_metadatas)):
-        return evaluator.run(tracker_state)
-    return None
+        return None
+    if len(tracker_state.detections_gt) == 0:
+        log.info("No ground truth in the evaluation set: not evaluated")
+        return None
+    return evaluator.run(tracker_state)
 
 
 def run(cfg):

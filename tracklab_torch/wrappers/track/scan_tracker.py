@@ -1,19 +1,32 @@
 """Tracker wrappers: the DataFrame boundary around the port's scan trackers
 (counterpart of tracklab_tpu.wrappers.track.scan_tracker).
 
-A tracker is a VideoLevelModule: the whole video's detections are padded
-into fixed-capacity tensors once (:func:`_pad_video`), the scan runs on the
+A tracker is a VideoLevelModule: each video's detections are padded into
+fixed-capacity tensors once (:func:`_pad_video`), the scan runs on the
 module's device, its emissions are read back once and joined onto the
 detection rows by row id (columns track_id, track_bbox_ltwh,
 track_bbox_conf). The embedding trackers (StrongSORT, BoT-SORT,
 Deep-OC-SORT) also take each row's ``embeddings`` and each frame's camera
-warp (the ``gmc_warp`` image column, or StrongSORT's own ECC). The JAX
-package's streaming (``process_online``) and multi-video
-(``process_video_batch``) modes wait for the video and batched engines.
+warp (the ``gmc_warp`` image column, or StrongSORT's own ECC).
+
+The scan is written over a leading video axis:
+
+* multi-video (``process_video_batch``, the batched engine): V videos are
+  padded to one frame bucket, stacked on the video axis and stepped
+  together, one ``*_scan_videos`` step per frame for all of them (the JAX
+  package time-concatenates them into one scan instead, for the TPU's
+  ``lax.cond`` costs, which the card does not have); ``process`` is its
+  V = 1 case;
+* streaming (``process_online``, the online engine): one step per frame
+  with the state kept on the device until ``reset()``; refs stay unique
+  across the stream, so a coasting track's stale ref still finds its row.
+  The frame's inputs go up without a host sync (pinned, non-blocking) and
+  its emissions come back in one readback, the mode's one sync per frame.
 """
 from __future__ import annotations
 
 import logging
+from types import SimpleNamespace
 
 import numpy as np
 import pandas as pd
@@ -21,11 +34,33 @@ import torch
 
 from tracklab_torch.device import resolve_device
 from tracklab_torch.pipeline.levels import VideoLevelModule
-from tracklab_torch.trackers.common import Detections
+from tracklab_torch.trackers.common import Detections, pad_detections
 
 log = logging.getLogger(__name__)
 
 __all__ = ["OCSORT", "ByteTrack", "StrongSORT", "BotSORT", "DeepOCSORT"]
+
+
+def _upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A host tensor on ``dev`` without a host sync: on CUDA through pinned
+    memory and a non-blocking copy."""
+    if dev.type != "cuda":
+        return x.to(dev)
+    return x.pin_memory().to(dev, non_blocking=True)
+
+
+def _move(inputs, dev):
+    """Scan inputs (each a Detections or a tensor) moved to ``dev``."""
+    return [Detections(*(f.to(dev) for f in x))
+            if isinstance(x, Detections) else x.to(dev) for x in inputs]
+
+
+def _stack_videos(per_video):
+    """Per-video scan inputs (each a Detections or a tensor) stacked on a
+    new leading video axis."""
+    return [Detections(*(torch.stack(f) for f in zip(*parts)))
+            if isinstance(parts[0], Detections) else torch.stack(parts)
+            for parts in zip(*per_video)]
 
 
 def _ltwh_to_ltrb(b):
@@ -133,6 +168,16 @@ class _ScanTrackerBase(VideoLevelModule):
         self.max_dets = max_dets
         self.n_frame_bucket = n_frame_bucket
         self.device = resolve_device(device)
+        self.reset()
+
+    def reset(self):
+        """Start a new stream: the next ``process_online`` begins a video
+        with a fresh tracker state."""
+        self._online_state = None
+        self._online_lut = {}
+        self._online_next_ref = 0
+        self._ecc_gmc = None
+        self._ecc_prev = None
 
     def _prefilter(self, detections: pd.DataFrame) -> pd.DataFrame:
         if len(detections):
@@ -142,7 +187,7 @@ class _ScanTrackerBase(VideoLevelModule):
     def _make_config(self):
         raise NotImplementedError
 
-    def _scan_fn(self):
+    def _scan_videos_fn(self):
         raise NotImplementedError
 
     def _init_state(self, cfg):
@@ -151,13 +196,23 @@ class _ScanTrackerBase(VideoLevelModule):
     def _step_fn(self):
         raise NotImplementedError
 
-    def _emissions_to_df(self, out, n_frames, lut):
-        """A scan's emissions (leading frame axis, on any device) -> the
-        output rows, read back in one go. A coasting track re-emits the
-        ref of its last match; the last emission of a row wins."""
+    def _video_inputs(self, detections, metadatas, n_frame_bucket):
+        """One video's scan inputs on the host (after the pre-filter), its
+        number of real frames and its ref lut."""
+        dets, n_frames, lut = _pad_video(
+            self._prefilter(detections), metadatas, self.max_dets,
+            n_frame_bucket, device="cpu")
+        return (dets,), n_frames, lut
+
+    @staticmethod
+    def _emissions_to_df(out, n_frames, lut):
+        """A scan's emissions (leading frame axis; tensors on any device or
+        numpy arrays) -> the output rows. A coasting track re-emits the ref
+        of its last match; the last emission of a row wins."""
         valid, track_id, ltrb, conf, ref = (
-            x[:n_frames].cpu().numpy() for x in
-            (out.valid, out.track_id, out.ltrb, out.conf, out.ref))
+            np.asarray(x[:n_frames].cpu() if torch.is_tensor(x)
+                       else x[:n_frames])
+            for x in (out.valid, out.track_id, out.ltrb, out.conf, out.ref))
         fs, ts = np.nonzero(valid)
         ok = ref[fs, ts] >= 0
         fs, ts = fs[ok], ts[ok]
@@ -171,13 +226,121 @@ class _ScanTrackerBase(VideoLevelModule):
 
     def process(self, detections: pd.DataFrame,
                 metadatas: pd.DataFrame) -> pd.DataFrame:
+        """One video: the V = 1 case of :meth:`process_video_batch`."""
         if len(detections) == 0:
             return detections
-        dets, n_frames, lut = _pad_video(
-            self._prefilter(detections), metadatas, self.max_dets,
-            self.n_frame_bucket, self.device)
-        _, out = self._scan_fn()(self._make_config(), dets)
-        return self._emissions_to_df(out, n_frames, lut)
+        return self.process_video_batch([(detections, metadatas)])[0]
+
+    # ------------------------------------------------------------------
+    # multi-video mode (the batched engine)
+    # ------------------------------------------------------------------
+    def process_video_batch(self, items):
+        """``items``: (detections, metadatas) of V videos. Every video is
+        padded to the common frame bucket (the smallest multiple of
+        ``n_frame_bucket`` that holds the longest), the V videos are
+        stacked on a leading video axis and stepped together, one
+        ``*_scan_videos`` step per frame in the tracker's configured mode,
+        and the emissions are read back once. Returns each video's output
+        rows, equal to its own ``process``."""
+        if not items:
+            return []
+        longest = max(len(m) for _, m in items)
+        bucket = max(-(-longest // self.n_frame_bucket)
+                     * self.n_frame_bucket, self.n_frame_bucket)
+        per_video = [self._video_inputs(d, m, bucket) for d, m in items]
+        inputs = _move(_stack_videos([p[0] for p in per_video]),
+                       self.device)
+        _, out = self._scan_videos_fn()(self._make_config(), *inputs)
+        fields = ("valid", "track_id", "ltrb", "conf", "ref")
+        host = [getattr(out, k).cpu().numpy() for k in fields]
+        return [self._emissions_to_df(
+                    SimpleNamespace(**{k: x[v] for k, x in zip(fields, host)}),
+                    n, lut)
+                for v, (_, n, lut) in enumerate(per_video)]
+
+    # ------------------------------------------------------------------
+    # streaming mode (the online engine)
+    # ------------------------------------------------------------------
+    def _truncate_frame(self, detections: pd.DataFrame) -> pd.DataFrame:
+        """A frame with more than ``max_dets`` rows keeps its most
+        confident ones, in confidence order: ``_pad_video``'s choice, so
+        streaming equals offline across an overflow."""
+        if len(detections) > self.max_dets:
+            log.warning("frame has %d detections > capacity %d; keeping "
+                        "the %d most confident", len(detections),
+                        self.max_dets, self.max_dets)
+            detections = detections.sort_values(
+                "bbox_conf", ascending=False).head(self.max_dets)
+        return detections
+
+    def _pad_frame(self, detections: pd.DataFrame):
+        """One frame's rows (already cut to ``max_dets``) -> Detections on
+        the module's device and the stream's lut from ref to row id.
+
+        Refs count up over the whole stream, so a coasting track's stale
+        ref still names its row. A valid emission's ref is at most
+        ``max_age`` frames old; refs older than that window are dropped
+        from the lut, which bounds it on an endless stream."""
+        window = (int(getattr(self._make_config(), "max_age", 100)) + 2) \
+            * self.max_dets
+        lut = self._online_lut
+        n = len(detections)
+        base = self._online_next_ref
+        if n:
+            for i, idx in enumerate(detections.index):
+                lut[base + i] = idx
+            self._online_next_ref = base + n
+            if len(lut) > 2 * window:
+                cutoff = self._online_next_ref - window
+                for k in [k for k in lut if k < cutoff]:
+                    del lut[k]
+            boxes = np.stack(detections["bbox_ltwh"].to_numpy())
+            cls = (pd.to_numeric(detections["category_id"], errors="coerce")
+                   .fillna(1.0).to_numpy()
+                   if "category_id" in detections else None)
+            det = pad_detections(
+                _ltwh_to_ltrb(boxes),
+                detections["bbox_conf"].to_numpy(np.float32), cls,
+                base + np.arange(n), capacity=self.max_dets, device="cpu")
+        else:
+            det = pad_detections(np.zeros((0, 4)), np.zeros(0),
+                                 capacity=self.max_dets, device="cpu")
+        return Detections(*(_upload(x, self.device) for x in det)), lut
+
+    @staticmethod
+    def _emit_online(out, lut) -> pd.DataFrame:
+        """One frame's emissions -> output rows, read back in one copy."""
+        host = torch.cat([out.ltrb.double()] + [
+            x[:, None].double() for x in (out.track_id, out.conf, out.ref,
+                                          out.valid)], 1).cpu().numpy()
+        ltrb, track_id, conf = host[:, :4], host[:, 4], host[:, 5]
+        ref, valid = host[:, 6].astype(np.int64), host[:, 7] > 0
+        keep = [t for t in np.nonzero(valid)[0]
+                if ref[t] >= 0 and ref[t] in lut]
+        result = pd.DataFrame(index=[lut[ref[t]] for t in keep])
+        result["track_id"] = track_id[keep]
+        result["track_bbox_ltwh"] = list(
+            _ltrb_to_ltwh(ltrb[keep].astype(np.float32)).astype(np.float32))
+        result["track_bbox_conf"] = conf[keep]
+        return result[~result.index.duplicated(keep="last")]
+
+    def _online_inputs(self, rows, det, metadata):
+        """The step's inputs for one frame."""
+        return det
+
+    def process_online(self, detections: pd.DataFrame,
+                       metadata: pd.Series) -> pd.DataFrame:
+        """Track one frame, carrying the tracker state across calls until
+        ``reset()``; returns the frame's output rows."""
+        cfg = self._make_config()
+        if self._online_state is None:
+            self._online_state = self._init_state(cfg)
+        rows = self._truncate_frame(self._prefilter(detections))
+        det, lut = self._pad_frame(rows)
+        self._online_state, out = self._step_fn()(
+            cfg, self._online_state,
+            self._online_inputs(rows, det, metadata))
+        return self._emit_online(out, lut)
 
 
 class OCSORT(_ScanTrackerBase):
@@ -205,9 +368,9 @@ class OCSORT(_ScanTrackerBase):
         from tracklab_torch.trackers.ocsort import OCSortConfig
         return OCSortConfig(**self.params)
 
-    def _scan_fn(self):
-        from tracklab_torch.trackers.ocsort import ocsort_scan
-        return ocsort_scan
+    def _scan_videos_fn(self):
+        from tracklab_torch.trackers.ocsort import ocsort_scan_videos
+        return ocsort_scan_videos
 
     def _init_state(self, cfg):
         from tracklab_torch.trackers.ocsort import ocsort_init
@@ -239,9 +402,9 @@ class ByteTrack(_ScanTrackerBase):
         from tracklab_torch.trackers.bytetrack import ByteTrackConfig
         return ByteTrackConfig(**self.params)
 
-    def _scan_fn(self):
-        from tracklab_torch.trackers.bytetrack import bytetrack_scan
-        return bytetrack_scan
+    def _scan_videos_fn(self):
+        from tracklab_torch.trackers.bytetrack import bytetrack_scan_videos
+        return bytetrack_scan_videos
 
     def _init_state(self, cfg):
         from tracklab_torch.trackers.bytetrack import bytetrack_init
@@ -265,12 +428,6 @@ class _EmbScanTrackerBase(_ScanTrackerBase):
     supports_fused_emb_track = True
 
     embed_dim = 512
-
-    def _scan3(self):
-        raise NotImplementedError
-
-    def _step3(self):
-        raise NotImplementedError
 
     def _video_warps(self, metadatas, n_frames, bucketed_frames):
         """The wrapper's warp policy: identity with ``cmc_off``, else
@@ -304,22 +461,61 @@ class _EmbScanTrackerBase(_ScanTrackerBase):
             prev = img
         return warps
 
-    def process(self, detections: pd.DataFrame,
-                metadatas: pd.DataFrame) -> pd.DataFrame:
-        if len(detections) == 0:
-            return detections
+    def _video_inputs(self, detections, metadatas, n_frame_bucket):
         dets_in = self._prefilter(detections)
         dets, n_frames, lut = _pad_video(dets_in, metadatas, self.max_dets,
-                                         self.n_frame_bucket, device="cpu")
+                                         n_frame_bucket, device="cpu")
         F = dets.valid.shape[0]
         emb = _collect_embeddings(dets_in, dets, lut, n_frames,
                                   self.embed_dim)
         warps = self._video_warps(metadatas, n_frames, F)
-        dev = self.device
-        _, out = self._scan3()(
-            self._make_config(), Detections(*(x.to(dev) for x in dets)),
-            torch.from_numpy(emb).to(dev), torch.from_numpy(warps).to(dev))
-        return self._emissions_to_df(out, n_frames, lut)
+        return ((dets, torch.from_numpy(emb), torch.from_numpy(warps)),
+                n_frames, lut)
+
+    def _online_emb(self, rows: pd.DataFrame):
+        """(max_dets, E) embeddings of one frame's rows, in their order: a
+        part layout gives its row 0; a row whose embedding is None stays
+        zero."""
+        emb = np.zeros((self.max_dets, self.embed_dim), np.float32)
+        if len(rows) and "embeddings" in rows.columns:
+            for i, e in enumerate(rows["embeddings"].to_numpy()
+                                  [:self.max_dets]):
+                if e is None:
+                    continue
+                e = np.asarray(e, np.float32)
+                if e.ndim == 2:
+                    e = e[0]
+                emb[i, :min(len(e), self.embed_dim)] = e[:self.embed_dim]
+        return emb
+
+    def _online_warp(self, metadata):
+        """One frame's camera warp, by ``_video_warps``'s policy: identity
+        with ``cmc_off``; StrongSORT's own ECC against the previous frame of
+        the stream when ``ecc`` is set and the frame has no ``gmc_warp``;
+        else that column (identity where absent)."""
+        eye = np.eye(2, 3, dtype=np.float32)
+        if getattr(self, "cmc_off", False) or metadata is None:
+            return eye
+        w = metadata.get("gmc_warp")
+        if isinstance(w, np.ndarray):
+            return w.astype(np.float32) if w.shape == (2, 3) else eye
+        if not getattr(self, "ecc", False):
+            return eye
+        from tracklab_torch.motion.gmc import GMC
+        from tracklab_torch.utils.cv2 import cv2_load_image
+        if self._ecc_gmc is None:
+            self._ecc_gmc = GMC(method="ecc")
+        img = cv2_load_image(metadata["file_path"])
+        w = self._ecc_gmc.apply(self._ecc_prev, img)
+        self._ecc_prev = img
+        return np.asarray(w, np.float32)
+
+    def _online_inputs(self, rows, det, metadata):
+        return (det,
+                _upload(torch.from_numpy(self._online_emb(rows)),
+                        self.device),
+                _upload(torch.from_numpy(self._online_warp(metadata)),
+                        self.device))
 
 
 class StrongSORT(_EmbScanTrackerBase):
@@ -346,11 +542,11 @@ class StrongSORT(_EmbScanTrackerBase):
         from tracklab_torch.trackers.strongsort import StrongSortConfig
         return StrongSortConfig(**self.params)
 
-    def _scan3(self):
-        from tracklab_torch.trackers.strongsort import strongsort_scan
-        return strongsort_scan
+    def _scan_videos_fn(self):
+        from tracklab_torch.trackers.strongsort import strongsort_scan_videos
+        return strongsort_scan_videos
 
-    def _step3(self):
+    def _step_fn(self):
         from tracklab_torch.trackers.strongsort import strongsort_step
         return strongsort_step
 
@@ -388,11 +584,11 @@ class BotSORT(_EmbScanTrackerBase):
         from tracklab_torch.trackers.botsort import BotSortConfig
         return BotSortConfig(**self.params)
 
-    def _scan3(self):
-        from tracklab_torch.trackers.botsort import botsort_scan
-        return botsort_scan
+    def _scan_videos_fn(self):
+        from tracklab_torch.trackers.botsort import botsort_scan_videos
+        return botsort_scan_videos
 
-    def _step3(self):
+    def _step_fn(self):
         from tracklab_torch.trackers.botsort import botsort_step
         return botsort_step
 
@@ -436,11 +632,11 @@ class DeepOCSORT(_EmbScanTrackerBase):
         from tracklab_torch.trackers.deepocsort import DeepOCSortConfig
         return DeepOCSortConfig(**self.params)
 
-    def _scan3(self):
-        from tracklab_torch.trackers.deepocsort import deepocsort_scan
-        return deepocsort_scan
+    def _scan_videos_fn(self):
+        from tracklab_torch.trackers.deepocsort import deepocsort_scan_videos
+        return deepocsort_scan_videos
 
-    def _step3(self):
+    def _step_fn(self):
         from tracklab_torch.trackers.deepocsort import deepocsort_step
         return deepocsort_step
 
