@@ -193,12 +193,31 @@ Then K3's f32 route per layer and the command line:
      on phase cli's (b) and phase cli_reid's (a) configurations, rows equal
      to their staged runs; (d) one video of (a) cut to 50 frames with
      visualization=save_videos and TorchProfiler: an mp4 of 50 frames, a
-     trace that names K1's and K3's kernels. Frames/s of every run.
+     trace that names K1's and K3's kernels. Frames/s of every run. Depth
+     here: (a)'s detector runs, (b)'s clips 60 frames, K1's plain check on
+     the last 4 solving launches.
+ 22. phase baseline: ``tracklab_torch.main.main`` in this process, (a)
+     BASELINE config 1, +experiment=mot17_ocsort on a MOT17-layout tree of
+     2 x 100 PNG frames of 1920 x 1080 the script writes, YOLOv8n 640 f32
+     (seeded) -> OC-SORT with calibrated thresholds, staged and fused:
+     rows equal, 0 host syncs in the fused program, K1 and ORU launched,
+     the first 8 frames equal to device=cpu (IoU >= 0.999, track ids);
+     then YOLO11m (modules/bbox_detector=yolo11) staged, against the CPU
+     the same way; (b) BASELINE config 4 as typed,
+     +experiment=soccernet_gamestate on a SoccerNetGS-layout tree (100
+     frames and Labels-GameState.json): GS-HOTA printed, K3 and K1
+     launched, what calibration emitted reported (nothing: no pitch
+     lines); (c) the calibrated game-state chain on the synthetic
+     game-state set (50 frames x 4 objects at 1920 x 1080): pitch
+     segmenter (K3) -> OSNet -> StrongSORT (K1) -> OCR -> vote -> TVCalib
+     (300 steps) -> projection: GS-HOTA > 80, every reprojection < 0.01,
+     TVCalibration seconds per 16 frames, PitchSegNet ms per 8 frames,
+     the cameras on the card against the CPU's.
 
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
-launches on its own path, and per run of phases cli_reid and engines under
-``launches_by_path``), and {"ok": true, "device": ...}.
+launches on its own path, and per run of phases cli_reid, engines and
+baseline under ``launches_by_path``), and {"ok": true, "device": ...}.
 """
 from __future__ import annotations
 
@@ -2693,9 +2712,11 @@ class _CliSplit:
     (the fused program, or the staged detector, ReID and tracker scan
     calls, each synchronised; the scans, single-video or over the batched
     engine's video axis, also apart), in camera-motion estimates
-    (GMC.apply), and in evaluation; host syncs counted inside the fused
-    program and inside the tracker scans (sync debug mode); frames through
-    the fused program. ``fired`` counts the calls each patch timed,
+    (GMC.apply), in the calibration modules (PitchLineDetector.process and
+    TVCalibration.process, each synchronised, TVCalibration's calls kept as
+    (frames, seconds)), and in evaluation (HOTA or GS-HOTA); host syncs
+    counted inside the fused program and inside the tracker scans (sync
+    debug mode); frames through the fused program. ``fired`` counts the calls each patch timed,
     so that a run can check that every patch it relies on saw its work (a
     patch that a refactor bypasses would move its time into "DataFrames and
     host" silently). A timed call inside another (OSNet inside the staged
@@ -2705,18 +2726,24 @@ class _CliSplit:
         import tracklab_torch.engine.fused as TF
         from tracklab_torch.datastruct.datapipe import PrefetchLoader
         from tracklab_torch.eval.evaluator import TrackEvalEvaluator
+        from tracklab_torch.eval.gs_evaluator import GameStateEvaluator
         from tracklab_torch.models.osnet import OSNet
         from tracklab_torch.motion.gmc import GMC
+        from tracklab_torch.wrappers.calibration_api import (
+            PitchLineDetector, TVCalibration)
         from tracklab_torch.wrappers.track.scan_tracker import \
             _ScanTrackerBase
 
         self.torch = torch
-        self.t = dict(loader=0.0, device=0.0, camera=0.0, eval=0.0)
+        self.t = dict(loader=0.0, device=0.0, camera=0.0, segmenter=0.0,
+                      calibration=0.0, eval=0.0)
         self.syncs, self.program_frames = 0, 0
         self.scan_s, self.scan_syncs = 0.0, 0
+        self.calibration_calls = []
         self.inside = self.busy = False
         self.fired = dict.fromkeys(("loader", "program", "detect", "embed",
-                                    "reid", "scan", "camera", "eval"), 0)
+                                    "reid", "scan", "camera", "segmenter",
+                                    "calibration", "eval"), 0)
         self.patches = [
             (PrefetchLoader, "__iter__", self._loader),
             (TF, "fused_detect_track", partial(self._program, frames_at=3)),
@@ -2727,7 +2754,10 @@ class _CliSplit:
             (OSNet, "forward", self._forward),
             (_ScanTrackerBase, "process_video_batch", self._tracker),
             (GMC, "apply", self._camera),
-            (TrackEvalEvaluator, "run", self._eval)]
+            (PitchLineDetector, "process", self._segmenter),
+            (TVCalibration, "process", self._calibration),
+            (TrackEvalEvaluator, "run", self._eval),
+            (GameStateEvaluator, "run", self._eval)]
 
     def __enter__(self):
         self.saved = [(o, n, getattr(o, n)) for o, n, _ in self.patches]
@@ -2827,6 +2857,22 @@ class _CliSplit:
             return self._timed("camera", "camera", orig, gmc, *a, **kw)
         return apply
 
+    def _segmenter(self, orig):
+        def process(module, *a, **kw):
+            return self._timed("segmenter", "segmenter", orig, module, *a,
+                               **kw)
+        return process
+
+    def _calibration(self, orig):
+        def process(module, batch, dets, metas):
+            before = self.t["calibration"]
+            out = self._timed("calibration", "calibration", orig, module,
+                              batch, dets, metas)
+            self.calibration_calls.append(
+                (len(metas), self.t["calibration"] - before))
+            return out
+        return process
+
     def _eval(self, orig):
         def run(evaluator, state):
             t0 = time.perf_counter()
@@ -2884,11 +2930,13 @@ def _cli_run(torch, args, timed, split=True):
     for key in timed:
         check(split.fired[key] > 0, f"cli {args}: the split's {key} patch "
               "timed nothing, so its time would count as host time")
-    host = (track_s - split.t["loader"] - split.t["device"]
-            - split.t["camera"])
+    host = track_s - sum(v for k, v in split.t.items() if k != "eval")
     stats = dict(frames=frames, track_dataset_s=track_s,
                  fps=frames / track_s, loader_s=split.t["loader"],
                  device_s=split.t["device"], camera_s=split.t["camera"],
+                 segmenter_s=split.t["segmenter"],
+                 calibration_s=split.t["calibration"],
+                 calibration_calls=split.calibration_calls,
                  dataframes_and_host_s=host,
                  eval_s=split.t["eval"], main_wall_s=wall,
                  tracker_scan_s=split.scan_s,
@@ -2923,12 +2971,13 @@ def _same_rows(a, b, what, box_col="bbox_ltwh"):
 
 
 def _calibrate_cli(torch, dev, n_objects, per_frame=25, born=15,
-                   img_wh=(1920, 1080), frames=None):
+                   img_wh=(1920, 1080), frames=None, detector=None):
     """The score thresholds that leave ~``per_frame`` detections per frame
     (detector and tracker pre-filter) and ~``born`` above the tracker's
-    birth threshold, from the seeded YOLOX-s (yolox.yaml) on ``frames``
-    (RGB uint8), by default the first 8 frames of the CLI's validation
-    video at ``img_wh``."""
+    birth threshold, from ``detector`` (built with min_confidence 0; by
+    default the seeded YOLOX-s of yolox.yaml) on ``frames`` (RGB uint8), by
+    default the first 8 frames of the CLI's validation video at
+    ``img_wh``."""
     from tracklab_torch.utils.cv2 import cv2_load_image
     from tracklab_torch.wrappers.bbox_detector.yolox_api import (
         YOLOXDetector, letterbox)
@@ -2940,7 +2989,7 @@ def _calibrate_cli(torch, dev, n_objects, per_frame=25, born=15,
                                img_h=img_wh[1])
         frames = [cv2_load_image(p) for p in s.image_metadatas["file_path"]]
     boxes = [letterbox(f, (640, 640)) for f in frames]
-    det = YOLOXDetector(min_confidence=0.0, device=dev)
+    det = detector or YOLOXDetector(min_confidence=0.0, device=dev)
     out = det.device_detect_fn()(
         torch.from_numpy(np.stack([b["image"] for b in boxes])).to(dev),
         {k: torch.from_numpy(np.stack([b[k] for b in boxes])).to(dev)
@@ -3780,6 +3829,582 @@ def phase_engines(torch, dev, card, keep, n_videos=8, n_frames=100,
     return stats, runs_launches
 
 
+# ------------------------------------------------------- phase baseline
+GS_BOOTSTRAP = ("state.load_from_groundtruth={detection: [bbox_ltwh, "
+                "bbox_conf, category_id, team_detection, team_confidence, "
+                "role_detection, role_confidence, jersey_number_detection, "
+                "jersey_number_confidence]}")
+
+
+def _write_pngs(frames, folder):
+    """RGB uint8 frames as lossless PNGs 000001.png .. in ``folder``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+
+    folder.mkdir(parents=True)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda f: cv2.imwrite(
+            str(folder / f"{f + 1:06d}.png"), frames[f][..., ::-1],
+            [cv2.IMWRITE_PNG_COMPRESSION, 1]), range(len(frames))))
+
+
+def _mot17_tree(torch, dev, root, n_videos, n_frames, n_objects,
+                wh=(1920, 1080)):
+    """A MOT17-layout validation split under ``root``: ``n_videos``
+    sequences of ``n_frames`` PNG frames of ``wh`` (phase 17's texture
+    panning by (+2, -1) px per frame, a seed per sequence), their
+    seqinfo.ini and a gt.txt of the synthetic set's boxes at that size.
+    Returns the first sequence's first 8 frames."""
+    from tracklab_torch.wrappers.dataset.synthetic import make_synthetic_set
+
+    w, h = wh
+    first = None
+    for v in range(n_videos):
+        seq = root / "MOT17" / "val" / f"MOT17-{2 * v + 2:02d}-FRCNN"
+        video = panning_video(torch, dev, n_frames, (h, w),
+                              seed=5 + v).cpu().numpy()
+        _write_pngs(video, seq / "img1")
+        (seq / "gt").mkdir()
+        (seq / "seqinfo.ini").write_text(
+            f"[Sequence]\nname={seq.name}\nimDir=img1\nframeRate=30\n"
+            f"seqLength={n_frames}\nimWidth={w}\nimHeight={h}\nimExt=.png\n")
+        gt = make_synthetic_set(n_videos=1, n_frames=n_frames,
+                                n_objects=n_objects, seed=3 + v, img_w=w,
+                                img_h=h).detections_gt
+        (seq / "gt" / "gt.txt").write_text("".join(
+            f"{f},{t},{b[0]:.3f},{b[1]:.3f},{b[2]:.3f},{b[3]:.3f},1,1,1.0\n"
+            for f, t, b in zip(gt["frame"], gt["track_id"],
+                               gt["bbox_ltwh"])))
+        first = video[:8] if first is None else first
+    return list(first)
+
+
+def _gamestate_tree(torch, dev, root, n_frames, n_objects, wh=(1920, 1080)):
+    """A SoccerNetGS-layout validation split under ``root``: one video of
+    ``n_frames`` PNG frames of ``wh`` (the panning texture) and its
+    Labels-GameState.json: image records, and object annotations from the
+    synthetic game-state set (boxes, bbox_pitch through its camera, role,
+    team and jersey)."""
+    from tracklab_torch.wrappers.dataset.synthetic import make_synthetic_set
+
+    w, h = wh
+    vdir = root / "SoccerNetGS" / "valid" / "SNGS-0001"
+    _write_pngs(panning_video(torch, dev, n_frames, (h, w),
+                              seed=11).cpu().numpy(), vdir / "img1")
+    gt = make_synthetic_set(n_videos=1, n_frames=n_frames,
+                            n_objects=n_objects, seed=4, img_w=w, img_h=h,
+                            game_state=True).detections_gt
+    images = [{"image_id": f"1{f:06d}", "file_name": f"{f:06d}.png",
+               "width": w, "height": h, "is_labeled": True}
+              for f in range(1, n_frames + 1)]
+    anns = [{"id": f"a{i}", "image_id": f"1{f:06d}", "track_id": int(t),
+             "supercategory": "object", "category_id": 1,
+             "bbox_image": {"x": float(b[0]), "y": float(b[1]),
+                            "w": float(b[2]), "h": float(b[3])},
+             "bbox_pitch": bp,
+             "attributes": {"role": r, "team": tm, "jersey": str(j)}}
+            for i, (f, t, b, bp, r, tm, j) in enumerate(zip(
+                gt["frame"], gt["track_id"], gt["bbox_ltwh"],
+                gt["bbox_pitch"], gt["role"], gt["team"],
+                gt["jersey_number"]))]
+    (vdir / "Labels-GameState.json").write_text(
+        json.dumps({"images": images, "annotations": anns}))
+
+
+class _SegmenterBeside:
+    """``PitchLineDetector.process`` with its ``pitch_lines`` emitted as
+    ``pitch_lines_seg``, so that TVCalibration reads the dataset's true
+    lines while the segmenter still runs; counts the lines it found."""
+
+    def __init__(self):
+        from tracklab_torch.wrappers.calibration_api import PitchLineDetector
+        self.cls, self.lines = PitchLineDetector, 0
+
+    def __enter__(self):
+        cls, orig = self.cls, self.cls.process
+        self.saved = (orig, cls.output_columns)
+
+        def process(module, batch, dets, metas):
+            import pandas as pd
+            out, rows = orig(module, batch, dets, metas)
+            self.lines += sum(len(r["pitch_lines"]) for r in rows)
+            return out, [pd.Series({"pitch_lines_seg": r["pitch_lines"]},
+                                   name=r.name) for r in rows]
+        cls.process = process
+        cls.output_columns = {"image": ["pitch_lines_seg"], "detection": []}
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.process, self.cls.output_columns = self.saved
+        return False
+
+
+def _pitchseg_vs_plain(torch, dev, n_frames=8):
+    """PitchLineDetector's segmenter (PitchSegNet-s at 288 x 512, seeded)
+    on ``n_frames`` textured frames (the panning texture at 1920 x 1080,
+    resized as the module does) on the card, routed as on the path and
+    with every CSPLayer plain (``_plain_csp``): each layer K3 takes (dark3
+    at 36 x 64, dark4 at 18 x 32) within phase_k3's f32 rel 1e-4 of its
+    plain layer on the same input; the logits within the same rel; the
+    class maps equal wherever the plain logits' top two are further apart
+    than twice the largest logit gap, and ``extract_segment_points`` equal
+    for every (frame, class) whose pixels agree; ms per batch; the outputs'
+    shapes against the CPU port."""
+    from tracklab_torch.kernels.csp import fused_csplayer
+    from tracklab_torch.models.segmentation import extract_segment_points
+    from tracklab_torch.models.yolox import CSP_MAX_PIXELS, CSPLayer
+    from tracklab_torch.wrappers.calibration_api import PitchLineDetector
+
+    det = PitchLineDetector(device=dev)
+    video = panning_video(torch, dev, n_frames, (1080, 1920),
+                          seed=13).cpu().numpy()
+    frames = np.stack([det.preprocess(f, None, None)["image"]
+                       for f in video])
+    x = torch.from_numpy(frames).to(dev)
+    det._build()
+    model, C = det._model, det.num_classes
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, name=name: seen.append((name, mod, inp[0], out)))
+        for name, m in model.named_modules() if isinstance(m, CSPLayer)]
+    before = fused_csplayer.launches
+    try:
+        with torch.no_grad():
+            logits = model(x)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    launched = fused_csplayer.launches - before
+    k3 = [(f"{name} {inp.shape[2]}x{inp.shape[3]}", mod, inp, out)
+          for name, mod, inp, out in seen
+          if not mod.depthwise and inp.shape[2] * inp.shape[3]
+          <= CSP_MAX_PIXELS]
+    check(launched == len(k3) > 0, f"PitchSegNet: {launched} K3 launches "
+          f"for {len(k3)} layers of <= {CSP_MAX_PIXELS} px")
+    with torch.no_grad():
+        layer_rel = {name: _rel(out, mod.forward_plain(inp))
+                     for name, mod, inp, out in k3}
+        with _plain_csp():
+            plain = model(x)
+    torch.cuda.synchronize()
+    logit_rel = _rel(logits, plain)
+    gap = (logits - plain).abs().max().item()
+    top2 = plain.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    cm = logits.argmax(-1).to(torch.int32)
+    cm_plain = plain.argmax(-1).to(torch.int32)
+    differ = cm != cm_plain
+    unexplained = int((differ & (margin > 2 * gap)).sum())
+    xy, valid = extract_segment_points(cm, C, det.points_per_line)
+    xy_p, valid_p = extract_segment_points(cm_plain, C,
+                                           det.points_per_line)
+    classes = torch.arange(1, C, device=dev, dtype=torch.int32)
+    same_px = ((cm[:, None] == classes[:, None, None])
+               == (cm_plain[:, None] == classes[:, None, None])).flatten(
+                   2).all(-1)                                 # (B, C-1)
+    points_equal = bool(
+        (xy[same_px] == xy_p[same_px]).all()
+        and (valid[same_px] == valid_p[same_px]).all())
+    seg_ms = cuda_ms(lambda: det.infer(x), reps=10)
+    got = det.infer(x)
+    want = PitchLineDetector(device="cpu").infer(torch.from_numpy(
+        frames[:2]))
+    shapes = [tuple(t.shape[1:]) for t in got]
+    stats = dict(k3_launches=launched, layer_rel=layer_rel,
+                 logit_rel=logit_rel, logit_max_abs_gap=gap,
+                 class_pixels_differ=int(differ.sum()),
+                 class_pixels_differ_unexplained=unexplained,
+                 class_pixels=int(cm.numel()),
+                 frame_classes_same_pixels=int(same_px.sum()),
+                 frame_classes=int(same_px.numel()),
+                 points_equal=points_equal, ms_per_batch=seg_ms,
+                 batch=n_frames, shapes=shapes)
+    log(f"PitchSegNet-s 288 x 512 on the card, {n_frames} textured frames, "
+        f"routed vs all CSPLayers plain: {stats}")
+    for name, r in layer_rel.items():
+        check(r <= 1e-4, f"PitchSegNet {name}: K3 rel {r} to its plain "
+              "layer (tol 1e-4)")
+    check(logit_rel <= 1e-4, f"PitchSegNet: logits rel {logit_rel} to the "
+          "plain forward (tol 1e-4)")
+    check(unexplained == 0, f"PitchSegNet: {unexplained} pixels change "
+          "class where the plain logits' top two are further apart than "
+          f"twice the largest gap {gap}")
+    check(points_equal, "PitchSegNet: extract_segment_points differs from "
+          "the plain forward's on a (frame, class) whose pixels agree")
+    check(shapes == [tuple(t.shape[1:]) for t in want], "PitchSegNet: "
+          "outputs differ in shape from the CPU port's")
+    return stats
+
+
+def _ridge(got, want):
+    """How far two lists of camera dicts part along the focal-distance
+    ridge: the correlation, over frames, of the relative focal gap with the
+    relative gap in the camera's distance from the pitch centre (a camera
+    that moves back along its view as its focal grows sees the pitch
+    nearly the same), and the largest of each."""
+    df = np.array([g["x_focal_length"] / w["x_focal_length"] - 1
+                   for g, w in zip(got, want)])
+    dd = np.array([np.linalg.norm(g["position_meters"])
+                   / np.linalg.norm(w["position_meters"]) - 1
+                   for g, w in zip(got, want)])
+    return dict(corr=float(np.corrcoef(df, dd)[0, 1]),
+                max_rel_focal=float(np.abs(df).max()),
+                max_rel_distance=float(np.abs(dd).max()))
+
+
+# the calibration test's bounds (tests/test_torch_calibration.py, 30 steps:
+# twice the spread a change of 1e-4 px in the observations gives)
+CAM_TOL = dict(pan_degrees=0.3, tilt_degrees=0.05, roll_degrees=0.6,
+               x_focal_length=0.5, y_focal_length=0.5)
+
+
+def _test_observations():
+    """tests/test_torch_calibration.py's observations: the synthetic
+    game-state camera at 640 x 360 panned by 0.05 rad per frame, 4 frames
+    of pitch lines with 0.5 px of noise from ``default_rng(0)``."""
+    from tracklab_torch.wrappers.dataset.synthetic import (_gs_camera,
+                                                           _gs_pitch_lines)
+    rng = np.random.default_rng(0)
+    return [_gs_pitch_lines(_gs_camera(640, 360, pan=0.05 * v), 640, 360,
+                            rng) for v in range(4)]
+
+
+def _cameras_apart(got, want):
+    """The largest gaps between two lists of camera dicts, per field, and
+    whether they keep the calibration test's bounds (the same hypothesis,
+    ``CAM_TOL``, position 0.4 m, errors 1e-2 relative)."""
+    gap = {k: max(abs(g[k] - w[k]) for g, w in zip(got, want))
+           for k in CAM_TOL}
+    gap["position_meters"] = max(float(np.abs(np.subtract(
+        g["position_meters"], w["position_meters"])).max())
+        for g, w in zip(got, want))
+    gap["loss_rel"] = max(abs(g["hypothesis_losses"][k]
+                              / w["hypothesis_losses"][k] - 1)
+                          for g, w in zip(got, want)
+                          for k in w["hypothesis_losses"])
+    same_type = all(g["camera_type"] == w["camera_type"]
+                    for g, w in zip(got, want))
+    ok = (same_type and all(gap[k] <= t for k, t in CAM_TOL.items())
+          and gap["position_meters"] <= 0.4 and gap["loss_rel"] <= 1e-2)
+    return gap, ok
+
+
+def phase_baseline(torch, dev, card, mot_videos=2, mot_frames=100,
+                   n_objects=24, gs_frames=100, chain_frames=50,
+                   prefix_frames=8):
+    """BASELINE configs 1 and 4 through ``tracklab_torch.main.main`` in this
+    process.
+
+    (a) Config 1, ``+experiment=mot17_ocsort data_dir=<tree>`` on a
+    MOT17-layout tree the script writes (``mot_videos`` x ``mot_frames``
+    PNG frames of 1920 x 1080, 24 objects in gt.txt): yolov8.yaml (YOLOv8n
+    640 f32, seeded weights) -> oc_sort.yaml, with the detector's and
+    tracker's thresholds calibrated as ``_calibrate_cli`` does; fused and
+    staged, rows equal, K1 and ORU launched and 0 host syncs inside the
+    fused program; the first ``prefix_frames`` frames on the card against
+    a device=cpu run, detections matched at IoU >= 0.999 and track ids
+    equal. Then the same tree staged with ``modules/bbox_detector=yolo11``
+    (YOLO11m, 80 classes), checked the same way against the CPU.
+    (b) Config 4 as a user types it, ``+experiment=soccernet_gamestate
+    data_dir=<tree>`` on a SoccerNetGS-layout tree (one video of
+    ``gs_frames`` PNG frames of 1920 x 1080 and its Labels-GameState.json):
+    YOLOX-s (K3) -> OSNet x1_0 on host crops -> sparse optical flow ->
+    StrongSORT (K1) -> TVCalibration -> PitchProjection -> jersey OCR ->
+    vote -> GS-HOTA. The run ends with GS-HOTA; what calibration emitted is
+    reported (nothing: no step of the pipeline fills ``pitch_lines``, a
+    reference fault kept, ROADMAP section 3).
+    (c) The calibrated game-state chain: the synthetic ``game_state`` set,
+    1 video x ``chain_frames`` x 4 objects at 1920 x 1080 (the object count
+    of tests/test_gsr_pipeline.py; with 8, boxes reach the far field, where
+    a calibration error of a few pixels moves a pitch position by metres,
+    and GS-HOTA fell to 78.3), bootstrapped from its ground truth
+    (tests/test_gsr_pipeline.py's columns without keypoints)
+    -> PitchLineDetector (PitchSegNet-s at 288 x 512, seeded, on the card
+    with K3; its output set beside the dataset's true pitch lines, which
+    TVCalibration reads) -> OSNetReIdBatched (osnet_batched.yaml) ->
+    StrongSORT -> jersey OCR -> vote (team, role, jersey) -> TVCalibration
+    (tvcalib.yaml: 300 steps, batches of 16) -> PitchProjection -> GS-HOTA
+    without jerseys: GS-HOTA > 80 and every frame's
+    relative_mean_reproj < 0.01 (tests/test_gsr_pipeline.py's bounds), K1
+    and K3 launched; TVCalibration's seconds per batch of 16 (``_CliSplit``
+    times both calibration modules). Then the segmenter's K3 layers against
+    their plain versions on textured frames (``_pitchseg_vs_plain``); and
+    the card's cameras against the CPU port's: the calibration test's case
+    (tests/test_torch_calibration.py: 4 frames at 640 x 360, 3 hypotheses,
+    30 steps) and the chain's first 16 frames at 30 steps within the test's
+    bounds, beside the card's own spread when 1e-4 px of noise is added to
+    the observations; the chain's own 300-step cameras with the same camera
+    types, the CPU's within 1 % of reprojection error too, pan and roll
+    within the test's bounds, and their gap along the focal-distance ridge
+    (``_ridge``) reported beside the card's own 300-step spread."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tracklab_torch.calibration.tvcalib import (TVCalibConfig,
+                                                    optimize_cameras)
+    from tracklab_torch.wrappers.bbox_detector import YOLOv8Detector
+
+    stats = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_baseline_"))
+    try:
+        # (a) config 1
+        t0 = time.perf_counter()
+        frames8 = _mot17_tree(torch, dev, tmp, mot_videos, mot_frames,
+                              n_objects)
+        log(f"baseline (a): wrote {mot_videos} x {mot_frames} PNG frames of "
+            f"1920 x 1080 in {time.perf_counter() - t0:.1f} s")
+        for name, group, kw in (
+                ("yolov8n", [], dict(variant="n", num_classes=1)),
+                ("yolo11m", ["modules/bbox_detector=yolo11"],
+                 dict(variant="11m", num_classes=80))):
+            det_thr, birth_thr = _calibrate_cli(
+                torch, dev, n_objects, frames=frames8,
+                detector=YOLOv8Detector(min_confidence=0.0, device=dev,
+                                        **kw))
+            args = ["use_rich=false", "+experiment=mot17_ocsort",
+                    f"data_dir={tmp}"] + group + [
+                f"modules.bbox_detector.min_confidence={det_thr}",
+                f"modules.track.min_confidence={det_thr}",
+                f"modules.track.det_thresh={birth_thr}"]
+            runs = {}
+            # staged first: a fresh process's first tracker scans sync
+            # (5 host syncs, then 0 once warm)
+            for fused in ((False, True) if name == "yolov8n" else (False,)):
+                run = f"{name}_{'fused' if fused else 'staged'}"
+                parts, res, launches, split = _cli_run(
+                    torch, args + [f"device={dev.type}",
+                                   f"engine.fused={str(fused).lower()}"],
+                    ("loader", "program", "eval") if fused
+                    else ("loader", "detect", "scan", "eval"))
+                pred = parts["tracker_state"].detections_pred
+                runs[fused] = pred
+                per_frame = len(pred) / split["frames"]
+                log(f"baseline (a) {run} on {card}: {split['frames']} "
+                    f"frames, {per_frame:.2f} detections/frame, "
+                    f"{split['fps']:.2f} frames/s of track_dataset "
+                    f"({split['track_dataset_s']:.2f} s: loader "
+                    f"{split['loader_s']:.2f}, device "
+                    f"{split['device_s']:.2f}, DataFrames and host "
+                    f"{split['dataframes_and_host_s']:.2f}; eval "
+                    f"{split['eval_s']:.2f}); HOTA "
+                    f"{res['COMBINED_SEQ']['HOTA']:.3f} with random weights;"
+                    f" launches {launches}; host syncs in the fused program "
+                    f"{split['host_syncs_in_fused_program']}")
+                check(5 <= per_frame <= 64,
+                      f"baseline (a) {run}: {per_frame:.2f} detections/frame")
+                for k in ("K1", "ORU"):
+                    check(launches[k] > 0, f"baseline (a) {run}: {k} never "
+                          "launched")
+                if fused:
+                    check(split["fused_program_frames"] >= split["frames"],
+                          "baseline (a): the fused program did not run")
+                    check(split["host_syncs_in_fused_program"] == 0,
+                          f"baseline (a): "
+                          f"{split['host_syncs_in_fused_program']} host "
+                          "syncs inside the fused program")
+                stats[run] = dict(split, launches=launches,
+                                  detections_per_frame=per_frame,
+                                  HOTA=res["COMBINED_SEQ"]["HOTA"],
+                                  min_confidence=det_thr,
+                                  det_thresh=birth_thr)
+            if name == "yolov8n":
+                _same_rows(runs[True], runs[False],
+                           "baseline (a) yolov8n fused vs staged")
+                log("baseline (a): YOLOv8n fused equals staged")
+            cpu_parts, _, _, cpu_split = _cli_run(
+                torch, args + ["device=cpu", f"dataset.nframes={prefix_frames}"],
+                ("loader", "detect", "scan", "eval"))
+            cpu_pred = cpu_parts["tracker_state"].detections_pred
+            m = _match_prefix(runs[False], cpu_pred,
+                              cpu_parts["tracker_state"].image_metadatas.index)
+            log(f"baseline (a) {name}: the first {prefix_frames} frames on "
+                f"the card against device=cpu ({cpu_split['fps']:.2f} "
+                f"frames/s): {m}")
+            check(m["matched"] == m["card_rows"] == m["cpu_rows"] > 0,
+                  f"baseline (a) {name}: detections differ from the CPU's: "
+                  f"{m}")
+            check(m["min_iou"] >= 0.999, f"baseline (a) {name}: a detection "
+                  f"matched the CPU's at IoU {m['min_iou']:.6f}")
+            check(m["other_track_ids"] == 0 and m["tracked_in_one"] == 0
+                  and m["tracked_in_both"] > 0,
+                  f"baseline (a) {name}: card and CPU tracks differ: {m}")
+            stats[f"{name}_cpu_prefix"] = dict(m, cpu_fps=cpu_split["fps"])
+
+        # (b) config 4 as typed
+        t0 = time.perf_counter()
+        _gamestate_tree(torch, dev, tmp, gs_frames, n_objects)
+        log(f"baseline (b): wrote {gs_frames} PNG frames of 1920 x 1080 and "
+            f"Labels-GameState.json in {time.perf_counter() - t0:.1f} s")
+        bare = ["+experiment=soccernet_gamestate", f"data_dir={tmp}"]
+        # as typed on the card; a rehearsal on the CPU names its device
+        parts, res, launches, split = _cli_run(
+            torch, bare + ([] if dev.type == "cuda" else ["device=cpu"]),
+            ("loader", "detect", "reid", "camera", "scan", "calibration",
+             "eval"))
+        st = parts["tracker_state"]
+        pred, images = st.detections_pred, st.image_pred
+        params = (int(images["parameters"].notna().sum())
+                  if "parameters" in images else 0)
+        pitched = (int(pred["bbox_pitch"].notna().sum())
+                   if "bbox_pitch" in pred else 0)
+        c = res["COMBINED_SEQ"]
+        log(f"baseline (b) {' '.join(bare)} on {card}: {split['frames']} "
+            f"frames, {len(pred) / split['frames']:.2f} detections/frame, "
+            f"{split['fps']:.2f} frames/s of track_dataset "
+            f"({split['track_dataset_s']:.2f} s: loader "
+            f"{split['loader_s']:.2f}, device {split['device_s']:.2f}, "
+            f"camera motion {split['camera_s']:.2f}, calibration "
+            f"{split['calibration_s']:.2f}, DataFrames and host "
+            f"{split['dataframes_and_host_s']:.2f}; eval "
+            f"{split['eval_s']:.2f}); GS-HOTA {c['GS-HOTA']:.3f}; "
+            f"calibration emitted {params} camera rows in "
+            f"{len(split['calibration_calls'])} calls, {pitched} of "
+            f"{len(pred)} detections got bbox_pitch; launches {launches}")
+        check(len(pred) > 0 and launches["K3"] > 0 and launches["K1"] > 0,
+              "baseline (b): the experiment did not run its detector and "
+              "tracker on the card")
+        stats["gamestate_as_typed"] = dict(
+            split, launches=launches, GS_HOTA=c["GS-HOTA"],
+            calibrated_frames=params, detections_with_bbox_pitch=pitched,
+            detections=len(pred))
+
+        # (c) the calibrated game-state chain
+        chain = [
+            "use_rich=false", f"device={dev.type}", "dataset.n_videos=1",
+            f"dataset.n_frames={chain_frames}", "dataset.n_objects=4",
+            "+dataset.game_state=true",
+            "pipeline=[pitch_seg, reid, track, jersey, vote, calibration, "
+            "projection]",
+            "+modules.pitch_seg._target_=tracklab_torch.wrappers."
+            "calibration_api.PitchLineDetector",
+            "+modules/reid=osnet_batched", "modules/track=strong_sort",
+            "+modules.jersey._target_=tracklab_torch.wrappers.jersey."
+            "JerseyNumberOCR",
+            "+modules.vote._target_=tracklab_torch.wrappers.tracklet_agg."
+            "MajorityVoteTracklet",
+            "+modules.vote.attributes=[team, role, jersey_number]",
+            "+modules/calibration=tvcalib",
+            "+modules.projection._target_=tracklab_torch.wrappers."
+            "calibration_api.PitchProjection",
+            "eval=gs_hota", "eval.use_jerseys=false", GS_BOOTSTRAP]
+        with _SegmenterBeside() as seg:
+            parts, res, launches, split = _cli_run(
+                torch, chain, ("loader", "embed", "scan", "segmenter",
+                               "calibration", "eval"))
+        st = parts["tracker_state"]
+        pred, images = st.detections_pred, st.image_pred
+        c = res["COMBINED_SEQ"]
+        reproj = [p["relative_mean_reproj"] for p in images["parameters"]]
+        full = [t for n, t in split["calibration_calls"] if n == 16]
+        per16 = float(np.mean(full)) if full else float("nan")
+        seg_batches = split["patch_calls"]["segmenter"]
+        log(f"baseline (c) the game-state chain on {card}: "
+            f"{split['frames']} frames, {split['fps']:.2f} frames/s of "
+            f"track_dataset ({split['track_dataset_s']:.2f} s: loader "
+            f"{split['loader_s']:.2f}, device {split['device_s']:.2f}, "
+            f"segmenter {split['segmenter_s']:.2f}, calibration "
+            f"{split['calibration_s']:.2f}, DataFrames and host "
+            f"{split['dataframes_and_host_s']:.2f}; eval "
+            f"{split['eval_s']:.2f}); GS-HOTA {c['GS-HOTA']:.3f}, "
+            f"CLR_FN {c['CLR_FN']}, IDSW {c['IDSW']}; relative_mean_reproj "
+            f"max {max(reproj):.5f}; TVCalibration {per16:.3f} s per batch "
+            f"of 16 frames (calls {split['calibration_calls']}); "
+            f"PitchLineDetector {split['segmenter_s']:.3f} s over "
+            f"{seg_batches} batches ({seg.lines} lines found by the seeded "
+            f"segmenter); launches {launches}")
+        check(len(reproj) == chain_frames, f"baseline (c): {len(reproj)} "
+              "calibrated frames")
+        check(c["GS-HOTA"] > 80.0, f"baseline (c): GS-HOTA {c['GS-HOTA']}")
+        check(max(reproj) < 0.01, f"baseline (c): relative_mean_reproj "
+              f"{max(reproj)}")
+        check(int(pred["bbox_pitch"].notna().sum()) > 0,
+              "baseline (c): no detection projected onto the pitch")
+        for k in ("K1", "K3"):
+            check(launches[k] > 0, f"baseline (c): {k} never launched")
+
+        # the segmenter's K3 layers at the path's shapes against their
+        # plain versions, on textured frames
+        seg_check = _pitchseg_vs_plain(torch, dev)
+
+        # cameras on the card against the CPU: the calibration test's case
+        # (4 frames at 640 x 360, 3 hypotheses, 30 steps) and the chain's
+        # first 16 frames at 30 steps within the test's bounds; at 300
+        # steps (the chain's own cameras) the same camera types and both
+        # within 1 % of reprojection error, pan and roll within the test's
+        # bounds, and how far they part along the focal-distance ridge
+        # beside the card's own spread there under 1e-4 px of noise
+        test_obs = _test_observations()
+        cfg = TVCalibConfig(steps=30, image_width=640, image_height=360,
+                            camera_types=("main_center", "main_left",
+                                          "main_behind"))
+        card_test = optimize_cameras(test_obs, cfg, device=dev)[0]
+        gap_test, ok_test = _cameras_apart(
+            card_test, optimize_cameras(test_obs, cfg, device="cpu")[0])
+        # the descent's own spread on the card: 1e-4 px of noise added to
+        # the observations, three draws, against the unperturbed run
+        rng = np.random.default_rng(0)
+
+        def noisy(obs):
+            return [{k: (v + rng.normal(0, 1e-4, v.shape)).astype(np.float32)
+                     for k, v in o.items()} for o in obs]
+        spread = [_cameras_apart(optimize_cameras(
+            noisy(test_obs), cfg, device=dev)[0], card_test)[0]
+            for _ in range(3)]
+        spread = {k: max(g[k] for g in spread) for k in spread[0]}
+        gt_lines = list(images.sort_values("frame")["pitch_lines"][:16])
+        cfg30 = TVCalibConfig(steps=30)
+        gap30, ok30 = _cameras_apart(
+            optimize_cameras(gt_lines, cfg30, device=dev)[0],
+            optimize_cameras(gt_lines, cfg30, device="cpu")[0])
+        cpu300, cpu_err = optimize_cameras(gt_lines, TVCalibConfig(),
+                                           device="cpu")
+        card300 = list(images.sort_values("frame")["parameters"][:16])
+        gap300, _ = _cameras_apart(card300, cpu300)
+        spread300 = optimize_cameras(noisy(gt_lines), TVCalibConfig(),
+                                     device=dev)[0]
+        ridge300 = _ridge(card300, cpu300)
+        own300 = dict(_cameras_apart(spread300, card300)[0],
+                      **_ridge(spread300, card300))
+        log(f"baseline (c): cameras, card vs CPU: the calibration test's "
+            f"case {gap_test} (the card's own spread under 1e-4 px of "
+            f"noise: {spread}); the chain's 16 frames at 30 steps {gap30} "
+            f"(within the test's bounds: {ok30}); at 300 steps {gap300}, "
+            f"along the focal-distance ridge {ridge300}, CPU "
+            f"relative_mean_reproj max {float(np.max(cpu_err)):.5f} (the "
+            f"card's own 300-step spread under 1e-4 px of noise: {own300})")
+        check(ok_test, f"baseline (c): card and CPU cameras part on the "
+              f"calibration test's case: {gap_test}")
+        check(ok30, f"baseline (c): card and CPU cameras part on the "
+              f"chain's 16 frames at 30 steps: {gap30}")
+        check(all(g["camera_type"] == w["camera_type"]
+                  for g, w in zip(card300, cpu300))
+              and float(np.max(cpu_err)) < 0.01
+              and all(gap300[k] <= CAM_TOL[k]
+                      for k in ("pan_degrees", "roll_degrees")),
+              f"baseline (c): at 300 steps the card's and the CPU's cameras "
+              f"differ off the focal-distance ridge: {gap300}, CPU error "
+              f"{float(np.max(cpu_err))}")
+        stats["gamestate_chain"] = dict(
+            split, launches=launches, GS_HOTA=c["GS-HOTA"],
+            CLR_FN=c["CLR_FN"], IDSW=c["IDSW"],
+            max_relative_mean_reproj=max(reproj),
+            tvcalib_s_per_16_frames=per16,
+            pitch_seg_batches=seg_batches, pitch_seg_vs_plain=seg_check,
+            cameras_card_vs_cpu_test_case=gap_test,
+            cameras_card_spread_under_1e_4_px=spread,
+            cameras_card_vs_cpu_30_steps=gap30,
+            cameras_card_vs_cpu_300_steps=gap300,
+            cameras_300_ridge=ridge300,
+            cameras_card_spread_300_steps=own300,
+            cpu_max_relative_mean_reproj_300=float(np.max(cpu_err)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return stats
+
+
 def phase_k3_routes_f32(torch, dev, batch=8, size=640):
     """K3's f32 route for each dense CSPLayer of YOLOX-s at ``size``, batch
     ``batch`` (the CLI detector's shapes): the planner's route, K3's time
@@ -3913,7 +4538,10 @@ def main() -> int:
     keep = {}
     cli_stats = phase_cli(torch, dev, smi, keep=keep)
     reid_cli = phase_cli_reid(torch, dev, smi, keep=keep)
-    engines, engine_runs = phase_engines(torch, dev, smi, keep)
+    engines, engine_runs = phase_engines(torch, dev, smi, keep,
+                                         n_frames=60, file_frames=60,
+                                         reid_frames=60, k1_keep=4)
+    baseline = phase_baseline(torch, dev, smi)
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -3934,7 +4562,11 @@ def main() -> int:
                      for k in ("fused", "staged", "experiment_bare",
                                "experiment",
                                "deep_oc_sort", "bot_sort")}
-    by_path = dict(cli_reid_runs, **engine_runs)
+    baseline_runs = {f"baseline_{k}": baseline[k]["launches"]
+                     for k in ("yolov8n_fused", "yolov8n_staged",
+                               "yolo11m_staged", "gamestate_as_typed",
+                               "gamestate_chain")}
+    by_path = dict(cli_reid_runs, **engine_runs, **baseline_runs)
     for entry, key in zip((k1, k2, k3, k4, oru, oru_nkf), _CLI_COUNTERS):
         entry["launches_by_path"] = {run: n[key]
                                      for run, n in by_path.items()}
@@ -3946,6 +4578,7 @@ def main() -> int:
                       "kpr_check": kpr_stats, "yolox_l_x": lx_stats,
                       "k3_f32_yolox_s_640_b8": k3_f32, "cli": cli_stats,
                       "cli_reid": reid_cli, "engines": engines,
+                      "baseline": baseline,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,

@@ -72,8 +72,9 @@ def test_port_imports_in_a_clean_interpreter():
 # modules of the ReID slice, the ORU replay kernels, the Deep-OC-SORT /
 # BoT-SORT / camera-motion slice, the command line's host layers and its
 # ReID wrappers and MOT-format datasets, the batched, pipelined and online
-# engines with their datasets, callbacks and visualization, which the
-# checks above must cover
+# engines with their datasets, callbacks and visualization, and the
+# YOLOv8 / YOLO11 and game-state modules (calibration, pitch segmentation,
+# jersey OCR, SoccerNet, GS-HOTA), which the checks above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
@@ -124,7 +125,22 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/visualization/tracking.py",
                  "tracklab_torch/visualization/visualizer.py",
                  "tracklab_torch/visualization/visualization_engine.py",
-                 "tracklab_torch/utils/notebook.py")
+                 "tracklab_torch/utils/notebook.py",
+                 "tracklab_torch/models/yolov8.py",
+                 "tracklab_torch/models/yolo11.py",
+                 "tracklab_torch/models/segmentation.py",
+                 "tracklab_torch/wrappers/bbox_detector/yolov8_api.py",
+                 "tracklab_torch/calibration/__init__.py",
+                 "tracklab_torch/calibration/pitch.py",
+                 "tracklab_torch/calibration/camera.py",
+                 "tracklab_torch/calibration/cam_distr.py",
+                 "tracklab_torch/calibration/tvcalib.py",
+                 "tracklab_torch/wrappers/calibration_api.py",
+                 "tracklab_torch/wrappers/jersey/__init__.py",
+                 "tracklab_torch/wrappers/jersey/ocr_api.py",
+                 "tracklab_torch/wrappers/dataset/soccernet.py",
+                 "tracklab_torch/eval/gs_metrics.py",
+                 "tracklab_torch/eval/gs_evaluator.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

@@ -46,11 +46,15 @@ __all__ = ["make_yolox_detect_fn", "fused_detect_track",
 
 def make_yolox_detect_fn(model, conf_threshold: float = 0.4,
                          iou_threshold: float = 0.65, max_dets: int = 32,
-                         compute_dtype=torch.float32):
-    """Build ``detect_fn(frames, meta) -> Detections`` for a YOLOX model
-    (``predict`` gives decoded (B, A, 5+C) maps from raw 0-255 input).
+                         compute_dtype=torch.float32, preproc=None):
+    """Build ``detect_fn(frames, meta) -> Detections`` for a YOLO-family
+    model whose ``predict`` gives decoded (B, A, 5+C) maps: YOLOX (raw 0-255
+    input) and YOLOv8/YOLO11 (``preproc=lambda x: x / 255.0``); each
+    wrapper's ``device_detect_fn`` passes its staged path's normalisation, so
+    that fused equals staged.
 
-    ``frames``: (B, H, W, 3) uint8, cast to ``compute_dtype`` on the device.
+    ``frames``: (B, H, W, 3) uint8, cast to ``compute_dtype`` on the device,
+    then ``preproc`` applied where given.
     ``meta``: optional per-frame letterbox dict with ``scale`` (B,), ``pad``
     (B, 2) [left, top] and ``shape`` (B, 2) [w0, h0]; when given, boxes are
     mapped to original-image coordinates with the host wrapper's order of
@@ -59,6 +63,8 @@ def make_yolox_detect_fn(model, conf_threshold: float = 0.4,
 
     def detect(frames, meta=None) -> Detections:
         imgs = frames.to(compute_dtype)
+        if preproc is not None:
+            imgs = preproc(imgs)
         with torch.no_grad():
             decoded = model.predict(imgs)
             d = postprocess_detections(decoded, conf_threshold=conf_threshold,

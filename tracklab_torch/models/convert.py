@@ -9,7 +9,10 @@ the same for the KPR ``{"params", "batch_stats"}`` tree and
 ``models.kpr.KPR``. ``osnet_from_flax`` builds a ``models.osnet.OSNet``
 from the JAX package's OSNet tree, and ``convert_osnet_torch`` loads a
 torchreid OSNet state dict (the name map of the JAX package's
-``convert_osnet_torch``, kept as the port's own copy).
+``convert_osnet_torch``, kept as the port's own copy). ``yolov8_from_flax``
+and ``yolo11_from_flax`` carry the JAX package's YOLOv8 / YOLO11 trees into
+``models.yolov8.YOLOv8`` / ``models.yolo11.YOLO11``, and
+``convert_yolov8_torch`` loads an ultralytics state dict into either.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ from tracklab_torch.device import resolve_device
 
 __all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
            "state_dict_from_flax", "kpr_from_flax", "kpr_torch_key",
-           "osnet_from_flax", "osnet_torch_key", "convert_osnet_torch"]
+           "osnet_from_flax", "osnet_torch_key", "convert_osnet_torch",
+           "yolov8_from_flax", "yolo11_from_flax", "convert_yolov8_torch",
+           "pitchsegnet_from_flax"]
 
 _LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var"}
@@ -172,3 +177,72 @@ def convert_osnet_torch(state_dict, model):
                          f"mismatch {bad[:10]}")
     model.load_state_dict(sd, strict=False)
     return model
+
+
+def yolov8_from_flax(variables) -> dict:
+    """Flax YOLOv8 variables -> the ultralytics-named state dict that
+    ``models.yolov8.YOLOv8`` loads with ``strict=True`` (the JAX package's
+    ``_yolov8_torch_key``: module names spell '.' as '__'; depthwise
+    kernels (3, 3, 1, C) become (C, 1, 3, 3))."""
+    return state_dict_from_flax(variables)
+
+
+# YOLO11's flax names follow the same ultralytics map
+yolo11_from_flax = yolov8_from_flax
+
+
+# the DFL projection: the fixed arange(reg_max) kernel, computed as math in
+# decode_v8 (head index 22 in v8 checkpoints, 23 in yolo11)
+_YOLO_UNUSED = ("model.22.dfl.", "model.23.dfl.")
+
+
+def convert_yolov8_torch(state_dict, model):
+    """Load an ultralytics YOLOv8 or YOLO11 state dict (tensors or numpy
+    arrays) into ``model`` and return it. A ``model.model.`` prefix is
+    stripped and a missing ``model.`` prefix added (the JAX package's
+    ``convert_yolov8_torch``); the DFL projection and BN's
+    ``num_batches_tracked`` are dropped. Raises on any other missing or
+    unused tensor, or a shape mismatch."""
+    sd = {(k[len("model.model."):] if k.startswith("model.model.") else k): v
+          for k, v in state_dict.items()}
+    if not any(k.startswith("model.") for k in sd):
+        sd = {f"model.{k}": v for k, v in sd.items()}
+    sd = {k: torch.as_tensor(np.asarray(v, dtype=np.float32))
+          for k, v in sd.items()
+          if not k.startswith(_YOLO_UNUSED)
+          and not k.endswith("num_batches_tracked")}
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd]
+    unused = [k for k in sd if k not in own]
+    bad = [k for k in sd if k in own and sd[k].shape != own[k].shape]
+    if missing or unused or bad:
+        raise ValueError(f"ultralytics YOLO state dict does not fit: missing "
+                         f"{missing[:10]}, unused {unused[:10]}, shape "
+                         f"mismatch {bad[:10]}")
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+# flax auto-names of PitchSegNet's submodules -> the port's attributes
+_SEG_NAMES = {"CSPDarknet_0": "backbone", "ASPP_0": "aspp",
+              "ConvBnAct_0": "low", "ConvBnAct_1": "fuse", "Conv_0": "cls"}
+_ASPP_NAMES = {"ConvBnAct_0": "b0", "ConvBnAct_1": "pool",
+               "ConvBnAct_2": "project"}
+
+
+def _seg_key(path) -> str:
+    coll, top, *rest = path
+    if top == "ASPP_0" and rest[0] not in _ASPP_NAMES:
+        kind, i = rest[0].rsplit("_", 1)        # Conv_i / BatchNorm_i
+        rest = [f"atrous__{i}", "conv" if kind == "Conv" else "bn"] \
+            + rest[1:]
+    elif top == "ASPP_0":
+        rest = [_ASPP_NAMES[rest[0]]] + rest[1:]
+    return module_torch_key((coll, _SEG_NAMES[top], *rest))
+
+
+def pitchsegnet_from_flax(variables) -> dict:
+    """Flax PitchSegNet variables (the JAX package's
+    ``models.segmentation.PitchSegNet``) -> the state dict that
+    ``models.segmentation.PitchSegNet`` loads with ``strict=True``."""
+    return state_dict_from_flax(variables, _seg_key)

@@ -51,17 +51,19 @@ class BatchNorm(nn.Module):
     """Inference batch norm in f32 with the flax formula
     ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. Holds exactly
     weight/bias/running_mean/running_var (no num_batches_tracked), the keys
-    of the converted checkpoints."""
+    of the converted checkpoints. ``eps`` is the detectors' 1e-3 unless
+    given (flax's default BatchNorm uses 1e-5)."""
 
-    def __init__(self, c):
+    def __init__(self, c, eps=BN_EPS):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.eps = eps
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         sh = (1, -1, 1, 1)
         return ((x.float() - self.running_mean.view(sh)) * mul.view(sh)
                 + self.bias.view(sh))

@@ -94,14 +94,24 @@ class YOLOXDetector(ImageLevelModule):
         self._detect = None
         self.id = 0  # global detection row id
 
-    def _build(self):
+    def _make_model(self):
         from tracklab_torch.models.yolox import YOLOX
-        model = YOLOX(num_classes=self.num_classes, variant=self.variant,
-                      device=self.device)
+        return YOLOX(num_classes=self.num_classes, variant=self.variant,
+                     device=self.device)
+
+    def _load_state(self, model, state):
+        model.load_state_dict(state, strict=True)
+
+    # the family's input scale, applied on the card after the cast to f32:
+    # YOLOX reads raw 0-255 pixels
+    _preproc = None
+
+    def _build(self):
+        model = self._make_model()
         if self.checkpoint_path:
             state = torch.load(self.checkpoint_path, map_location="cpu",
                                weights_only=True)
-            model.load_state_dict(state, strict=True)
+            self._load_state(model, state)
         else:
             log.warning("%s: no checkpoint_path given — running with "
                         "random weights", type(self).__name__)
@@ -119,7 +129,7 @@ class YOLOXDetector(ImageLevelModule):
         return make_yolox_detect_fn(
             self._model, conf_threshold=self.min_confidence,
             iou_threshold=self.nms_iou, max_dets=self.max_dets,
-            compute_dtype=torch.float32)
+            compute_dtype=torch.float32, preproc=self._preproc)
 
     @staticmethod
     def crop_meta(meta):

@@ -7,3 +7,6 @@ from tracklab_torch.wrappers.dataset.mot_like import (  # noqa
 from tracklab_torch.wrappers.dataset.external_video import (  # noqa
     ExternalVideo,
 )
+from tracklab_torch.wrappers.dataset.soccernet import (  # noqa
+    SoccerNetGameState, SoccerNetMOT,
+)
