@@ -194,8 +194,8 @@ Then K3's f32 route per layer and the command line:
      to their staged runs; (d) one video of (a) cut to 50 frames with
      visualization=save_videos and TorchProfiler: an mp4 of 50 frames, a
      trace that names K1's and K3's kernels. Frames/s of every run. Depth
-     here: (a)'s detector runs, (b)'s clips 60 frames, K1's plain check on
-     the last 4 solving launches.
+     here: (a)'s detector runs, (b)'s clips 40 frames, K1's plain check on
+     the last 2 solving launches.
  22. phase baseline: ``tracklab_torch.main.main`` in this process, (a)
      BASELINE config 1, +experiment=mot17_ocsort on a MOT17-layout tree of
      2 x 100 PNG frames of 1920 x 1080 the script writes, YOLOv8n 640 f32
@@ -204,7 +204,7 @@ Then K3's f32 route per layer and the command line:
      the first 8 frames equal to device=cpu (IoU >= 0.999, track ids);
      then YOLO11m (modules/bbox_detector=yolo11) staged, against the CPU
      the same way; (b) BASELINE config 4 as typed,
-     +experiment=soccernet_gamestate on a SoccerNetGS-layout tree (100
+     +experiment=soccernet_gamestate on a SoccerNetGS-layout tree (60
      frames and Labels-GameState.json): GS-HOTA printed, K3 and K1
      launched, what calibration emitted reported (nothing: no pitch
      lines); (c) the calibrated game-state chain on the synthetic
@@ -214,10 +214,31 @@ Then K3's f32 route per layer and the command line:
      TVCalibration seconds per 16 frames, PitchSegNet ms per 8 frames,
      the cameras on the card against the CPU's.
 
+ 23. phase pose, the pose-tracking slice with seeded weights: (a) BASELINE
+     config 3 as typed, +experiment=sportsmot_pose on a SportsMOT-layout
+     tree of 2 x 60 PNG frames of 1280 x 720 the script writes (depth cut;
+     the pose model's threshold calibrated to ~15 detections a frame):
+     YOLOXPose-s 640 (K3) -> OSNet x1_0 with keypoint prompts (8 input
+     channels) -> BPBReID-StrongSORT with OKS motion (K1): frames/s and
+     its split, syncs in the tracker scans per frame, the first 8 frames
+     equal to device=cpu (IoU >= 0.999, track ids), K1 on the stage's own
+     inputs against its plain solver; (b) bottom-up -> OC-SORT on the tree,
+     fused (run_fused_bottomup_video) equal to staged (boxes, keypoints
+     within 1e-3, ids), 0 syncs in the fused program; (c) 2 x 60 synthetic
+     640 frames -> YOLOX-s -> TopDownPoseBatched (TopDownPose-s 256 x 192)
+     -> OC-SORT fused (run_fused_pose_video) equal to staged, 0 syncs in
+     the fused program; YOLOX-s -> ViTPose-small on host crops -> OC-SORT
+     staged, and ViTPose-small's heatmaps on the card within 1e-4 of the
+     CPU's; (d) K3 at YOLOXPose-s's and TopDownPose-s's CSPLayers within
+     1e-5 of the plain layers' scale and rel 1e-4 element by element (both
+     within 1e-4 of f64), each model's maps within 1e-4 of its all-plain
+     forward.
+
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
-launches on its own path, and per run of phases cli_reid, engines and
-baseline under ``launches_by_path``), and {"ok": true, "device": ...}.
+launches on its own path, and per run of phases cli_reid, engines,
+baseline and pose under ``launches_by_path``), and {"ok": true, "device":
+...}.
 """
 from __future__ import annotations
 
@@ -2709,9 +2730,10 @@ def _timed_sync_count(torch, fn, *a, **kw):
 class _CliSplit:
     """Where a CLI run's host wall time goes: seconds blocked on the
     loader (decode, letterbox and crops on its threads), in device programs
-    (the fused program, or the staged detector, ReID and tracker scan
-    calls, each synchronised; the scans, single-video or over the batched
-    engine's video axis, also apart), in camera-motion estimates
+    (the fused program, or the staged detector, ReID, pose and tracker scan
+    calls, each synchronised and also kept per stage in ``s_by``; the
+    scans, single-video or over the batched engine's video axis, also
+    apart), in camera-motion estimates
     (GMC.apply), in the calibration modules (PitchLineDetector.process and
     TVCalibration.process, each synchronised, TVCalibration's calls kept as
     (frames, seconds)), and in evaluation (HOTA or GS-HOTA); host syncs
@@ -2731,6 +2753,8 @@ class _CliSplit:
         from tracklab_torch.motion.gmc import GMC
         from tracklab_torch.wrappers.calibration_api import (
             PitchLineDetector, TVCalibration)
+        from tracklab_torch.wrappers.pose_estimator import \
+            TopDownPoseEstimator
         from tracklab_torch.wrappers.track.scan_tracker import \
             _ScanTrackerBase
 
@@ -2742,15 +2766,25 @@ class _CliSplit:
         self.calibration_calls = []
         self.inside = self.busy = False
         self.fired = dict.fromkeys(("loader", "program", "detect", "embed",
-                                    "reid", "scan", "camera", "segmenter",
-                                    "calibration", "eval"), 0)
+                                    "reid", "pose", "scan", "camera",
+                                    "segmenter", "calibration", "eval"), 0)
+        # seconds of the synchronised calls per patch key (detect, embed,
+        # reid, pose, ...): the device split by stage
+        self.s_by = dict.fromkeys(self.fired, 0.0)
         self.patches = [
             (PrefetchLoader, "__iter__", self._loader),
             (TF, "fused_detect_track", partial(self._program, frames_at=3)),
             (TF, "fused_detect_reid_track",
              partial(self._program, frames_at=4)),
+            (TF, "fused_bottomup_track", partial(self._program, frames_at=3)),
+            (TF, "fused_detect_pose_track",
+             partial(self._program, frames_at=4)),
             (TF, "make_yolox_detect_fn", partial(self._staged_fn, "detect")),
+            (TF, "make_bottomup_detect_fn",
+             partial(self._staged_fn, "detect")),
             (TF, "make_osnet_embed_fn", partial(self._staged_fn, "embed")),
+            (TF, "make_topdown_pose_fn", partial(self._staged_fn, "pose")),
+            (TopDownPoseEstimator, "process", self._pose),
             (OSNet, "forward", self._forward),
             (_ScanTrackerBase, "process_video_batch", self._tracker),
             (GMC, "apply", self._camera),
@@ -2783,6 +2817,7 @@ class _CliSplit:
         finally:
             self.busy = False
         self.t[key] += time.perf_counter() - t0
+        self.s_by[fired] += time.perf_counter() - t0
         return out
 
     def _loader(self, orig):
@@ -2826,12 +2861,18 @@ class _CliSplit:
             return self._timed("device", "reid", orig, model, images)
         return forward
 
+    def _pose(self, orig):
+        def process(module, *a, **kw):
+            return self._timed("device", "pose", orig, module, *a, **kw)
+        return process
+
     def _scan(self, fn, *a, **kw):
         """A tracker scan, synchronised and timed as device work, with the
         host syncs inside it counted."""
         self.fired["scan"] += 1
         out, dt, syncs = _timed_sync_count(self.torch, fn, *a, **kw)
         self.t["device"] += dt
+        self.s_by["scan"] += dt
         self.scan_s += dt
         self.scan_syncs += syncs
         return out
@@ -2943,7 +2984,9 @@ def _cli_run(torch, args, timed, split=True):
                  host_syncs_in_scans=split.scan_syncs,
                  host_syncs_in_fused_program=split.syncs,
                  fused_program_frames=split.program_frames,
-                 patch_calls=dict(split.fired))
+                 patch_calls=dict(split.fired),
+                 device_s_by_stage={k: v for k, v in split.s_by.items()
+                                    if v})
     return parts, results, launches, stats
 
 
@@ -2975,7 +3018,8 @@ def _calibrate_cli(torch, dev, n_objects, per_frame=25, born=15,
     """The score thresholds that leave ~``per_frame`` detections per frame
     (detector and tracker pre-filter) and ~``born`` above the tracker's
     birth threshold, from ``detector`` (built with min_confidence 0; by
-    default the seeded YOLOX-s of yolox.yaml) on ``frames`` (RGB uint8), by
+    default the seeded YOLOX-s of yolox.yaml, or a bottom-up pose module)
+    on ``frames`` (RGB uint8), by
     default the first 8 frames of the CLI's validation video at
     ``img_wh``."""
     from tracklab_torch.utils.cv2 import cv2_load_image
@@ -2994,6 +3038,8 @@ def _calibrate_cli(torch, dev, n_objects, per_frame=25, born=15,
         torch.from_numpy(np.stack([b["image"] for b in boxes])).to(dev),
         {k: torch.from_numpy(np.stack([b[k] for b in boxes])).to(dev)
          for k in ("scale", "pad", "shape")})
+    if not hasattr(out, "conf"):          # a bottom-up pose detector's
+        out = out[0]                        # (Detections, keypoints)
     scores = [np.sort(c[v].cpu().numpy())[::-1]
               for c, v in zip(out.conf, out.valid)]
     check(min(len(x) for x in scores) > per_frame + 1,
@@ -3163,13 +3209,17 @@ def _dancetrack_tree(torch, dev, root, n_frames, wh=(1920, 1080),
 
 
 def _iou_ltwh(a, b):
-    """(n, 4) x (m, 4) ltwh boxes -> (n, m) IoU."""
+    """(n, 4) x (m, 4) ltwh boxes -> (n, m) IoU; two boxes of zero area (a
+    pose box whose keypoints lie beyond the frame's edge, clipped to it)
+    have IoU 1 where they lie within 1e-3 of each other, else 0."""
     a_lo, a_hi = a[:, None, :2], a[:, None, :2] + a[:, None, 2:]
     b_lo, b_hi = b[None, :, :2], b[None, :, :2] + b[None, :, 2:]
     inter = np.clip(np.minimum(a_hi, b_hi) - np.maximum(a_lo, b_lo), 0,
                     None).prod(-1)
     area = a[:, None, 2:].prod(-1) + b[None, :, 2:].prod(-1) - inter
-    return inter / np.maximum(area, 1e-9)
+    same = np.abs(a[:, None, :] - b[None, :, :]).max(-1) <= 1e-3
+    return np.where(area > 1e-9, inter / np.maximum(area, 1e-9),
+                    same.astype(float))
 
 
 def _match_prefix(card, cpu, image_ids):
@@ -4405,6 +4455,364 @@ def phase_baseline(torch, dev, card, mot_videos=2, mot_frames=100,
     return stats
 
 
+# ------------------------------------------------------------ phase pose
+def _sportsmot_tree(root, n_videos, n_frames, n_objects, wh=(1280, 720)):
+    """A SportsMOT-layout validation split under ``root``: ``n_videos``
+    sequences of ``n_frames`` PNG frames of ``wh``, the synthetic set's
+    renders (``n_objects`` players as coloured blocks on a dark field, a
+    seed per sequence), their seqinfo.ini and gt.txt. Returns the first
+    sequence's first 8 frames. (On the panning texture of the MOT17 tree
+    the seeded YOLOXPose-s scores highest on the letterbox's grey bands,
+    whose keypoints map outside the frame: boxes of zero height.)"""
+    from tracklab_torch.utils.cv2 import cv2_load_image
+    from tracklab_torch.wrappers.dataset.synthetic import make_synthetic_set
+
+    w, h = wh
+    first = None
+    for v in range(n_videos):
+        seq = root / "SportsMOT" / "val" / f"v_{v:02d}_c001"
+        s = make_synthetic_set(n_videos=1, n_frames=n_frames,
+                               n_objects=n_objects, seed=3 + v, img_w=w,
+                               img_h=h)
+        frames = [cv2_load_image(p) for p in s.image_metadatas["file_path"]]
+        _write_pngs(frames, seq / "img1")
+        (seq / "gt").mkdir()
+        (seq / "seqinfo.ini").write_text(
+            f"[Sequence]\nname={seq.name}\nimDir=img1\nframeRate=25\n"
+            f"seqLength={n_frames}\nimWidth={w}\nimHeight={h}\n"
+            "imExt=.png\n")
+        gt = s.detections_gt
+        (seq / "gt" / "gt.txt").write_text("".join(
+            f"{f},{t},{b[0]:.3f},{b[1]:.3f},{b[2]:.3f},{b[3]:.3f},1,1,1.0\n"
+            for f, t, b in zip(gt["frame"], gt["track_id"],
+                               gt["bbox_ltwh"])))
+        first = frames[:8] if first is None else first
+    return first
+
+
+def _split_line(split):
+    return (f"{split['frames']} frames, {split['fps']:.2f} frames/s of "
+            f"track_dataset ({split['track_dataset_s']:.2f} s: loader "
+            f"{split['loader_s']:.2f}, device {split['device_s']:.2f}, "
+            f"DataFrames and host {split['dataframes_and_host_s']:.2f}; eval "
+            f"{split['eval_s']:.2f})")
+
+
+def _same_keypoints(a, b, what, atol=1e-3):
+    """The rows' keypoints (K, 3) within ``atol`` (px and confidence);
+    returns the largest difference."""
+    ka = np.stack(a["keypoints_xyc"].to_numpy())
+    kb = np.stack(b["keypoints_xyc"].to_numpy())
+    check(ka.shape == kb.shape, f"{what}: keypoint shapes {ka.shape} and "
+          f"{kb.shape}")
+    d = float(np.abs(ka - kb).max())
+    check(d <= atol, f"{what}: keypoints {d:.2e} apart")
+    return d
+
+
+def _csp_vs_plain(torch, model, x, what, fwd=None):
+    """Every CSPLayer of ``model`` that K3 takes (dense, <= 80 x 80 on the
+    card) against its plain layer on the layer's own input from one forward
+    of ``x``: K3 within 1e-5 of the plain layer's scale (its largest
+    magnitude) and within phase 4's f32 rel 1e-4 element by element
+    (``_rel``), and each of the two within rel 1e-4 of the layer in f64
+    (``_plain_f64``), their distances reported; and the whole forward
+    against the all-plain one (each output map within 1e-4 of its scale).
+    Returns the layers (name, H x W, gap over the scale, rel to plain, K3's
+    and plain's rel to f64) and the maps' largest gap over their scale."""
+    from tracklab_torch.models.yolox import CSP_MAX_PIXELS, CSPLayer
+
+    fwd = fwd or model
+    taken = []
+    hooks = [mod.register_forward_pre_hook(
+        lambda mod, inp, name=name: taken.append((name, mod, inp[0].clone())))
+        for name, mod in model.named_modules() if isinstance(mod, CSPLayer)]
+    with torch.no_grad():
+        try:
+            routed = fwd(x)
+        finally:
+            for h in hooks:
+                h.remove()
+        with _plain_csp():
+            plain = fwd(x)
+        layers = []
+        for name, mod, inp in taken:
+            H, W = inp.shape[2:]
+            if mod.depthwise or H * W > CSP_MAX_PIXELS:
+                continue
+            got, plain_l = mod(inp), mod.forward_plain(inp)
+            f64 = _plain_f64(torch, mod, inp)
+            rs = float((got.float() - plain_l.float()).abs().max()
+                       / plain_l.float().abs().max())
+            r, rk, rp = (_rel(got, plain_l), _rel(got, f64),
+                         _rel(plain_l, f64))
+            check(rs <= 1e-5 and r <= 1e-4 and rk <= 1e-4 and rp <= 1e-4,
+                  f"{what}: K3 at {name} ({H}x{W}) {rs:.2e} of the plain "
+                  f"layer's scale, rel {r:.2e}, {rk:.2e} (plain {rp:.2e}) "
+                  "from f64")
+            layers.append((name, f"{H}x{W}", rs, r, rk, rp))
+    maps = 0.0
+    for g, w in zip(routed if isinstance(routed, (list, tuple))
+                    else [routed], plain if isinstance(plain, (list, tuple))
+                    else [plain]):
+        maps = max(maps, float((g.float() - w.float()).abs().max()
+                               / w.float().abs().max()))
+    check(maps <= 1e-4, f"{what}: the routed maps {maps:.2e} of their scale "
+          "from the all-plain forward")
+    check(len(layers) > 0, f"{what}: no CSPLayer for K3")
+    log(f"{what}: K3 at {len(layers)} layers, gap over the plain layer's "
+        f"scale / rel to it / K3 to f64 / plain to f64: " + "; ".join(
+            f"{n} {hw} {rs:.2e} / {r:.2e} / {rk:.2e} / {rp:.2e}"
+            for n, hw, rs, r, rk, rp in layers)
+        + f"; the maps {maps:.2e} of their scale from the all-plain forward")
+    return dict(layers=layers, maps_rel=maps)
+
+
+def phase_pose(torch, dev, card, n_videos=2, n_frames=60, n_objects=24,
+               prefix_frames=8, topdown_frames=60):
+    """The pose-tracking slice through ``tracklab_torch.main.main`` in this
+    process, with seeded weights.
+
+    (a) BASELINE config 3 as typed, ``+experiment=sportsmot_pose
+    data_dir=<tree>``, on a SportsMOT-layout tree the script writes
+    (``n_videos`` x ``n_frames`` PNG frames of 1280 x 720, the synthetic
+    set's renders of ``n_objects`` players; real sequences run several
+    hundred frames: a depth cut):
+    bottomup.yaml (YOLOXPose-s 640, 17 keypoints, K3) -> osnet.yaml with
+    use_keypoints (OSNet x1_0, 8 input channels, 6 parts, 512-d, host
+    crops and prompts) -> bpbreid_strong_sort.yaml with OKS motion (128
+    tracks, 64 dets, K1); the pose model's threshold calibrated to ~15
+    detections a frame. frames/s and its split, host syncs in the tracker
+    scans per frame; the first ``prefix_frames`` frames against a
+    device=cpu run (detections at IoU >= 0.999, the same track ids); K1 on
+    the run's own tracker inputs against its plain solver.
+    (b) Bottom-up -> OC-SORT on the same tree, engine.fused true
+    (``run_fused_bottomup_video``) and false: the same rows, boxes within
+    rtol 1e-4 / atol 1e-3, keypoints within 1e-3, track ids equal; 0 host
+    syncs inside the fused program.
+    (c) Top-down: 2 synthetic 640 x 640 videos x ``topdown_frames`` ->
+    YOLOX-s (calibrated) -> topdown_batched.yaml (TopDownPose-s 256 x 192,
+    work size 640 x 640, 64 slots, batch 8 as the detector's) -> OC-SORT,
+    fused (``run_fused_pose_video``) and staged with cuDNN deterministic,
+    the same checks; then the
+    detector -> vitpose.yaml (ViTPose-small on host crops through
+    TopDownPoseEstimator) -> OC-SORT staged, and ViTPose-small's heatmaps
+    on the card against the CPU's on 8 crops (f32, within 1e-4 of their
+    scale).
+    (d) K3 at YOLOXPose-s's CSPLayers (8 letterboxed frames of the tree)
+    and at TopDownPose-s's (8 crops of 256 x 192) against the plain layers,
+    each model's maps against its all-plain forward (``_csp_vs_plain``).
+
+    Returns the stats; each run's kernel launches under its name."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tracklab_torch.trackers.bpbreid_strongsort import (bpbreid_init,
+                                                            bpbreid_step)
+    from tracklab_torch.trackers.common import Detections
+    from tracklab_torch.wrappers.bbox_detector.yolox_api import letterbox
+    from tracklab_torch.wrappers.pose_estimator import BottomUpPoseEstimator
+
+    stats = {}
+    cpu_dev = ["device=cpu"] if dev.type == "cpu" else []
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pose_"))
+    try:
+        t0 = time.perf_counter()
+        frames8 = _sportsmot_tree(tmp, n_videos, n_frames, n_objects)
+        log(f"pose: wrote {n_videos} x {n_frames} PNG frames of 1280 x 720 "
+            f"in {time.perf_counter() - t0:.1f} s")
+        pose_thr, pose_born = _calibrate_cli(
+            torch, dev, n_objects, per_frame=15, born=10, frames=frames8,
+            detector=BottomUpPoseEstimator(min_confidence=0.0, device=dev))
+        log(f"pose: calibrated YOLOXPose-s min_confidence {pose_thr}, "
+            f"birth {pose_born}")
+
+        # (a) config 3 as typed, its threshold calibrated
+        args = ["use_rich=false", "+experiment=sportsmot_pose",
+                f"data_dir={tmp}",
+                f"modules.pose_estimator.min_confidence={pose_thr}"]
+        parts, res, launches, split = _cli_run(
+            torch, args + cpu_dev, ("loader", "detect", "reid", "scan",
+                                    "eval"))
+        pred = parts["tracker_state"].detections_pred
+        per_frame = len(pred) / split["frames"]
+        syncs = split["host_syncs_in_scans"] / split["frames"]
+        log(f"pose (a) config 3 on {card}: {_split_line(split)}; "
+            f"tracker scans {split['tracker_scan_s']:.2f} s, device by "
+            f"stage {split['device_s_by_stage']}; "
+            f"{per_frame:.2f} detections/frame, {pred['track_id'].nunique()} "
+            f"tracks, HOTA {res['COMBINED_SEQ']['HOTA']:.3f} with random "
+            f"weights; host syncs in the tracker scans {syncs:.3f} per "
+            f"frame; launches {launches}")
+        check(5 <= per_frame <= 64, f"pose (a): {per_frame:.2f} "
+              "detections/frame")
+        check(np.stack(pred["embeddings"].to_numpy()).shape[1:] == (7, 512),
+              "pose (a): the part embeddings are not (7, 512)")
+        for k in ("K3", "K1"):
+            check(launches[k] > 0, f"pose (a): {k} never launched")
+        stats["config3"] = dict(split, launches=launches,
+                                detections_per_frame=per_frame,
+                                scan_syncs_per_frame=syncs,
+                                HOTA=res["COMBINED_SEQ"]["HOTA"],
+                                min_confidence=pose_thr)
+        cpu_parts, _, _, cpu_split = _cli_run(
+            torch, args + ["device=cpu", f"dataset.nframes={prefix_frames}"],
+            ("loader", "detect", "reid", "scan", "eval"))
+        m = _match_prefix(pred, cpu_parts["tracker_state"].detections_pred,
+                          cpu_parts["tracker_state"].image_metadatas.index)
+        log(f"pose (a): the first {prefix_frames} frames on the card against "
+            f"device=cpu ({cpu_split['fps']:.2f} frames/s): {m}")
+        check(m["matched"] == m["card_rows"] == m["cpu_rows"] > 0,
+              f"pose (a): detections differ from the CPU's: {m}")
+        check(m["min_iou"] >= 0.999, f"pose (a): a detection matched the "
+              f"CPU's at IoU {m['min_iou']:.6f}")
+        check(m["other_track_ids"] == 0 and m["tracked_in_one"] == 0
+              and m["tracked_in_both"] > 0,
+              f"pose (a): card and CPU tracks differ: {m}")
+        stats["config3_cpu_prefix"] = dict(m, cpu_fps=cpu_split["fps"])
+        # K1 on the run's own tracker inputs (the first video), untimed
+        trk = parts["modules"][2]
+        images = parts["tracker_state"].image_metadatas
+        v0 = images[images["video_id"] == images["video_id"].iloc[0]]
+        ins, n, _ = trk._video_inputs(pred[pred["image_id"].isin(v0.index)],
+                                      v0, trk.n_frame_bucket)
+        dets, *rest = ins
+        dets = Detections(*(x.to(dev) for x in dets))
+        rest = [x.to(dev) for x in rest]
+        cfg = trk._make_config()
+        stats["k1_on_bpbreid_path"] = _k1_on_path(
+            torch, partial(bpbreid_step, cfg), bpbreid_init(cfg, device=dev),
+            [(Detections(*(x[f] for x in dets)),) + tuple(x[f] for x in rest)
+             for f in range(n)], n_keep=16, what="config 3's BPBReID stage")
+
+        # (b) bottom-up -> OC-SORT, fused against staged
+        bu = ["use_rich=false", f"device={dev.type}", "dataset=sportsmot",
+              f"data_dir={tmp}", "pipeline=[pose_estimator,track]",
+              "+modules/pose_estimator=bottomup", "modules/track=oc_sort",
+              f"modules.pose_estimator.min_confidence={pose_thr}",
+              f"modules.track.min_confidence={pose_thr}",
+              f"modules.track.det_thresh={pose_born}"]
+        runs = {}
+        for fused in (False, True):         # staged first: warm scans
+            name = f"bottomup_{'fused' if fused else 'staged'}"
+            parts, res, launches, split = _cli_run(
+                torch, bu + [f"engine.fused={str(fused).lower()}"],
+                ("loader", "program", "eval") if fused
+                else ("loader", "detect", "scan", "eval"))
+            runs[fused] = parts["tracker_state"].detections_pred
+            log(f"pose (b) {name} on {card}: {_split_line(split)}; launches "
+                f"{launches}; host syncs in the fused program "
+                f"{split['host_syncs_in_fused_program']}")
+            for k in ("K3", "K1"):
+                check(launches[k] > 0, f"pose (b) {name}: {k} never "
+                      "launched")
+            if fused:
+                check(split["fused_program_frames"] >= split["frames"],
+                      "pose (b): the fused program did not run")
+                check(split["host_syncs_in_fused_program"] == 0,
+                      f"pose (b): {split['host_syncs_in_fused_program']} "
+                      "host syncs inside the fused program")
+            stats[name] = dict(split, launches=launches)
+        _same_rows(runs[True], runs[False], "pose (b) fused vs staged")
+        stats["bottomup_keypoints_max_diff"] = _same_keypoints(
+            runs[True], runs[False], "pose (b) fused vs staged")
+        log("pose (b): bottom-up fused equals staged (keypoints within "
+            f"{stats['bottomup_keypoints_max_diff']:.2e})")
+
+        # (d) K3 at YOLOXPose-s's layers, on the tree's letterboxed frames
+        bu_model = parts["modules"][0]._model
+        x = torch.from_numpy(np.stack([letterbox(f, (640, 640))["image"]
+                                       for f in frames8])).to(dev).float()
+        stats["k3_yoloxpose_s"] = _csp_vs_plain(torch, bu_model, x,
+                                                "pose (d) YOLOXPose-s 640")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) top-down, fused against staged, then ViTPose-small staged
+    det_thr, det_born = _calibrate_cli(torch, dev, n_objects,
+                                       img_wh=(640, 640))
+    td = ["use_rich=false", f"device={dev.type}",
+          "pipeline=[bbox_detector,pose_estimator,track]",
+          "+modules/bbox_detector=yolox", "modules/track=oc_sort",
+          f"modules.bbox_detector.min_confidence={det_thr}",
+          f"modules.track.min_confidence={det_thr}",
+          f"modules.track.det_thresh={det_born}", "dataset.n_videos=2",
+          f"dataset.n_frames={topdown_frames}",
+          f"dataset.n_objects={n_objects}", "dataset.img_w=640",
+          "dataset.img_h=640"]
+    batched = ["+modules/pose_estimator=topdown_batched",
+               "modules.pose_estimator.work_size=[640,640]",
+               "modules.pose_estimator.max_dets=64",
+               "modules.pose_estimator.batch_size=8"]
+    runs = {}
+    # deterministic cuDNN for the two runs: TopDownPose's deconvs are
+    # cuDNN backward-data convolutions, some of whose algorithms add with
+    # atomics, and a heatmap's near-tie argmax can then move a keypoint by
+    # a stride (4.71 px between the two runs once on the card)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fused in (False, True):
+            name = f"topdown_{'fused' if fused else 'staged'}"
+            parts, res, launches, split = _cli_run(
+                torch, td + batched + [f"engine.fused={str(fused).lower()}"],
+                ("loader", "program", "eval") if fused
+                else ("loader", "detect", "pose", "scan", "eval"))
+            runs[fused] = parts["tracker_state"].detections_pred
+            log(f"pose (c) {name} on {card}: {_split_line(split)}; launches "
+                f"{launches}; host syncs in the fused program "
+                f"{split['host_syncs_in_fused_program']}")
+            for k in ("K3", "K1"):
+                check(launches[k] > 0, f"pose (c) {name}: {k} never launched")
+            if fused:
+                check(split["fused_program_frames"] >= split["frames"],
+                      "pose (c): the fused program did not run")
+                check(split["host_syncs_in_fused_program"] == 0,
+                      f"pose (c): {split['host_syncs_in_fused_program']} host "
+                      "syncs inside the fused program")
+            stats[name] = dict(split, launches=launches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    _same_rows(runs[True], runs[False], "pose (c) fused vs staged")
+    stats["topdown_keypoints_max_diff"] = _same_keypoints(
+        runs[True], runs[False], "pose (c) fused vs staged")
+    log("pose (c): top-down fused equals staged (keypoints within "
+        f"{stats['topdown_keypoints_max_diff']:.2e})")
+    td_model = parts["modules"][1]._model
+    g = torch.Generator(device=dev).manual_seed(7)
+    crops = torch.randint(0, 256, (8, 256, 192, 3), generator=g,
+                          device=dev).float() / 255.0
+    stats["k3_topdownpose_s"] = _csp_vs_plain(
+        torch, td_model.backbone, td_model._nchw(crops),
+        "pose (d) TopDownPose-s 256 x 192", fwd=lambda _: td_model(crops))
+
+    parts, res, launches, split = _cli_run(
+        torch, td + ["+modules/pose_estimator=vitpose",
+                     "engine.fused=false"],
+        ("loader", "detect", "pose", "scan", "eval"))
+    pred = parts["tracker_state"].detections_pred
+    kp = np.stack(pred["keypoints_xyc"].to_numpy())
+    log(f"pose (c) ViTPose-small staged on {card}: {_split_line(split)}; "
+        f"{len(pred)} rows with keypoints {kp.shape[1:]}; launches "
+        f"{launches}")
+    check(np.isfinite(kp).all() and kp.shape[1:] == (17, 3),
+          "pose (c): ViTPose-small keypoints")
+    stats["vitpose_staged"] = dict(split, launches=launches)
+    vit = parts["modules"][1]._model
+    with torch.no_grad():
+        want = vit(crops).float()
+        got = vit.to("cpu")(crops.cpu()).float()
+    vit.to(dev)
+    d = float((got - want.cpu()).abs().max() / want.abs().max())
+    log(f"pose (c): ViTPose-small heatmaps on {card} {d:.2e} of their scale "
+        "from the CPU's")
+    check(d <= 1e-4, f"pose (c): ViTPose-small on the card {d:.2e} from the "
+          "CPU")
+    stats["vitpose_card_vs_cpu"] = d
+    return stats
+
+
 def phase_k3_routes_f32(torch, dev, batch=8, size=640):
     """K3's f32 route for each dense CSPLayer of YOLOX-s at ``size``, batch
     ``batch`` (the CLI detector's shapes): the planner's route, K3's time
@@ -4538,10 +4946,17 @@ def main() -> int:
     keep = {}
     cli_stats = phase_cli(torch, dev, smi, keep=keep)
     reid_cli = phase_cli_reid(torch, dev, smi, keep=keep)
+    # depth cut for the room of phase pose: engines (a)'s detector runs
+    # and (b)'s clips 60 -> 40 frames, K1's plain check 4 -> 2 solving
+    # launches; config 4 as typed 100 -> 60 frames. Config 1's tree keeps
+    # its 100 frames: the panning texture depends on the length, and on
+    # the 60-frame one YOLO11m's card and CPU tracks parted on 16 of 575
+    # rows (detections within IoU 0.9999985: an association near-tie)
     engines, engine_runs = phase_engines(torch, dev, smi, keep,
-                                         n_frames=60, file_frames=60,
-                                         reid_frames=60, k1_keep=4)
-    baseline = phase_baseline(torch, dev, smi)
+                                         n_frames=40, file_frames=40,
+                                         reid_frames=40, k1_keep=2)
+    baseline = phase_baseline(torch, dev, smi, gs_frames=60)
+    pose = phase_pose(torch, dev, smi)
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -4566,7 +4981,12 @@ def main() -> int:
                      for k in ("yolov8n_fused", "yolov8n_staged",
                                "yolo11m_staged", "gamestate_as_typed",
                                "gamestate_chain")}
-    by_path = dict(cli_reid_runs, **engine_runs, **baseline_runs)
+    pose_runs = {f"pose_{k}": pose[k]["launches"]
+                 for k in ("config3", "bottomup_staged", "bottomup_fused",
+                           "topdown_staged", "topdown_fused",
+                           "vitpose_staged")}
+    by_path = dict(cli_reid_runs, **engine_runs, **baseline_runs,
+                   **pose_runs)
     for entry, key in zip((k1, k2, k3, k4, oru, oru_nkf), _CLI_COUNTERS):
         entry["launches_by_path"] = {run: n[key]
                                      for run, n in by_path.items()}
@@ -4578,7 +4998,7 @@ def main() -> int:
                       "kpr_check": kpr_stats, "yolox_l_x": lx_stats,
                       "k3_f32_yolox_s_640_b8": k3_f32, "cli": cli_stats,
                       "cli_reid": reid_cli, "engines": engines,
-                      "baseline": baseline,
+                      "baseline": baseline, "pose": pose,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,

@@ -364,12 +364,40 @@ def test_osnet_checkpoint_forms(tmp_path):
 
 
 def test_osnet_reid_raises_for_what_waits():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        OSNetReId(use_keypoints=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         OSNetReId(backbone="resnet50", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
         OSNetReId(device="cpu").train()
+
+
+def test_osnet_reid_keypoint_path_builds():
+    """``OSNetReId(use_keypoints=True)`` (BASELINE config 3's ReID) reads
+    ``keypoints_xyc``, feeds OSNet 3 + 5 prompt channels and returns
+    (n_parts + 1, feat_dim) parts whose stripes 1..5 carry the keypoint
+    groups' visibility."""
+    reid = OSNetReId(use_keypoints=True, crop_size=CROP, device="cpu",
+                     **OSNET)
+    assert reid.input_columns == ["bbox_ltwh", "keypoints_xyc"]
+    rng = np.random.default_rng(2)
+    image = rng.integers(0, 255, (96, 80, 3), dtype=np.uint8)
+    kp = np.concatenate([rng.uniform(10, 60, (17, 2)),
+                         rng.uniform(-0.5, 1, (17, 1))], 1).astype(np.float32)
+    dets = pd.DataFrame({"bbox_ltwh": [np.array([8, 6, 50, 70], np.float32)]
+                         * 2, "keypoints_xyc": [kp, None]}, index=[3, 7])
+    samples = [reid.preprocess(image, d, None) for _, d in dets.iterrows()]
+    assert samples[0]["crop"].shape == CROP + (8,)
+    assert samples[1]["crop"][..., 3:].max() == 0     # no keypoints, no prompt
+    batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    out = reid.process(batch, dets, None)
+    parts = np.stack(out["embeddings"].to_numpy())
+    vis = np.stack(out["visibility_scores"].to_numpy())
+    assert parts.shape == (2, OSNET["n_parts"] + 1, OSNET["feat_dim"])
+    assert reid._model.conv1.conv.weight.shape[1] == 8
+    groups = [kp[g, 2].max() for g in OSNetReId.KP_GROUPS]
+    g = min(len(groups), OSNET["n_parts"])
+    np.testing.assert_array_equal(vis[0, 1:1 + g], np.float32(groups[:g]))
+    np.testing.assert_array_equal(vis[1, 1:1 + g], 0)
+    assert (vis[:, 0] == 1).all()
 
 
 def _as_jax_targets(node):

@@ -74,7 +74,9 @@ def test_port_imports_in_a_clean_interpreter():
 # ReID wrappers and MOT-format datasets, the batched, pipelined and online
 # engines with their datasets, callbacks and visualization, and the
 # YOLOv8 / YOLO11 and game-state modules (calibration, pitch segmentation,
-# jersey OCR, SoccerNet, GS-HOTA), which the checks above must cover
+# jersey OCR, SoccerNet, GS-HOTA), and the pose modules (the pose models,
+# ViTPose, the coordinate helpers, the pose wrappers and the keypoint
+# prompt masks), which the checks above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
@@ -140,7 +142,15 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/wrappers/jersey/ocr_api.py",
                  "tracklab_torch/wrappers/dataset/soccernet.py",
                  "tracklab_torch/eval/gs_metrics.py",
-                 "tracklab_torch/eval/gs_evaluator.py")
+                 "tracklab_torch/eval/gs_evaluator.py",
+                 "tracklab_torch/models/pose.py",
+                 "tracklab_torch/models/vitpose.py",
+                 "tracklab_torch/utils/coordinates.py",
+                 "tracklab_torch/wrappers/pose_estimator/__init__.py",
+                 "tracklab_torch/wrappers/pose_estimator/bottomup_api.py",
+                 "tracklab_torch/wrappers/pose_estimator/topdown_api.py",
+                 "tracklab_torch/wrappers/pose_estimator/batched_api.py",
+                 "tracklab_torch/wrappers/reid/reid_dataset.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

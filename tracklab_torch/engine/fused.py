@@ -11,9 +11,16 @@ tracker, StrongSORT, Deep-OC-SORT or BoT-SORT, with optional camera warps
 :func:`fused_detect_reid_track`, and :func:`run_fused_reid_video`, the
 offline engine's 3-module branch); and the promptless KPR parts path,
 detect -> NMS -> device crops -> KPR part features -> BPBReID-StrongSORT
-(:func:`make_kpr_embed_fn`, :func:`fused_detect_parts_track`). By default
-both crop paths embed every detection slot and issue no host sync; with
-``embed_buckets`` they embed only the live slot prefix
+(:func:`make_kpr_embed_fn`, :func:`fused_detect_parts_track`). The pose
+paths: bottom-up, a pose model whose one pass gives boxes and keypoints
+(boxes regenerated from the keypoints) -> tracker
+(:func:`make_bottomup_detect_fn`, :func:`fused_bottomup_track`,
+:func:`run_fused_bottomup_video`); and top-down, detect -> NMS -> device
+crops -> pose per detection -> tracker, the keypoints riding beside the
+boxes (:func:`make_topdown_pose_fn`, :func:`fused_detect_pose_track`,
+:func:`run_fused_pose_video`). By default the crop paths embed (or pose)
+every detection slot and issue no host sync; with ``embed_buckets`` /
+``pose_buckets`` they run only the live slot prefix
 (:func:`_bucketed_embed`), which reads the live count on the host once per
 chunk.
 
@@ -41,7 +48,10 @@ __all__ = ["make_yolox_detect_fn", "fused_detect_track",
            "fused_detect_track_concat", "run_fused_video",
            "make_osnet_embed_fn", "fused_detect_reid_track",
            "run_fused_reid_video",
-           "make_kpr_embed_fn", "fused_detect_parts_track"]
+           "make_kpr_embed_fn", "fused_detect_parts_track",
+           "make_bottomup_detect_fn", "fused_bottomup_track",
+           "run_fused_bottomup_video", "make_topdown_pose_fn",
+           "fused_detect_pose_track", "run_fused_pose_video"]
 
 
 def make_yolox_detect_fn(model, conf_threshold: float = 0.4,
@@ -698,3 +708,321 @@ def fused_detect_parts_track(detect_fn, embed_fn, step_fn, init_state,
     kp = torch.cat(all_kp) if all_kp else None
     return state, dets, reid, kp, outs
 
+
+
+# ------------------------------------------------------------------ pose
+
+
+def _kp_bbox_ltrb(kp, extension_factor, wh0=None):
+    """Device replica of ``utils/coordinates.py:generate_bbox_from_keypoints``
+    in ltrb: the box around the visible (conf > 0) keypoints, or all of them
+    when none is visible, extended by (top, bottom, sides) fractions of its
+    raw height, clipped to the original image (``wh0`` (..., 2)) when
+    given. ``kp`` (..., K, 3)."""
+    x, y, vis = kp[..., 0], kp[..., 1], kp[..., 2] > 0
+    any_vis = vis.any(dim=-1)
+    big = torch.full_like(x, 1e9)
+
+    def lo(v):
+        return torch.where(any_vis, torch.where(vis, v, big).amin(-1),
+                           v.amin(-1))
+
+    def hi(v):
+        return torch.where(any_vis, torch.where(vis, v, -big).amax(-1),
+                           v.amax(-1))
+
+    l, r, t, b = lo(x), hi(x), lo(y), hi(y)
+    h = b - t
+    top, bottom, sides = extension_factor
+    ltrb = torch.stack([l - sides * h, t - top * h, r + sides * h,
+                        b + bottom * h], dim=-1)
+    if wh0 is not None:
+        zero = torch.zeros((), device=ltrb.device)
+        wh = torch.cat([wh0, wh0], dim=-1)
+        ltrb = torch.minimum(torch.maximum(ltrb, zero), wh)
+    return ltrb
+
+
+def _match_keypoints(ltrb, kps_all):
+    """Each detection's keypoints: those of the anchor whose keypoint
+    centre lies nearest its box centre (the NMS compaction loses anchor
+    ids; the staged wrapper's heuristic, run on the device). ltrb (B, D, 4),
+    kps_all (B, A, K, 3) -> (B, D, K, 3) f32."""
+    kp_centers = kps_all[..., :2].mean(dim=2)                    # (B, A, 2)
+    box_c = (ltrb[..., 0:2] + ltrb[..., 2:4]) / 2.0              # (B, D, 2)
+    d2 = ((box_c[:, :, None, :] - kp_centers[:, None, :, :]) ** 2).sum(-1)
+    anchor = torch.argmin(d2, dim=-1)                            # (B, D)
+    K = kps_all.shape[2]
+    return torch.gather(kps_all.float(), 1,
+                        anchor[:, :, None, None].expand(-1, -1, K, 3))
+
+
+def make_bottomup_detect_fn(predict_fn, conf_threshold: float = 0.4,
+                            iou_threshold: float = 0.65, max_dets: int = 32,
+                            bbox_extension_factor=(0.05, 0.05, 0.05),
+                            compute_dtype=torch.float32):
+    """Build ``detect_fn(frames, meta) -> (Detections, keypoints (B, D, K,
+    3))`` for a bottom-up pose model (YOLOX-Pose, YOLO11-Pose):
+    ``predict_fn(images) -> (decoded (B, A, 5 + C), kps (B, A, K, 3))`` in
+    input pixels (the wrapper's closure, with its family's input scale).
+    NMS, then each detection's keypoints by the nearest-centre anchor
+    match; with ``meta`` (letterbox ``scale``, ``pad``, ``shape``) the
+    keypoints are mapped to original-image coordinates and the boxes
+    regenerated from them (:func:`_kp_bbox_ltrb`, clipped to the image),
+    the staged wrapper's rows; without it, keypoints stay in input pixels
+    (the staged wrapper maps and boxes them on the host). The class is 1
+    for every detection (``category_id`` of the staged rows)."""
+
+    def detect(frames, meta=None):
+        with torch.no_grad():
+            decoded, kps_all = predict_fn(frames.to(compute_dtype))
+            d = postprocess_detections(decoded, conf_threshold=conf_threshold,
+                                       iou_threshold=iou_threshold,
+                                       max_out=max_dets)
+        ltrb = d["ltrb"].float()
+        kp = _match_keypoints(ltrb, kps_all)
+        wh0 = None
+        if meta is not None:
+            scale = meta["scale"][:, None, None, None].float()
+            pad = meta["pad"][:, None, None, :].float()
+            kp = torch.cat([(kp[..., 0:2] - pad) / scale, kp[..., 2:3]],
+                           dim=-1)
+            wh0 = meta["shape"][:, None, :].float()
+            ltrb = _kp_bbox_ltrb(kp, bbox_extension_factor, wh0)
+        B, D = ltrb.shape[:2]
+        ref = torch.arange(D, dtype=torch.int32,
+                           device=ltrb.device).expand(B, D)
+        return (Detections(ltrb, d["score"].float(), torch.ones_like(
+            d["score"], dtype=torch.float32), ref, d["valid"]), kp)
+
+    return detect
+
+
+def fused_bottomup_track(detect_fn, step_fn, init_state, frames, chunk: int,
+                         meta=None, frame_valid=None,
+                         min_confidence: float = 0.0,
+                         return_detections: bool = True):
+    """Bottom-up pose detector -> tracker over a whole video (the
+    reference's RTMO / YOLO-pose pipeline head feeding a tracker): as
+    :func:`fused_detect_track`, with the detector's per-detection keypoints
+    riding beside its boxes (zero on invalid slots). ``min_confidence``
+    masks the tracker's detections (``conf > min_confidence``).
+
+    Returns ``(final_state, dets | None, keypoints (F, D, K, 3), outs)``
+    with a leading frame axis F; refs are video-global (frame * D + slot).
+    """
+    F_ = frames.shape[0]
+    if F_ % chunk:
+        raise ValueError(f"frames ({F_}) must be a multiple of chunk "
+                         f"({chunk}); pad with frame_valid=False")
+    state, outs, all_dets, all_kp = init_state, [], [], []
+    held = {}
+
+    def boxes_only(f, m):
+        dets, held["kp"] = detect_fn(f, m)
+        return dets
+
+    for base in range(0, F_, chunk):
+        sl = slice(base, base + chunk)
+        dets = _detect_chunk(boxes_only, frames, sl, meta, frame_valid)
+        all_kp.append(held.pop("kp") * dets.valid[..., None, None])
+        trk = dets._replace(valid=dets.valid & (dets.conf > min_confidence))
+        for f in range(chunk):
+            state, out = step_fn(state, Detections(*(x[f] for x in trk)))
+            outs.append(out)
+        if return_detections:
+            all_dets.append(dets)
+    dets = (Detections(*(torch.cat(f) for f in zip(*all_dets)))
+            if return_detections else None)
+    return state, dets, torch.cat(all_kp), stack_frames(outs)
+
+
+def _pose_rows(kp, valid, lut):
+    """Keypoint rows (``keypoints_xyc`` (K, 3) f32, ``keypoints_conf`` the
+    mean confidence) of the valid slots, indexed by ``lut`` (flat over
+    frame * D + slot); numpy inputs."""
+    import numpy as np
+    import pandas as pd
+
+    fs, ds = np.nonzero(valid)
+    D = valid.shape[1]
+    k = kp[fs, ds].astype(np.float32)
+    rows = pd.DataFrame(index=lut[fs * D + ds])
+    rows["keypoints_xyc"] = list(k)
+    rows["keypoints_conf"] = [float(c) for c in k[:, :, 2].mean(axis=1)]
+    return rows
+
+
+def run_fused_bottomup_video(detector, tracker, loader, metadatas):
+    """One video through the fused bottom-up path: drain the pose module's
+    loader (host threads decode and letterbox), run pose model -> NMS ->
+    keypoints -> boxes from keypoints -> tracker as one device program with
+    no host sync (:func:`fused_bottomup_track`), read it back once and emit
+    both modules' DataFrames with the staged run's rows, row ids and
+    columns (``BottomUpPoseEstimator.process``). The tracker's pre-filter is
+    a mask, and its boxes take the staged path's round trip through ltwh.
+    Returns ``(pose_df, tracker_df)``."""
+    import numpy as np
+    import pandas as pd
+
+    frame_ids, images, meta, F0, chunk, frame_valid = _collect_frames(
+        detector, loader)
+    if not frame_ids:
+        return pd.DataFrame(), pd.DataFrame()
+    F_pad = len(frame_valid)
+    detect_fn = detector.device_detect_fn()
+    D = detector.max_dets
+    cfg = tracker._make_config()
+    trk_D = cfg.max_dets
+    base_step = tracker._step_fn()
+
+    def step(state, det):
+        if trk_D < D:
+            det = Detections(*(x[:trk_D] for x in det))
+        return base_step(cfg, state, det._replace(
+            ltrb=_staged_boxes(det.ltrb)))
+
+    dev = detector.device
+    _, dets, kp, outs = fused_bottomup_track(
+        detect_fn, step, tracker._init_state(cfg),
+        torch.from_numpy(images).to(dev), chunk,
+        meta={k: torch.from_numpy(v).to(dev) for k, v in meta.items()},
+        frame_valid=torch.from_numpy(frame_valid).to(dev),
+        min_confidence=float(getattr(tracker, "min_confidence", 0.0)))
+    valid, ltrb, score, kp = (x[:F0].cpu().numpy() for x in
+                              (dets.valid, dets.ltrb, dets.conf, kp))
+    fs, ds = np.nonzero(valid)
+    lt = ltrb[fs, ds, 0:2]
+    rows = detector._rows(metadatas.loc[frame_ids[:F0]], fs,
+                          np.concatenate([lt, ltrb[fs, ds, 2:4] - lt], 1),
+                          score[fs, ds], kp[fs, ds])
+    lut = np.full(F_pad * D, -1, np.int64)
+    lut[fs * D + ds] = rows.index.to_numpy()
+    trk_df = tracker._emissions_to_df(outs, F0, lut)
+    return rows, trk_df[trk_df.index >= 0]
+
+
+def make_topdown_pose_fn(model, crop_size=(256, 192), num_keypoints: int = 17,
+                         compute_dtype=torch.float32):
+    """Build ``pose_fn(frames, boxes) -> keypoints (B, D, K, 3)`` for a
+    top-down pose model with ``predict_keypoints`` (``TopDownPose``,
+    ``SimCCPose``, ``ViTPose``): crop-and-resize every detection slot on
+    the device (:func:`crop_resize`), scale to [0, 1], one batched forward,
+    keypoints mapped from crop pixels back to the frame of ``boxes``
+    (frames (B, H, W, 3) uint8, boxes (B, D, 4) ltrb in frame pixels)."""
+    ch, cw = crop_size
+
+    def pose(frames, boxes):
+        crops = crop_resize(frames, boxes, ch, cw)      # (B, D, ch, cw, 3)
+        B, D = crops.shape[0], crops.shape[1]
+        x = (crops.reshape(B * D, ch, cw, 3) / 255.0).to(compute_dtype)
+        with torch.no_grad():
+            kp = model.predict_keypoints(x)
+        kp = kp.float().reshape(B, D, num_keypoints, 3)
+        w = boxes[..., 2] - boxes[..., 0]
+        h = boxes[..., 3] - boxes[..., 1]
+        kx = kp[..., 0] * (w / cw)[..., None] + boxes[..., 0:1]
+        ky = kp[..., 1] * (h / ch)[..., None] + boxes[..., 1:2]
+        return torch.stack([kx, ky, kp[..., 2]], dim=-1)
+
+    return pose
+
+
+def fused_detect_pose_track(detect_fn, pose_fn, step_fn, init_state, frames,
+                            chunk: int, meta=None, crop_meta=None,
+                            frame_valid=None, min_confidence: float = 0.0,
+                            pose_buckets=None,
+                            return_detections: bool = True):
+    """Detector -> NMS -> device crops -> top-down pose -> tracker over a
+    whole video (the reference's PoseTrack pipeline shape: detect, pose per
+    detection, track). The tracker takes the boxes (the 2-input step of
+    :func:`fused_detect_track`); the keypoints of every slot are computed
+    from the detector's own frames (``crop_meta`` maps boxes into them) and
+    returned in original-image coordinates (its inverse), zero on invalid
+    slots, as the staged batched pose module emits them.
+    ``pose_buckets``: optional live-prefix widths (ascending, the last equal
+    to max_dets) for the pose stage, :func:`_bucketed_embed`'s rule (one
+    host read per chunk; None poses every slot with no host sync).
+    ``min_confidence`` masks the tracker's detections.
+
+    Returns ``(final_state, dets | None, keypoints (F, D, K, 3), outs)``.
+    """
+    F_ = frames.shape[0]
+    if F_ % chunk:
+        raise ValueError(f"frames ({F_}) must be a multiple of chunk "
+                         f"({chunk}); pad with frame_valid=False")
+    state, outs, all_dets, all_kp = init_state, [], [], []
+    for base in range(0, F_, chunk):
+        sl = slice(base, base + chunk)
+        dets = _detect_chunk(detect_fn, frames, sl, meta, frame_valid)
+        kp = _crop_stage(pose_fn, frames, dets, sl, crop_meta, pose_buckets)
+        if crop_meta is not None:
+            s = crop_meta["scale"][sl][:, None, None, :]
+            p = crop_meta["pad"][sl][:, None, None, :]
+            kp = torch.cat([(kp[..., 0:2] - p) / s, kp[..., 2:3]], dim=-1)
+        all_kp.append(kp * dets.valid[..., None, None])
+        trk = dets._replace(valid=dets.valid & (dets.conf > min_confidence))
+        for f in range(chunk):
+            state, out = step_fn(state, Detections(*(x[f] for x in trk)))
+            outs.append(out)
+        if return_detections:
+            all_dets.append(dets)
+    dets = (Detections(*(torch.cat(f) for f in zip(*all_dets)))
+            if return_detections else None)
+    return state, dets, torch.cat(all_kp), stack_frames(outs)
+
+
+def run_fused_pose_video(detector, pose, tracker, loader, metadatas):
+    """One video through the fused top-down path: detector -> NMS -> device
+    unletterbox -> device crops -> pose -> tracker as one device program
+    with no host sync (:func:`fused_detect_pose_track`), read back once,
+    emitting the three modules' DataFrames with the staged run's rows: the
+    pose rows (``keypoints_xyc``, ``keypoints_conf``) as
+    ``TopDownPoseBatched.process`` gives them. As in
+    :func:`run_fused_reid_video`, the crops come from the detector's
+    letterboxed frames (the staged module's work image when the work size
+    equals the detector's input and the frame size), and the pose stage and
+    the tracker take the boxes the staged modules read back from
+    ``bbox_ltwh``. Returns ``(detector_df, pose_df, tracker_df)``."""
+    import pandas as pd
+
+    frame_ids, images, meta, F0, chunk, frame_valid = _collect_frames(
+        detector, loader)
+    if not frame_ids:
+        return pd.DataFrame(), pd.DataFrame(), pd.DataFrame()
+    F_pad = len(frame_valid)
+    detect_fn = detector.device_detect_fn()
+    crop_meta = detector.crop_meta(meta)
+    base_pose = pose.device_pose_fn()
+    D = detector.max_dets
+    cfg = tracker._make_config()
+    trk_D = cfg.max_dets
+    base_step = tracker._step_fn()
+
+    def pose_fn(frames, boxes):
+        return base_pose(frames, _staged_boxes(boxes))
+
+    def step(state, det):
+        if trk_D < D:
+            det = Detections(*(x[:trk_D] for x in det))
+        return base_step(cfg, state, det._replace(
+            ltrb=_staged_boxes(det.ltrb),
+            cls=det.cls + detector.class_offset))
+
+    dev = detector.device
+
+    def up(a):
+        return torch.from_numpy(a).to(dev)
+
+    _, dets, kp, outs = fused_detect_pose_track(
+        detect_fn, pose_fn, step, tracker._init_state(cfg), up(images),
+        chunk, meta={k: up(v) for k, v in meta.items()},
+        crop_meta={k: up(v) for k, v in crop_meta.items()},
+        frame_valid=up(frame_valid),
+        min_confidence=float(getattr(tracker, "min_confidence", 0.0)))
+    det_df, lut = _detector_df(detector, dets, frame_ids, metadatas, F0,
+                               F_pad)
+    pose_df = _pose_rows(kp[:F0].cpu().numpy(),
+                         dets.valid[:F0].cpu().numpy(), lut)
+    trk_df = tracker._emissions_to_df(outs, F0, lut)
+    return det_df, pose_df, trk_df[trk_df.index >= 0]

@@ -4,9 +4,11 @@
 Video-level modules (the scan trackers) take the whole video's detections
 at once. With ``fused=True`` a fusable prefix runs as one device program
 per video and emits the same DataFrames as the staged run: detector ->
-ReID -> embedding tracker (``engine/fused.py:run_fused_reid_video``) or
-detector -> tracker (``run_fused_video``). The JAX engine's pose and parts
-branches (3 and 4 modules) wait for their wrappers in the port.
+ReID -> embedding tracker (``engine/fused.py:run_fused_reid_video``),
+detector -> top-down pose -> tracker (``run_fused_pose_video``), detector ->
+tracker (``run_fused_video``) or bottom-up pose -> tracker
+(``run_fused_bottomup_video``). The JAX engine's parts branches (KPR, 3
+and 4 modules) wait for their wrappers in the port.
 """
 from __future__ import annotations
 
@@ -37,6 +39,22 @@ class OfflineTrackingEngine(TrackingEngine):
             self.fire("on_module_end", task=name, detections=detections)
         return detections
 
+    @staticmethod
+    def _fused_3(det_m, mid_m, trk_m):
+        """The fused runner of a 3-module prefix, or None: detector -> NMS
+        -> device crops -> ReID -> embedding tracker, or detector -> NMS ->
+        device crops -> top-down pose -> tracker."""
+        from tracklab_torch.engine import fused as FU
+        if not getattr(det_m, "supports_fused_detect", False):
+            return None
+        if (getattr(mid_m, "supports_fused_embed", False)
+                and getattr(trk_m, "supports_fused_emb_track", False)):
+            return FU.run_fused_reid_video
+        if (getattr(mid_m, "supports_fused_pose", False)
+                and getattr(trk_m, "supports_fused_track", False)):
+            return FU.run_fused_pose_video
+        return None
+
     def video_loop(self, video_metadata: pd.Series, video_id):
         for model in self.models.values():
             if hasattr(model, "reset"):
@@ -44,28 +62,29 @@ class OfflineTrackingEngine(TrackingEngine):
         detections, image_pred = self.tracker_state.load()
         model_names = list(self.module_names)
         if self.fused and len(model_names) >= 3 and len(detections) == 0:
-            det_m, mid_m, trk_m = (self.models[n] for n in model_names[:3])
-            if (getattr(det_m, "supports_fused_detect", False)
-                    and getattr(mid_m, "supports_fused_embed", False)
-                    and getattr(trk_m, "supports_fused_emb_track", False)):
-                # detector -> NMS -> device crops -> ReID -> embedding
-                # tracker as one device program
-                from tracklab_torch.engine.fused import run_fused_reid_video
+            run_fused = self._fused_3(*(self.models[n]
+                                        for n in model_names[:3]))
+            if run_fused is not None:
                 detections = self._fused_prefix(
-                    run_fused_reid_video, model_names[:3], detections,
-                    image_pred)
+                    run_fused, model_names[:3], detections, image_pred)
                 model_names = model_names[3:]
                 if len(detections) == 0 or not model_names:
                     return detections, image_pred
         if self.fused and len(model_names) >= 2 and len(detections) == 0:
             det_name, trk_name = model_names[:2]
             det_m, trk_m = self.models[det_name], self.models[trk_name]
-            if (getattr(det_m, "supports_fused_detect", False)
-                    and getattr(trk_m, "supports_fused_track", False)):
-                # detector -> NMS -> tracker as one device program
-                from tracklab_torch.engine.fused import run_fused_video
+            run_fused = None
+            if getattr(trk_m, "supports_fused_track", False):
+                from tracklab_torch.engine import fused as FU
+                if getattr(det_m, "supports_fused_detect", False):
+                    # detector -> NMS -> tracker as one device program
+                    run_fused = FU.run_fused_video
+                elif getattr(det_m, "supports_fused_bottomup", False):
+                    # bottom-up pose (boxes from keypoints) -> tracker
+                    run_fused = FU.run_fused_bottomup_video
+            if run_fused is not None:
                 detections = self._fused_prefix(
-                    run_fused_video, [det_name, trk_name], detections,
+                    run_fused, [det_name, trk_name], detections,
                     image_pred)
                 model_names = model_names[2:]
                 if len(detections) == 0:

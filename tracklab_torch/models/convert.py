@@ -13,6 +13,13 @@ torchreid OSNet state dict (the name map of the JAX package's
 and ``yolo11_from_flax`` carry the JAX package's YOLOv8 / YOLO11 trees into
 ``models.yolov8.YOLOv8`` / ``models.yolo11.YOLO11``, and
 ``convert_yolov8_torch`` loads an ultralytics state dict into either.
+The pose models: ``yoloxpose_from_flax``, ``topdownpose_from_flax`` and
+``simccpose_from_flax`` carry the JAX package's ``YOLOXPose``,
+``TopDownPose`` and ``SimCCPose`` trees into ``models.pose``,
+``yolo11_from_flax`` also carries ``YOLO11Pose``, ``vitpose_from_flax``
+carries ``ViTPose``, and ``convert_vitpose_torch`` loads an HF
+``VitPoseForPoseEstimation`` state dict (the port's ViTPose holds its key
+names).
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ __all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
            "state_dict_from_flax", "kpr_from_flax", "kpr_torch_key",
            "osnet_from_flax", "osnet_torch_key", "convert_osnet_torch",
            "yolov8_from_flax", "yolo11_from_flax", "convert_yolov8_torch",
-           "pitchsegnet_from_flax"]
+           "pitchsegnet_from_flax", "yoloxpose_from_flax",
+           "topdownpose_from_flax", "simccpose_from_flax",
+           "vitpose_from_flax", "convert_vitpose_torch"]
 
 _LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var"}
@@ -137,19 +146,21 @@ def osnet_from_flax(variables, n_parts: int = 6, dtype=torch.float32,
     """Build a ``models.osnet.OSNet`` from the JAX package's OSNet
     ``{"params", "batch_stats"}`` tree (numpy arrays): the variant from the
     stem's width, ``ibn`` from the stem's norm (InstanceNorm has no batch
-    statistics), ``feat_dim`` from the head. ``n_parts`` is the JAX model's
+    statistics), ``feat_dim`` from the head, the input width from the
+    stem's kernel (8 on the keypoint path). ``n_parts`` is the JAX model's
     (the part head's weights do not show it). Loads with ``strict=True``
     and returns the model on ``device`` (``cuda`` unless told otherwise)."""
     from tracklab_torch.models.osnet import OSNET_VARIANTS, OSNet
 
     params = variables["params"]
-    stem = np.asarray(params["conv1"]["conv"]["kernel"]).shape[-1]
+    _, _, in_channels, stem = np.asarray(
+        params["conv1"]["conv"]["kernel"]).shape
     variant = next(k for k, v in OSNET_VARIANTS.items()
                    if v["channels"][0] == stem)
     ibn = "bn" not in variables.get("batch_stats", {}).get("conv1", {})
     feat_dim = np.asarray(params["fc__0"]["kernel"]).shape[1]
-    model = OSNet(variant, feat_dim, n_parts, ibn=ibn, dtype=dtype,
-                  device="cpu")
+    model = OSNet(variant, feat_dim, n_parts, ibn=ibn,
+                  in_channels=in_channels, dtype=dtype, device="cpu")
     model.load_state_dict(_osnet_state_dict(variables), strict=True)
     return model.to(resolve_device(device))
 
@@ -246,3 +257,120 @@ def pitchsegnet_from_flax(variables) -> dict:
     ``models.segmentation.PitchSegNet``) -> the state dict that
     ``models.segmentation.PitchSegNet`` loads with ``strict=True``."""
     return state_dict_from_flax(variables, _seg_key)
+
+
+def _deconv_weight(kernel):
+    """A flax transposed-conv kernel (kh, kw, in, out), applied without a
+    flip (``nn.ConvTranspose``, or the input-dilated conv of the JAX
+    package's ViTPose), -> the ConvTranspose2d(k, s=2, p=1) weight (in, out,
+    kh, kw) that computes the same map: spatially flipped
+    (``models/pose.py``'s docstring derives it)."""
+    return kernel[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def _pose_state_dict(variables, key_fn, is_deconv=lambda path: False):
+    """Flax variables -> torch state dict: conv kernels HWIO -> OIHW, Dense
+    kernels (in, out) -> (out, in), transposed-conv kernels (``is_deconv``)
+    by :func:`_deconv_weight`; keys from ``key_fn``."""
+    out = {}
+    for path, leaf in _flatten(variables):
+        t = np.asarray(leaf, dtype=np.float32)
+        if path[-1] == "kernel":
+            if is_deconv(path):
+                t = _deconv_weight(t)
+            else:
+                t = t.transpose(3, 2, 0, 1) if t.ndim == 4 else t.T
+        out[key_fn(path)] = torch.tensor(np.ascontiguousarray(t))
+    return out
+
+
+_POSE_HEAD = (("stems", "cls_convs", "reg_convs", "kp_convs"),
+              ("cls_preds", "reg_preds", "obj_preds", "kp_preds"))
+
+
+def _yoloxpose_key(path) -> str:
+    """The JAX package's YOLOXPose names (flax auto-names) -> the port's:
+    CSPDarknet_0 -> backbone.backbone, YOLOPAFPN_0 -> backbone, and per
+    level i the head's ConvBnAct_{4i + j} (stem, cls, reg, kp branch) and
+    Conv_{4i + j} (cls, reg, obj, kp prediction), in the flax module's call
+    order."""
+    coll, top, *rest = path
+    if top == "CSPDarknet_0":
+        prefix = ["backbone", "backbone"]
+    elif top == "YOLOPAFPN_0":
+        prefix = ["backbone"]
+    else:
+        kind, n = top.rsplit("_", 1)
+        names = _POSE_HEAD[kind == "Conv"]
+        prefix = ["head", names[int(n) % 4], str(int(n) // 4)]
+    return ".".join(prefix + [module_torch_key((coll, *rest))])
+
+
+def yoloxpose_from_flax(variables) -> dict:
+    """Flax YOLOXPose variables -> the state dict ``models.pose.YOLOXPose``
+    loads with ``strict=True``."""
+    return _pose_state_dict(variables, _yoloxpose_key)
+
+
+def _topdown_key(path) -> str:
+    coll, top, *rest = path
+    kind, _, n = top.rpartition("_")
+    prefix = {"CSPDarknet": ["backbone"],
+              "ConvTranspose": ["deconvs", n, "deconv"],
+              "BatchNorm": ["deconvs", n, "bn"],
+              "Conv": ["final"]}.get(kind, [top])
+    return ".".join(prefix + [module_torch_key((coll, *rest))])
+
+
+def topdownpose_from_flax(variables) -> dict:
+    """Flax TopDownPose variables -> the state dict
+    ``models.pose.TopDownPose`` loads with ``strict=True``; the
+    ``nn.ConvTranspose`` kernels by :func:`_deconv_weight`."""
+    return _pose_state_dict(variables, _topdown_key,
+                            lambda path: path[1].startswith("ConvTranspose"))
+
+
+def simccpose_from_flax(variables) -> dict:
+    """Flax SimCCPose variables -> the state dict ``models.pose.SimCCPose``
+    loads with ``strict=True``."""
+    return _pose_state_dict(variables, _topdown_key)
+
+
+def _vitpose_key(path) -> str:
+    _, *mods, leaf = path
+    if leaf == "position_embeddings":
+        comps = []
+        for m in mods:
+            comps.extend(m.split("__"))
+        return ".".join(comps + [leaf])
+    return module_torch_key(path)
+
+
+def vitpose_from_flax(variables) -> dict:
+    """Flax ViTPose variables (the JAX package's, with HF names) -> the state
+    dict ``models.vitpose.ViTPose`` loads with ``strict=True``; the decoder's
+    input-dilated conv kernels become ConvTranspose2d weights by
+    :func:`_deconv_weight`."""
+    return _pose_state_dict(variables, _vitpose_key,
+                            lambda path: path[-2].startswith("deconv"))
+
+
+def convert_vitpose_torch(state_dict, model):
+    """Load an HF ``VitPoseForPoseEstimation`` state dict (tensors or numpy
+    arrays) into ``model`` (a ``models.vitpose.ViTPose`` of the same
+    variant, decoder and input size) and return it: the keys are the
+    port's own; BN's ``num_batches_tracked`` is dropped. Raises on any
+    missing or unused tensor, or a shape mismatch."""
+    sd = {k: torch.as_tensor(np.asarray(v, dtype=np.float32))
+          for k, v in state_dict.items()
+          if not k.endswith("num_batches_tracked")}
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd]
+    unused = [k for k in sd if k not in own]
+    bad = [k for k in sd if k in own and sd[k].shape != own[k].shape]
+    if missing or unused or bad:
+        raise ValueError(f"HF ViTPose state dict does not fit: missing "
+                         f"{missing[:10]}, unused {unused[:10]}, shape "
+                         f"mismatch {bad[:10]}")
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -204,16 +204,18 @@ class OSNet(nn.Module):
     global feature and one per horizontal stripe; ``visibility`` (B,
     n_parts + 1), 1 for the global part and each stripe's activation mass
     over the largest. ``ibn=True`` is osnet_ibn_x1_0: InstanceNorm in the
-    stem and after the residual of every conv2-stage block."""
+    stem and after the residual of every conv2-stage block.
+    ``in_channels`` is the stem's input width: 3, or 3 + the keypoint
+    prompt channels of ``OSNetReId(use_keypoints=True)`` (8)."""
 
     def __init__(self, variant="x1_0", feat_dim=512, n_parts=6, ibn=False,
-                 dtype=torch.float32, device=None):
+                 in_channels=3, dtype=torch.float32, device=None):
         super().__init__()
         v = OSNET_VARIANTS[variant]
         chans, blocks = v["channels"], v["blocks"]
         self.n_parts = n_parts
-        self.conv1 = ConvLayer(3, chans[0], 7, 2, instance_norm=ibn,
-                               dtype=dtype)
+        self.conv1 = ConvLayer(in_channels, chans[0], 7, 2,
+                               instance_norm=ibn, dtype=dtype)
         cin = chans[0]
         for stage, (c, n) in enumerate(zip(chans[1:], blocks)):
             layers = []

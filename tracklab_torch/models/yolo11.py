@@ -8,8 +8,9 @@ Submodules carry the ultralytics names (``model.0`` .. ``model.23``), so
 ``models/convert.py:convert_yolov8_torch`` loads yolo11 state dicts too.
 
 C2PSA's attention is plain tensor ops (matmul and softmax in f32), as in the
-JAX package, where it is not a Pallas kernel. ``YOLO11Pose`` waits for
-ROADMAP item 3.
+JAX package, where it is not a Pallas kernel. ``YOLO11Pose`` adds the
+ultralytics Pose head's keypoint branch (``model.23.cv4``) on the same
+trunk: the bottom-up pose wrapper's ``variant: "11m"``.
 """
 from __future__ import annotations
 
@@ -17,12 +18,12 @@ import torch
 import torch.nn as nn
 
 from tracklab_torch.models.yolov8 import (C2f, SPPF, Bottleneck, _n,
-                                          _YOLOBase, make_divisible_width,
-                                          up2)
+                                          _YOLOBase, decode_v8,
+                                          make_divisible_width, up2)
 from tracklab_torch.models.yolox import BatchNorm, ConvBnAct, _PredConv
 
-__all__ = ["YOLO11", "YOLO11_VARIANTS", "C3k", "C3k2", "Attention",
-           "PSABlock", "C2PSA"]
+__all__ = ["YOLO11", "YOLO11Pose", "YOLO11_VARIANTS", "C3k", "C3k2",
+           "Attention", "PSABlock", "C2PSA", "decode_v11_kpts"]
 
 # depth, width, max_channels; the m/l/x scales force c3k=True in every C3k2
 # (ultralytics nn/tasks.py parse_model)
@@ -220,3 +221,75 @@ class YOLO11(_YOLOBase):
         d4 = m["19"](torch.cat([m["17"](u3), u4], dim=1))
         d5 = m["22"](torch.cat([m["20"](d4), p5], dim=1))
         return m["23"]((u3, d4, d5))
+
+
+def decode_v11_kpts(kpt_outs, num_keypoints, strides=(8, 16, 32)):
+    """ultralytics ``Pose.kpts_decode``: per-level NHWC (B, h, w, K * 3) raw
+    maps -> (B, A, K, 3) keypoints in input pixels: xy = (raw * 2 + anchor -
+    0.5) * stride with the anchor at the cell centre (x + 0.5, y + 0.5),
+    conf = sigmoid(raw)."""
+    out = []
+    for kmap, stride in zip(kpt_outs, strides):
+        b, h, w, _ = kmap.shape
+        k = kmap.float().reshape(b, h * w, num_keypoints, 3)
+        gy, gx = torch.meshgrid(
+            torch.arange(h, dtype=torch.float32, device=k.device) + 0.5,
+            torch.arange(w, dtype=torch.float32, device=k.device) + 0.5,
+            indexing="ij")
+        anchor = torch.stack([gx, gy], dim=-1).reshape(1, h * w, 1, 2)
+        xy = (k[..., :2] * 2.0 + anchor - 0.5) * stride
+        out.append(torch.cat([xy, torch.sigmoid(k[..., 2:3])], dim=-1))
+    return torch.cat(out, dim=1)
+
+
+class PoseV11(DetectV11):
+    """The v11 Detect head plus the Pose head's keypoint branch ``cv4``:
+    two 3x3 convs of max(chs[0] // 4, 3 K) channels and a 1x1 to 3 K
+    (keypoint k's x, y, conf at channels 3k, 3k + 1, 3k + 2). Returns
+    (detection maps, keypoint maps)."""
+
+    def __init__(self, chs, num_classes, num_keypoints, reg_max=16,
+                 dtype=torch.float32):
+        super().__init__(chs, num_classes, reg_max, dtype=dtype)
+        nk = num_keypoints * 3
+        c4 = max(chs[0] // 4, nk)
+        kw = dict(dtype=dtype)
+        self.cv4 = nn.ModuleList(nn.Sequential(
+            ConvBnAct(c, c4, 3, **kw), ConvBnAct(c4, c4, 3, **kw),
+            _PredConv(c4, nk, dtype)) for c in chs)
+
+    def forward(self, feats):
+        return super().forward(feats), [k(f) for f, k in zip(feats,
+                                                             self.cv4)]
+
+
+class YOLO11Pose(YOLO11):
+    """YOLO11 with the ultralytics Pose head (yolo11m-pose.pt's layout, the
+    reference's bottom-up pose default). ``forward`` returns NHWC
+    (detection maps, keypoint maps); ``predict`` returns (decoded boxes
+    (B, A, 5 + C), keypoints (B, A, K, 3) in input pixels)."""
+
+    def __init__(self, num_classes: int = 1, num_keypoints: int = 17,
+                 variant: str = "n", reg_max: int = 16, dtype=torch.float32,
+                 device=None):
+        super().__init__(num_classes, variant, reg_max, dtype, device="cpu")
+        chs = [seq[0].conv.weight.shape[1] for seq in self.model["23"].cv2]
+        self.model["23"] = PoseV11(chs, num_classes, num_keypoints, reg_max,
+                                   dtype)
+        self.num_keypoints = num_keypoints
+        self._finish(device)
+
+    def forward(self, images):
+        x = images.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        det, kpt = self._maps(x)
+        return ([m.permute(0, 2, 3, 1) for m in det],
+                [m.permute(0, 2, 3, 1) for m in kpt])
+
+    @torch.no_grad()
+    def predict(self, images):
+        """(B, H, W, 3) images in [0, 1] -> (decoded (B, A, 5 + C),
+        keypoints (B, A, K, 3))."""
+        det, kpt = self(images)
+        return (decode_v8(det, self.num_classes, self.reg_max),
+                decode_v11_kpts(kpt, self.num_keypoints))

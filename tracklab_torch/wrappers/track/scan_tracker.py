@@ -38,7 +38,8 @@ from tracklab_torch.trackers.common import Detections, pad_detections
 
 log = logging.getLogger(__name__)
 
-__all__ = ["OCSORT", "ByteTrack", "StrongSORT", "BotSORT", "DeepOCSORT"]
+__all__ = ["OCSORT", "ByteTrack", "StrongSORT", "BotSORT", "DeepOCSORT",
+           "BPBReIDStrongSORT"]
 
 
 def _upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -251,12 +252,20 @@ class _ScanTrackerBase(VideoLevelModule):
         inputs = _move(_stack_videos([p[0] for p in per_video]),
                        self.device)
         _, out = self._scan_videos_fn()(self._make_config(), *inputs)
-        fields = ("valid", "track_id", "ltrb", "conf", "ref")
-        host = [getattr(out, k).cpu().numpy() for k in fields]
-        return [self._emissions_to_df(
-                    SimpleNamespace(**{k: x[v] for k, x in zip(fields, host)}),
-                    n, lut)
-                for v, (_, n, lut) in enumerate(per_video)]
+        host = {k: x.cpu().numpy() for k, x in out._asdict().items()
+                if k in self._emitted and x is not None}
+        return [self._video_rows(
+                    SimpleNamespace(**{k: x[v] for k, x in host.items()}),
+                    n, lut, inp)
+                for v, (inp, n, lut) in enumerate(per_video)]
+
+    # the emission fields ``process_video_batch`` reads back
+    _emitted = ("valid", "track_id", "ltrb", "conf", "ref")
+
+    def _video_rows(self, out, n_frames, lut, inputs):
+        """One video's output rows from its host emissions (and its scan
+        inputs, on the host)."""
+        return self._emissions_to_df(out, n_frames, lut)
 
     # ------------------------------------------------------------------
     # streaming mode (the online engine)
@@ -328,6 +337,10 @@ class _ScanTrackerBase(VideoLevelModule):
         """The step's inputs for one frame."""
         return det
 
+    def _online_rows(self, out, lut):
+        """One frame's emissions -> its output rows."""
+        return self._emit_online(out, lut)
+
     def process_online(self, detections: pd.DataFrame,
                        metadata: pd.Series) -> pd.DataFrame:
         """Track one frame, carrying the tracker state across calls until
@@ -340,7 +353,7 @@ class _ScanTrackerBase(VideoLevelModule):
         self._online_state, out = self._step_fn()(
             cfg, self._online_state,
             self._online_inputs(rows, det, metadata))
-        return self._emit_online(out, lut)
+        return self._online_rows(out, lut)
 
 
 class OCSORT(_ScanTrackerBase):
@@ -643,3 +656,240 @@ class DeepOCSORT(_EmbScanTrackerBase):
     def _init_state(self, cfg):
         from tracklab_torch.trackers.deepocsort import deepocsort_init
         return deepocsort_init(cfg, device=self.device)
+
+
+def _part_inputs(dets_in, rows_of, P, E, K):
+    """(N, P, E) part features, (N, P) visibilities and (N, K, 3) keypoints
+    of the rows ``rows_of`` (row ids, -1 for none) of ``dets_in``: any
+    (rows, E') part layout of ``embeddings`` is cut or zero-padded to
+    (P, E) (OSNet gives the global feature and n_parts stripes; rows past P
+    are dropped, missing ones stay zero, their visibility 0 masks them), a
+    flat embedding is read as rows of E; ``visibility_scores`` and
+    ``keypoints_xyc`` likewise; rows without them stay zero."""
+    feat = np.zeros((len(rows_of), P, E), np.float32)
+    vis = np.zeros((len(rows_of), P), np.float32)
+    kps = np.zeros((len(rows_of), K, 3), np.float32)
+    cols = [c for c in ("embeddings", "visibility_scores", "keypoints_xyc")
+            if c in dets_in.columns]
+    by_row = {c: dets_in[c].to_dict() for c in cols}
+    for i, row in enumerate(rows_of):
+        if row < 0:
+            continue
+        e = by_row.get("embeddings", {}).get(row)
+        if e is not None:
+            e = np.asarray(e, np.float32)
+            e = e.reshape(-1, e.shape[-1]) if e.ndim > 1 else e.reshape(-1, E)
+            r, c = min(e.shape[0], P), min(e.shape[1], E)
+            feat[i, :r, :c] = e[:r, :c]
+        v = by_row.get("visibility_scores", {}).get(row)
+        if v is not None:
+            v = np.asarray(v, np.float32)
+            vis[i, :min(len(v), P)] = v[:P]
+        k = by_row.get("keypoints_xyc", {}).get(row)
+        if isinstance(k, np.ndarray):
+            kps[i, :min(len(k), K)] = k[:K]
+    return feat, vis, kps
+
+
+class BPBReIDStrongSORT(_EmbScanTrackerBase):
+    """BPBReID-StrongSORT wrapper: part-based ReID embeddings and their
+    visibility scores (``OSNetReId`` parts, KPR), with the rows'
+    ``keypoints_xyc`` for OKS motion; names and defaults of
+    bpbreid_strong_sort.yaml's reference values. Output columns: the KF
+    boxes and the track lifecycle counters (hits, age, time_since_update,
+    state), plus ``matched_with`` and ``costs`` with ``emit_costs``.
+
+    Its step takes (Detections, feat, vis, kps, warp), not the flat
+    embedding tracker's 3 inputs, so the ReID fused branch does not drive
+    it; the part-based fused path waits with the KPR wrappers (ROADMAP item
+    3). ``process_video_batch`` steps V videos at once over the video axis
+    (``bpbreid_scan_videos``, each equal to its own scan)."""
+
+    input_columns = ["bbox_ltwh", "bbox_conf", "category_id",
+                     "embeddings", "visibility_scores"]
+    output_columns = ["track_id", "track_bbox_ltwh", "track_bbox_conf",
+                      "track_bbox_kf_ltwh", "track_bbox_pred_kf_ltwh",
+                      "hits", "age", "time_since_update", "state"]
+    supports_fused_emb_track = False
+    _emitted = ("valid", "track_id", "ltrb", "conf", "ref", "pred_ltrb",
+                "tstate", "hits", "age", "time_since_update", "costs_r",
+                "costs_s", "costs_k", "matched_stage", "matched_cost",
+                "cost_track_valid", "cost_track_id")
+
+    def __init__(self, max_dist: float = 0.5,
+                 motion_criterium: str = "iou",
+                 max_iou_distance: float = 0.8,
+                 max_oks_distance: float = 0.7, max_age: int = 300,
+                 n_init: int = 0, mc_lambda: float = 0.995,
+                 ema_alpha: float = 0.9, only_position: bool = False,
+                 n_parts: int = 6, embed_dim: int = 512,
+                 n_keypoints: int = 17, min_confidence: float = 0.0,
+                 emit_costs: bool = False, ecc: bool = False,
+                 max_tracks: int = 128, max_dets: int = 64, device=None,
+                 **kwargs):
+        super().__init__(max_dets=max_dets, device=device, **kwargs)
+        self.ecc = ecc
+        self.params = dict(
+            max_dist=max_dist, motion_criterium=motion_criterium,
+            max_iou_distance=max_iou_distance,
+            max_oks_distance=max_oks_distance, max_age=max_age,
+            n_init=n_init, mc_lambda=mc_lambda, ema_alpha=ema_alpha,
+            only_position=only_position, n_parts=n_parts,
+            embed_dim=embed_dim, n_keypoints=n_keypoints,
+            emit_costs=emit_costs, max_tracks=max_tracks, max_dets=max_dets)
+        self.min_confidence = min_confidence
+        self.emit_costs = emit_costs
+        if emit_costs:
+            # the instrumentation columns exist only when requested, so
+            # Pipeline.validate stays truthful
+            self.output_columns = self.output_columns + ["matched_with",
+                                                         "costs"]
+        self.n_parts, self.embed_dim = n_parts, embed_dim
+        self.n_keypoints = n_keypoints
+
+    def _make_config(self):
+        from tracklab_torch.trackers.bpbreid_strongsort import \
+            BPBReIDStrongSortConfig
+        return BPBReIDStrongSortConfig(**self.params)
+
+    def _scan_videos_fn(self):
+        from tracklab_torch.trackers.bpbreid_strongsort import \
+            bpbreid_scan_videos
+        return bpbreid_scan_videos
+
+    def _step_fn(self):
+        from tracklab_torch.trackers.bpbreid_strongsort import bpbreid_step
+        return bpbreid_step
+
+    def _init_state(self, cfg):
+        from tracklab_torch.trackers.bpbreid_strongsort import bpbreid_init
+        return bpbreid_init(cfg, device=self.device)
+
+    def _prefilter(self, detections):
+        # the JAX wrapper filters only with a positive threshold
+        if self.min_confidence > 0:
+            return super()._prefilter(detections)
+        return detections
+
+    def _video_inputs(self, detections, metadatas, n_frame_bucket):
+        dets_in = self._prefilter(detections)
+        dets, n_frames, lut = _pad_video(dets_in, metadatas, self.max_dets,
+                                         n_frame_bucket, device="cpu")
+        F, D = dets.valid.shape
+        ref, valid = dets.ref.numpy(), dets.valid.numpy()
+        rows_of = np.full(ref.shape, -1, np.int64)
+        rows_of[valid] = lut[ref[valid]]
+        rows_of = rows_of.reshape(-1)
+        feat, vis, kps = _part_inputs(dets_in, rows_of, self.n_parts,
+                                      self.embed_dim, self.n_keypoints)
+        warps = self._video_warps(metadatas, n_frames, F)
+        P, E, K = self.n_parts, self.embed_dim, self.n_keypoints
+        return ((dets, torch.from_numpy(feat.reshape(F, D, P, E)),
+                 torch.from_numpy(vis.reshape(F, D, P)),
+                 torch.from_numpy(kps.reshape(F, D, K, 3)),
+                 torch.from_numpy(warps)), n_frames, lut)
+
+    def _video_rows(self, out, n_frames, lut, inputs):
+        return self._bpb_emissions_to_df(out, n_frames, lut, dets=inputs[0])
+
+    def _online_inputs(self, rows, det, metadata):
+        D = self.max_dets
+        rows_of = np.full(D, -1, np.int64)
+        rows_of[:len(rows)] = rows.index.to_numpy()[:D]
+        feat, vis, kps = _part_inputs(rows, rows_of, self.n_parts,
+                                      self.embed_dim, self.n_keypoints)
+        warp = self._online_warp(metadata)
+        return (det,) + tuple(_upload(torch.from_numpy(a), self.device)
+                              for a in (feat, vis, kps, warp))
+
+    def _online_rows(self, out, lut):
+        """One frame's emissions, read back in one copy, -> its rows with
+        the lifecycle columns."""
+        cols = [out.ltrb, out.pred_ltrb] + [
+            x[:, None] for x in (out.track_id, out.conf, out.ref, out.valid,
+                                 out.tstate, out.hits, out.age,
+                                 out.time_since_update)]
+        host = torch.cat([c.double() for c in cols], 1).cpu().numpy()
+        names = ("track_id", "conf", "ref", "valid", "tstate", "hits", "age",
+                 "time_since_update")
+        em = SimpleNamespace(ltrb=host[None, :, 0:4],
+                             pred_ltrb=host[None, :, 4:8],
+                             **{k: host[None, :, 8 + i]
+                                for i, k in enumerate(names)})
+        # the stream's refs -> positions in an array lut of their rows
+        refs = np.fromiter(sorted(lut), np.int64, len(lut))
+        ref = em.ref.astype(np.int64)
+        pos = np.minimum(np.searchsorted(refs, ref), max(len(refs) - 1, 0))
+        known = (ref >= 0) & (len(refs) > 0) & (refs[pos] == ref) \
+            if len(refs) else np.zeros(ref.shape, bool)
+        em.valid = (em.valid > 0) & known
+        em.ref = np.where(known, pos, -1)
+        rows = np.array([lut[k] for k in refs], np.int64)
+        return self._bpb_emissions_to_df(em, 1, rows)
+
+    def _bpb_emissions_to_df(self, out, n_frames, lut, dets=None):
+        """Stacked per-frame emissions (numpy, leading frame axis) -> the
+        wrapper's rows: the KF box (also as ``track_bbox_kf_ltwh``), the
+        pre-update KF snapshot ``track_bbox_pred_kf_ltwh`` (NaN until a
+        track's first update), the lifecycle counters and state, and with
+        ``emit_costs`` and the consumed detections ``dets`` the per-row cost
+        dicts to every live track and the matched stage and cost (the
+        reference's sort/tracker.py instrumentation). The last emission of a
+        row wins."""
+        valid = np.asarray(out.valid[:n_frames]) & (
+            np.asarray(out.ref[:n_frames]) >= 0)
+        fs, ts = np.nonzero(valid)
+
+        def at(x, dtype=None):
+            a = np.asarray(x[:n_frames])[fs, ts]
+            return a if dtype is None else a.astype(dtype)
+
+        result = pd.DataFrame(index=lut[at(out.ref, np.int64)] if len(fs)
+                              else np.zeros(0, int))
+        result["track_id"] = at(out.track_id, float)
+        kf_ltwh = _ltrb_to_ltwh(at(out.ltrb)).astype(np.float32)
+        result["track_bbox_ltwh"] = list(kf_ltwh)
+        result["track_bbox_kf_ltwh"] = list(kf_ltwh)
+        result["track_bbox_pred_kf_ltwh"] = list(
+            _ltrb_to_ltwh(at(out.pred_ltrb)).astype(np.float32))
+        result["track_bbox_conf"] = at(out.conf, float)
+        for k in ("tstate", "hits", "age", "time_since_update"):
+            result["state" if k == "tstate" else k] = at(getattr(out, k),
+                                                        np.int64)
+        if self.emit_costs and getattr(out, "costs_r", None) is not None \
+                and dets is not None:
+            result["costs"], result["matched_with"] = self._cost_columns(
+                out, n_frames, lut, dets, result.index)
+        return result[~result.index.duplicated(keep="last")]
+
+    def _cost_columns(self, out, n_frames, lut, dets, index):
+        """Per row: the appearance (R), motion (S) and Mahalanobis (K) costs
+        to every live track with their thresholds, and the matched stage
+        ("R" or "S") and cost, or None."""
+        p = self.params
+        thr = dict(Rt=p["max_dist"],
+                   St=(p["max_oks_distance"] if p["motion_criterium"] == "oks"
+                       else p["max_iou_distance"]),
+                   Kt=5.9915 if p["only_position"] else 9.4877)
+        cr, cs, ck, stage, mcost, tvalid, tids = (
+            np.asarray(getattr(out, k)[:n_frames]) for k in (
+                "costs_r", "costs_s", "costs_k", "matched_stage",
+                "matched_cost", "cost_track_valid", "cost_track_id"))
+        ref, dvalid = np.asarray(dets.ref), np.asarray(dets.valid)
+        costs, matched = {}, {}
+        for f in range(n_frames):
+            live = np.nonzero(tvalid[f])[0]
+            ids = tids[f, live].tolist()
+            for d in np.nonzero(dvalid[f])[0]:
+                row = lut[ref[f, d]]
+                costs[row] = {"R": dict(zip(ids, cr[f, d, live].tolist())),
+                              "Rt": thr["Rt"],
+                              "S": dict(zip(ids, cs[f, d, live].tolist())),
+                              "St": thr["St"],
+                              "K": dict(zip(ids, ck[f, d, live].tolist())),
+                              "Kt": thr["Kt"]}
+                st = int(stage[f, d])
+                matched[row] = (("R" if st == 1 else "S",
+                                 float(mcost[f, d])) if st else None)
+        return (pd.Series(costs).reindex(index).to_numpy(),
+                pd.Series(matched).reindex(index).to_numpy())
