@@ -56,7 +56,7 @@ Phases (any failure exits non-zero):
      OC-SORT with batched=True stepping the 8 videos at once (K2), with
      the launch counters read around it, 0 host syncs per step required
      and 16 tracker steps profiled; then an untimed pass that records the
-     ORU replay's inputs and trips per step and K2's last inputs, on which
+     ORU replay's inputs and trips per step and K2's last 4 inputs, on which
      K2 is checked against its plain version and timed (ns per step of
      each launch's longest problem).
 
@@ -106,13 +106,14 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13, 15, 17 and 16 after them:
      host syncs required in one warmed chunk (OSNet also timed with the
      buckets 8, 16, 32 on the first chunk); the tracker stage
      rerun with the plain JV solvers (on host copies of their inputs) on
-     its first 32 recorded frames, id for id; the detector rerun with the plain CSPLayers, its detections
+     its first 16 recorded frames, id for id;
+     the detector rerun with the plain CSPLayers, its detections
      matched by IoU and compared; the first chunk split into detector,
      OSNet and 16 profiled tracker steps; then the tracker stage alone
      over V = 4 videos (32 frames each) with batched=True (K2, its
      launches reported apart from the path's) against 4 single-video runs
      in that mode, id for id, K2 identical to its plain version on the
-     last 8 of the stage's inputs, and the stage's first 16 frames with
+     last 4 of the stage's inputs, and the stage's first 16 frames with
      the plain rectangular solver id for id (the default mode, K1,
      compared: NaN gating costs of free slots empty its appearance stage,
      a reference fault kept for parity, so the two modes part, in the JAX
@@ -133,13 +134,13 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13, 15, 17 and 16 after them:
      in one warmed chunk of LK and each tracker's path; the warps within
      0.25 px of the pan and 0.01 of the identity, two pairs within 1e-3 of
      the LK on the CPU; launches of K1, K2, K3 and ORU-NKF counted around
-     each run; 16 tracker steps profiled; the first 32 frames of each
+     each run; 16 tracker steps profiled; the first 8 frames of each
      tracker stage equal to the stage on the CPU and to the stage with the
      plain JV solvers (on host copies of their inputs) and the plain
-     ORU-NKF, id for id; the stage over V =
-     4 videos x 32 frames in both batched modes equal to its own
+     ORU-NKF, id for id; the stage over V = 4 videos x 16 frames (the
+     first half of the frames) in both batched modes equal to its own
      single-video runs, and K2 identical to its plain version on the last
-     8 of its batched inputs.
+     2 of its batched inputs.
 
 Then K3's f32 route per layer and the command line:
  18. K3 f32 route per dense CSPLayer of YOLOX-s at 640, batch 8 (the
@@ -150,25 +151,25 @@ Then K3's f32 route per layer and the command line:
      quick start (synthetic.yaml, GT -> oc_sort.yaml) on the card, HOTA,
      MOTA and IDF1 100.0 and IDSW 0, equal to the same run with device=cpu
      id for id, K1 and ORU launched; (b) 2 synthetic 1920 x 1080 videos x
-     300 frames x 24 objects -> YOLOX-s 640 f32 (yolox.yaml, seeded
+     200 frames x 24 objects -> YOLOX-s 640 f32 (yolox.yaml, seeded
      weights, thresholds calibrated to leave 10-40 detections per frame)
      -> OC-SORT, with engine.fused true and false: fused equals staged,
      K3, K1 and ORU launched and 0 host syncs inside the fused program,
      each run's frames/s and its split into loader, device programs, host
      DataFrame work and evaluation printed;
  20. phase cli_reid: ``tracklab_torch.main.main`` in this process, (a) 2
-     synthetic 640 x 640 videos x 150 frames x 24 objects -> YOLOX-s 640
+     synthetic 640 x 640 videos x 100 frames x 24 objects -> YOLOX-s 640
      f32 (yolox.yaml, calibrated thresholds) -> OSNet x1_0 on the card
      (osnet_batched.yaml, work size 640 x 640, 64 slots) -> StrongSORT
      (strong_sort.yaml), with engine.fused true and false: fused equals
      staged (rows, boxes, embeddings within rel 1e-3 of their scale, track
      ids), K3 and K1 launched, 0 host syncs inside the fused program;
      (b) +experiment=dancetrack_strongsort on a DanceTrack-layout tree
-     written to a temporary directory (96 PNG frames of 1920 x 1080, the
+     written to a temporary directory (64 PNG frames of 1920 x 1080, the
      texture of phase 17 panning by (+2, -1) px per frame), staged with
      OSNetReId on host crops, once as typed with no other override, then
      with calibrated thresholds: K3 and K1 launched, HOTA printed (random
-     weights), its first 16 frames equal to a device=cpu run on the rows
+     weights), its first 8 frames equal to a device=cpu run on the rows
      matched by IoU; (c) the same tree through camera motion
      (sparse_opt_flow.yaml, method lk_jax: LK on the card) before
      Deep-OC-SORT and then BoT-SORT: every warp within 0.5 px of the pan,
@@ -194,8 +195,8 @@ Then K3's f32 route per layer and the command line:
      to their staged runs; (d) one video of (a) cut to 50 frames with
      visualization=save_videos and TorchProfiler: an mp4 of 50 frames, a
      trace that names K1's and K3's kernels. Frames/s of every run. Depth
-     here: (a)'s detector runs, (b)'s clips 40 frames, K1's plain check on
-     the last 2 solving launches.
+     here: (a)'s detector runs 40 frames, (b)'s clips 30, K1's plain check
+     on the last 2 solving launches.
  22. phase baseline: ``tracklab_torch.main.main`` in this process, (a)
      BASELINE config 1, +experiment=mot17_ocsort on a MOT17-layout tree of
      2 x 100 PNG frames of 1920 x 1080 the script writes, YOLOv8n 640 f32
@@ -204,7 +205,7 @@ Then K3's f32 route per layer and the command line:
      the first 8 frames equal to device=cpu (IoU >= 0.999, track ids);
      then YOLO11m (modules/bbox_detector=yolo11) staged, against the CPU
      the same way; (b) BASELINE config 4 as typed,
-     +experiment=soccernet_gamestate on a SoccerNetGS-layout tree (60
+     +experiment=soccernet_gamestate on a SoccerNetGS-layout tree (40
      frames and Labels-GameState.json): GS-HOTA printed, K3 and K1
      launched, what calibration emitted reported (nothing: no pitch
      lines); (c) the calibrated game-state chain on the synthetic
@@ -224,7 +225,7 @@ Then K3's f32 route per layer and the command line:
      equal to device=cpu (IoU >= 0.999, track ids), K1 on the stage's own
      inputs against its plain solver; (b) bottom-up -> OC-SORT on the tree,
      fused (run_fused_bottomup_video) equal to staged (boxes, keypoints
-     within 1e-3, ids), 0 syncs in the fused program; (c) 2 x 60 synthetic
+     within 1e-3, ids), 0 syncs in the fused program; (c) 2 x 40 synthetic
      640 frames -> YOLOX-s -> TopDownPoseBatched (TopDownPose-s 256 x 192)
      -> OC-SORT fused (run_fused_pose_video) equal to staged, 0 syncs in
      the fused program; YOLOX-s -> ViTPose-small on host crops -> OC-SORT
@@ -234,11 +235,31 @@ Then K3's f32 route per layer and the command line:
      within 1e-4 of f64), each model's maps within 1e-4 of its all-plain
      forward.
 
+ 24. phase posetrack, KPR part-based pose tracking with seeded weights on
+     PoseTrack21-layout trees the script writes (the synthetic set's
+     renders with keypoints in JPEG frames, 2 x 60 at 1280 x 720 and 2 x 30
+     at 640 x 640; depth cut): (a) ``dataset=posetrack21 eval=posetrack21
+     pipeline=[bbox_detector,pose_estimator,reid,track]`` with YOLOX-s
+     (K3, threshold calibrated to ~11 detections a frame, at most 32),
+     TopDownPose-s (K3), kpr.yaml (KPR ViT-B/16 f32 on host crops and
+     prompts, K4 f32) and BPBReID-StrongSORT with OKS motion (K1), staged
+     and fused (run_fused_gsr_video, 0 host syncs inside): frames/s split
+     per module, the PoseTrack results, the staged run's first 4 frames of
+     the first video against device=cpu (detections, the pose model's
+     heatmaps, then KPR and the tracker from the card's rows: ids equal);
+     on the 640 tree with KPReIdBatched,
+     fused equal to staged; (b) YOLOX-s -> bpbreid.yaml (promptless KPR)
+     -> BPBReID fused (run_fused_parts_video) equal to the prefix staged
+     with KPReIdBatched; (c) K4 on the 12 attention layers of the fused
+     run's first chunk (512 crops) within 1e-5 of its plain version, and
+     its f32 time there beside the plain version, SDPA and its bound.
+
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
 launches on its own path, and per run of phases cli_reid, engines,
-baseline and pose under ``launches_by_path``), and {"ok": true, "device":
-...}.
+baseline, pose and posetrack under ``launches_by_path``; K4's f32 figures
+at the KPR command line's shape under ``f32_kpr_cli``), and {"ok": true,
+"device": ...}.
 """
 from __future__ import annotations
 
@@ -1263,7 +1284,9 @@ def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
     track()
     trk = profile_window(torch, track, len(frames))
     log(f"multi-video tracker steps (V={n_videos}): {trk}")
-    k2, trips, k2_steps = _k2_on_path(torch, cfg, dets, oru=oru)
+    # K2 checked and timed on the path's last 4 launches (8 until the depth
+    # cut for the room of phase posetrack)
+    k2, trips, k2_steps = _k2_on_path(torch, cfg, dets, n_keep=4, oru=oru)
     return launches, k2, dict(fps=fps, videos=n_videos, frames_per_video=F,
                           k2_path=k2_steps,
                           detector_ms_per_video_chunk=t_det * 1e3
@@ -1959,7 +1982,8 @@ def phase_yolox_lx(torch, dev, batch=2, size=640):
 
 
 # ---------------------------------------------------- phase 15: ReID path
-def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
+def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4,
+               n_plain=32):
     """uint8 frames -> YOLOX-s 640 bf16 -> NMS (~20 detections per frame,
     32 slots) -> device crops -> OSNet x1_0 f32 at 256 x 128 over every
     slot (full width: no host sync) -> StrongSORT with strong_sort.yaml's
@@ -2072,7 +2096,6 @@ def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
 
     # the tracker stage again with the plain JV solvers, id for id, over the
     # first n_plain frames
-    n_plain = 2 * chunk
     solves = {"K1": 0}
     plain_sq = _plain_on_host(solve_square_batched_plain)
 
@@ -2198,7 +2221,7 @@ def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4):
     # K2 against its plain version on this stage's problems: the stage again
     # with K2's inputs recorded, the last n_keep checked; and the stage over
     # its first Fp frames with the plain solver in K2's place, id for id
-    n_keep, Fp = 8, Fv // 2
+    n_keep, Fp = 4, Fv // 2   # 8 until the depth cut for phase posetrack
     rect_in = []
 
     def record_k2(cost, active=None):
@@ -2549,7 +2572,11 @@ def phase_motion(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4,
                  osnet_ms_per_chunk=osnet_ms,
                  live_slots_first_chunk=int(d0.valid.sum(1).max()))
     all_launches = {}
-    n_plain = 2 * chunk
+    # depth cut for the room of phase posetrack: the CPU and plain-kernel
+    # reruns over 8 frames (32 until then), the video-axis checks over the
+    # first half of the frames (V = 4 x 16, 4 x 32 until then), K2's plain
+    # check on the last 2 of its batched inputs (8 until then)
+    n_plain = chunk // 2
     for name, (cfg, init_fn, step_fn, scan, scan_videos) in trackers.items():
         step = partial(step_fn, cfg)
         inputs = []
@@ -2642,14 +2669,14 @@ def phase_motion(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4,
         # the tracker stage alone over V videos in both modes, each against
         # its own single-video runs in that mode; K2 against its plain
         # version on the batched stage's last inputs
-        Fv = F // n_videos
+        half = inputs[:F // 2]
+        Fv = len(half) // n_videos
         vdets = Detections(*(torch.stack(f).reshape((n_videos, Fv)
                                                     + f[0].shape)
-                             for f in zip(*(x[0] for x in inputs))))
-        vemb = torch.stack([x[1] for x in inputs]).reshape(
-            (n_videos, Fv) + inputs[0][1].shape)
-        vwarp = torch.stack([x[2] for x in inputs]).reshape(n_videos, Fv, 2,
-                                                            3)
+                             for f in zip(*(x[0] for x in half))))
+        vemb = torch.stack([x[1] for x in half]).reshape(
+            (n_videos, Fv) + half[0][1].shape)
+        vwarp = torch.stack([x[2] for x in half]).reshape(n_videos, Fv, 2, 3)
         modes = {}
         for batched in (False, True):
             mcfg = replace(cfg, batched=batched)
@@ -2659,7 +2686,7 @@ def phase_motion(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4,
 
             def record_k2(cost, active=None):
                 rect_in.append((cost, active))
-                del rect_in[:-8]
+                del rect_in[:-2]
                 return solve_rect_batched(cost, active)
 
             k1, k2 = solve_square_batched.launches, solve_rect_batched.launches
@@ -2749,6 +2776,8 @@ class _CliSplit:
         from tracklab_torch.datastruct.datapipe import PrefetchLoader
         from tracklab_torch.eval.evaluator import TrackEvalEvaluator
         from tracklab_torch.eval.gs_evaluator import GameStateEvaluator
+        from tracklab_torch.eval.pose_evaluator import PoseTrackEvaluator
+        from tracklab_torch.models.kpr import KPR
         from tracklab_torch.models.osnet import OSNet
         from tracklab_torch.motion.gmc import GMC
         from tracklab_torch.wrappers.calibration_api import (
@@ -2779,19 +2808,24 @@ class _CliSplit:
             (TF, "fused_bottomup_track", partial(self._program, frames_at=3)),
             (TF, "fused_detect_pose_track",
              partial(self._program, frames_at=4)),
+            (TF, "fused_detect_parts_track",
+             partial(self._program, frames_at=4)),
             (TF, "make_yolox_detect_fn", partial(self._staged_fn, "detect")),
             (TF, "make_bottomup_detect_fn",
              partial(self._staged_fn, "detect")),
             (TF, "make_osnet_embed_fn", partial(self._staged_fn, "embed")),
+            (TF, "make_kpr_embed_fn", partial(self._staged_fn, "embed")),
             (TF, "make_topdown_pose_fn", partial(self._staged_fn, "pose")),
             (TopDownPoseEstimator, "process", self._pose),
             (OSNet, "forward", self._forward),
+            (KPR, "forward", self._forward),
             (_ScanTrackerBase, "process_video_batch", self._tracker),
             (GMC, "apply", self._camera),
             (PitchLineDetector, "process", self._segmenter),
             (TVCalibration, "process", self._calibration),
             (TrackEvalEvaluator, "run", self._eval),
-            (GameStateEvaluator, "run", self._eval)]
+            (GameStateEvaluator, "run", self._eval),
+            (PoseTrackEvaluator, "run", self._eval)]
 
     def __enter__(self):
         self.saved = [(o, n, getattr(o, n)) for o, n, _ in self.patches]
@@ -2857,8 +2891,8 @@ class _CliSplit:
         return make
 
     def _forward(self, orig):
-        def forward(model, images):
-            return self._timed("device", "reid", orig, model, images)
+        def forward(model, *a, **kw):
+            return self._timed("device", "reid", orig, model, *a, **kw)
         return forward
 
     def _pose(self, orig):
@@ -3577,12 +3611,13 @@ def _tracks_equal_process(parts, what):
 
 def phase_engines(torch, dev, card, keep, n_videos=8, n_frames=100,
                   n_objects=24, file_frames=100, reid_frames=100,
-                  vis_frames=50, k1_keep=16):
+                  vis_frames=50, k1_keep=16, cfg5_frames=100):
     """The batched, online and pipelined engines through
     ``tracklab_torch.main.main`` in this process.
 
     (a) BASELINE config 5, ``+experiment=batched_8videos`` with
-    ``dataset.n_videos`` 8 and the quick start's ground truth: HOTA 100.0,
+    ``dataset.n_videos`` 8, ``cfg5_frames`` frames a video (synthetic.yaml
+    has 100) and the quick start's ground truth: HOTA 100.0,
     rows equal to the offline engine's; then with ``pipeline=[bbox_detector,
     track]`` and yolox.yaml on ``n_videos`` x ``n_frames`` synthetic frames
     of 640 x 640 (thresholds calibrated by ``_calibrate_cli``): rows and
@@ -3631,7 +3666,7 @@ def phase_engines(torch, dev, card, keep, n_videos=8, n_frames=100,
     # (a) BASELINE config 5 as typed
     cfg5 = ["use_rich=false", f"device={dev.type}",
             "+experiment=batched_8videos", f"dataset.n_videos={n_videos}",
-            GT_OVERRIDE]
+            f"dataset.n_frames={cfg5_frames}", GT_OVERRIDE]
     preds = {}
     for name, args in (("config5_batched", cfg5),
                        ("config5_offline", [a for a in cfg5 if a !=
@@ -4813,6 +4848,625 @@ def phase_pose(torch, dev, card, n_videos=2, n_frames=60, n_objects=24,
     return stats
 
 
+def _posetrack_tree(root, n_videos, n_frames, n_objects, wh=(1280, 720)):
+    """A PoseTrack21-layout validation split under ``root/PoseTrack21``:
+    ``n_videos`` sequences of ``n_frames`` JPEG frames of ``wh``
+    (``images/val/<seq>/``), the synthetic set's renders of ``n_objects``
+    people with 17 keypoints each (``with_keypoints``), and
+    ``posetrack_data/val/<seq>.json``: ``images`` (every third frame with
+    an ignore region in its top-left corner), ``annotations`` (box, 17 x 3
+    keypoints, ``track_id`` and a ``person_id`` unique over the videos).
+    Returns the first sequence's first 8 frames."""
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+
+    from tracklab_torch.utils.cv2 import cv2_load_image
+    from tracklab_torch.wrappers.dataset.synthetic import make_synthetic_set
+
+    w, h = wh
+    base = root / "PoseTrack21"
+    first = None
+    for v in range(n_videos):
+        name = f"{v + 1:06d}_mpii_test"
+        s = make_synthetic_set(n_videos=1, n_frames=n_frames,
+                               n_objects=n_objects, seed=3 + v, img_w=w,
+                               img_h=h, with_keypoints=True)
+        frames = [cv2_load_image(p) for p in s.image_metadatas["file_path"]]
+        (base / "images" / "val" / name).mkdir(parents=True)
+        files = [f"images/val/{name}/{f:06d}.jpg" for f in range(n_frames)]
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda f: cv2.imwrite(
+                str(base / files[f]), frames[f][..., ::-1],
+                [cv2.IMWRITE_JPEG_QUALITY, 95]), range(n_frames)))
+        ids = {iid: 10000 * (v + 1) + f
+               for f, iid in enumerate(s.image_metadatas.index)}
+        images = []
+        for f, iid in enumerate(s.image_metadatas.index):
+            img = {"id": ids[iid], "file_name": files[f], "is_labeled": True,
+                   "frame_id": ids[iid], "nframes": n_frames}
+            if f % 3 == 0:
+                img["ignore_regions_x"] = [[0, 60, 60, 0]]
+                img["ignore_regions_y"] = [[0, 0, 40, 40]]
+            images.append(img)
+        gt = s.detections_gt
+        anns = [{"image_id": ids[iid], "track_id": int(t) - 1,
+                 "person_id": 1000 * v + int(t), "category_id": 1,
+                 "bbox": [float(x) for x in b],
+                 "keypoints": np.asarray(k, float).reshape(-1).tolist()}
+                for iid, t, b, k in zip(gt["image_id"], gt["track_id"],
+                                        gt["bbox_ltwh"], gt["keypoints_xyc"])]
+        ann_dir = base / "posetrack_data" / "val"
+        ann_dir.mkdir(parents=True, exist_ok=True)
+        (ann_dir / f"{name}.json").write_text(json.dumps(
+            {"images": images, "annotations": anns,
+             "categories": [{"id": 1, "name": "person"}]}))
+        first = frames[:8] if first is None else first
+    return first
+
+
+def _posetrack_results(res):
+    """The PoseTrackEvaluator's headline figures."""
+    return dict(box_HOTA=res["COMBINED_SEQ"]["HOTA"],
+                box_MOTA=res["COMBINED_SEQ"]["MOTA"],
+                box_IDF1=res["COMBINED_SEQ"]["IDF1"],
+                bbox_mAP=res.get("bbox_mAP"),
+                pose_HOTA=res.get("POSE_COMBINED", {}).get("HOTA"),
+                kp_mAP=res.get("kp_mAP"),
+                reid_pose_HOTA0=(res["REID_POSE"]["HOTA(0)"]
+                                 if "REID_POSE" in res else None),
+                kp_AP_total=res.get("kp_AP_per_joint", {}).get("total_AP"),
+                kp_AP_per_joint=[round(float(x), 3) for x in res.get(
+                    "kp_AP_per_joint", {}).get("per_joint_AP", [])],
+                kp_MOTA_total=res.get("kp_MOTA_per_joint", {}).get(
+                    "total_MOTA"),
+                kp_MOTA_per_joint=[round(float(x), 3) for x in res.get(
+                    "kp_MOTA_per_joint", {}).get("per_joint_MOTA", [])])
+
+
+def _k4_recorder(store, n_keep):
+    """A stand-in for ``models.kpr.vit_attention`` that keeps the inputs of
+    its first ``n_keep`` calls in ``store`` (the chunk's layers) and calls
+    the wrapper."""
+    import tracklab_torch.models.kpr as KM
+
+    wrapper = KM.vit_attention
+
+    def record(q, k, v, n_valid=None, softmax="f32"):
+        if len(store) < n_keep:
+            store.append((q, k, v, n_valid, softmax))
+        return wrapper(q, k, v, n_valid, softmax=softmax)
+    return wrapper, record
+
+
+def phase_posetrack(torch, dev, card, n_videos=2, n_frames=60, n_objects=14,
+                    prefix_frames=4, prefix_slots=16):
+    """The KPR pose-tracking slice through ``tracklab_torch.main.main`` in
+    this process, with seeded weights, on PoseTrack21-layout trees the
+    script writes (``n_videos`` x ``n_frames`` JPEG frames, the synthetic
+    set's renders of ``n_objects`` people with keypoints; PoseTrack's
+    labelled sequences run longer: a depth cut).
+
+    (a) The main path as typed on a 1280 x 720 tree: ``dataset=posetrack21
+    eval=posetrack21 pipeline=[bbox_detector,pose_estimator,reid,track]``
+    with yolox.yaml (YOLOX-s 640, K3; its threshold calibrated to ~12
+    detections a frame), topdown_batched.yaml (TopDownPose-s 256 x 192, K3),
+    kpr.yaml (KPR ViT-B/16 384 x 128 f32 on host crops and host prompts,
+    K4 in f32) and bpbreid_strong_sort.yaml with OKS motion (K1; its OKS
+    gate opened to 0.99 for the seeded pose model's keypoints), staged
+    and with engine.fused=true (``run_fused_gsr_video``, KPR on device
+    crops and device prompts: not bit-equal to the staged run); no frame
+    over 32 detections (TopDownPoseBatched's slots); 0 host syncs inside
+    the fused program; the first ``prefix_frames`` frames of the first
+    video of the staged run against device=cpu, stage by stage: the
+    detector and pose model from the frames (detections at IoU >= 0.999,
+    keypoint gaps reported: the seeded heatmaps' near-ties move many),
+    then the pose model, KPR and BPBReID from the card's own detection
+    rows, the CPU decoding the card's heatmaps (TopDownPose-s's own
+    heatmaps within 1e-4 of the card's scale, the keypoints within 1e-3,
+    embeddings within 1e-4 of their scale, the same track ids); the fused
+    program's first chunk of ``prefix_frames`` frames with
+    ``prefix_slots`` slots on the card against device=cpu
+    (:func:`_fused_card_vs_cpu`); frames/s split per module; the
+    PoseTrackEvaluator's results. The KPR attention inputs of the fused
+    run's first chunk are kept for (c).
+    Then the same on a 640 x 640 tree of ``n_frames`` frames a video (the
+    letterbox the identity, the threshold calibrated on it) with
+    KPReIdBatched and work sizes 640 x 640, 32 slots in the detector, the
+    pose model, KPR and the tracker, staged and fused under cuDNN
+    deterministic: at least half the frames with a free slot; fused equal
+    to staged (rows, boxes, keypoints within 1e-3, embeddings within 1e-3
+    of their scale, visibility, ids), the first frame where they part
+    logged with its free slots.
+    (b) The 3-module parts prefix on the 640 tree: YOLOX-s -> bpbreid.yaml
+    (promptless KPReId) -> BPBReID with IoU motion fused
+    (``run_fused_parts_video``) against the same prefix staged with
+    KPReIdBatched (whose device embed function the fused program runs):
+    the same checks.
+    (c) K4 on the path: each of the 12 recorded layers of the typed fused
+    run's first chunk (B * D = 8 x 64 crops, 193 tokens, 12 heads, 64)
+    against the plain version of its softmax mode (f32, within 1e-5); K4's
+    f32 time at that shape beside the plain version, SDPA in f32 (TF32 off)
+    and its bound.
+
+    Returns the stats, each run's kernel launches under its name, and K4's
+    f32 figures."""
+    import contextlib
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import tracklab_torch.models.kpr as KM
+    from tracklab_torch.kernels.vit_attention import (
+        vit_attention, vit_attention_compute_plain, vit_attention_plain)
+
+    stats = {}
+    cpu_dev = ["device=cpu"] if dev.type == "cpu" else []
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_posetrack_"))
+    state = tmp / "typed_staged.pklz"
+    recorded = []
+    try:
+        t0 = time.perf_counter()
+        frames8 = _posetrack_tree(tmp / "hd", n_videos, n_frames, n_objects)
+        sq8 = _posetrack_tree(tmp / "sq", n_videos, n_frames, n_objects,
+                              wh=(640, 640))
+        log(f"posetrack: wrote {n_videos} x {n_frames} JPEG frames of 1280 x "
+            f"720 and of 640 x 640 in {time.perf_counter() - t0:.1f} s")
+        # each tree's own threshold, so that its frames have free slots
+        thr, _ = _calibrate_cli(torch, dev, n_objects, per_frame=18,
+                                born=8, frames=frames8)
+        thr_sq, _ = _calibrate_cli(torch, dev, n_objects, per_frame=18,
+                                   born=8, frames=sq8)
+        log(f"posetrack: calibrated YOLOX-s min_confidence {thr} (1280 x "
+            f"720), {thr_sq} (640 x 640)")
+        base = ["use_rich=false", "dataset=posetrack21", "eval=posetrack21"]
+        pose_mod = "+modules/pose_estimator=topdown_batched"
+        conf = f"modules.bbox_detector.min_confidence={thr}"
+        det_pose = ["+modules/bbox_detector=yolox", pose_mod, conf]
+        reid_track = ["+modules/reid=kpr", "modules/track=bpbreid_strong_sort",
+                      "modules.track.motion_criterium=oks",
+                      # the seeded TopDownPose-s puts a box's keypoints
+                      # within ~15 px of each other, where OKS falls off over
+                      # a few px, so between frames it stays below the
+                      # yaml's 0.3 and no track forms: the gate is opened to
+                      # OKS >= 0.01
+                      "modules.track.max_oks_distance=0.99"]
+        typed = base + ["pipeline=[bbox_detector,pose_estimator,reid,track]"
+                        ] + det_pose + reid_track
+
+        # (a) as typed, staged then fused, on the 1280 x 720 tree
+        runs = {}
+        for fused in (False, True):
+            name = f"typed_{'fused' if fused else 'staged'}"
+            if fused:
+                wrapper, record = _k4_recorder(recorded, 12)
+                KM.vit_attention = record
+            try:
+                with (contextlib.nullcontext({}) if fused else
+                      _model_tape(torch)) as tape:
+                    parts, res, launches, split = _cli_run(
+                        torch, typed + cpu_dev + [
+                            f"data_dir={tmp / 'hd'}",
+                            f"engine.fused={str(fused).lower()}"]
+                        + ([] if fused else [f"state.save_file={state}"]),
+                        ("loader", "program", "eval") if fused else
+                        ("loader", "detect", "pose", "reid", "scan", "eval"))
+            finally:
+                if fused:
+                    KM.vit_attention = wrapper
+            pred = parts["tracker_state"].detections_pred
+            runs[fused] = pred
+            if not fused:
+                staged_tape = tape
+            most = int(pred.groupby("image_id").size().max())
+            per_frame = len(pred) / split["frames"]
+            syncs = (split["host_syncs_in_fused_program"] if fused else
+                     split["host_syncs_in_scans"] / split["frames"])
+            ev = _posetrack_results(res)
+            log(f"posetrack (a) {name} on {card}: {_split_line(split)}; "
+                f"device by stage {split['device_s_by_stage']}; "
+                f"{per_frame:.2f} detections a frame (at most {most}), "
+                f"{pred['track_id'].nunique()} tracks; host syncs "
+                + (f"in the fused program {syncs}" if fused else
+                   f"in the tracker scans {syncs:.3f} per frame")
+                + f"; launches {launches}; PoseTrack results with random "
+                f"weights {ev}")
+            check(5 <= per_frame and most <= 32, f"posetrack (a) {name}: "
+                  f"{per_frame:.2f} detections a frame, at most {most}")
+            check(np.stack(pred["embeddings"].to_numpy()).shape[1:]
+                  == (6, 512), "posetrack (a): the part embeddings are not "
+                  "(6, 512)")
+            check(np.isfinite(np.stack(pred["keypoints_xyc"].to_numpy())
+                              ).all(), "posetrack (a): keypoints not finite")
+            for k in ("K3", "K1", "K4"):
+                check(launches[k] > 0, f"posetrack (a) {name}: {k} never "
+                      "launched")
+            if fused:
+                check(split["fused_program_frames"] >= split["frames"],
+                      "posetrack (a): the fused program did not run")
+                check(syncs == 0, f"posetrack (a): {syncs} host syncs "
+                      "inside the fused program")
+            stats[name] = dict(split, launches=launches, results=ev,
+                               detections_per_frame=per_frame,
+                               most_per_frame=most, min_confidence=thr)
+        stats["typed_fused_vs_staged"] = _typed_apart(runs[True], runs[False])
+        log(f"posetrack (a): as typed, fused against staged (host crops and "
+            f"prompts against device ones): {stats['typed_fused_vs_staged']}")
+        # the first frames against the CPU, stage by stage: the detector and
+        # the pose model from the frames, then the pose model, KPR and the
+        # tracker from the card's own detection rows, the pose model's
+        # heatmaps the card's (OKS over the seeded keypoints, clustered
+        # within ~15 px, turns the detector's 1e-3 px card-vs-CPU box
+        # differences into other associations; the seeded heatmaps' top two
+        # values lie a few 1e-5 apart, so the card's and the CPU's own
+        # heatmaps put many keypoints on other maxima)
+        cpu = ["device=cpu", f"data_dir={tmp / 'hd'}", "engine.fused=false",
+               "dataset.nvid=1", f"dataset.nframes={prefix_frames}"]
+        head, _, _, cpu_split = _cli_run(
+            torch, base + ["pipeline=[bbox_detector,pose_estimator]"]
+            + det_pose + cpu,
+            ("loader", "detect", "pose", "eval"))
+        head = head["tracker_state"]
+        m = _match_prefix(runs[False].assign(track_id=np.nan),
+                          head.detections_pred.assign(track_id=np.nan),
+                          head.image_metadatas.index)
+        check(m["matched"] == m["card_rows"] == m["cpu_rows"] > 0,
+              f"posetrack (a): detections differ from the CPU's: {m}")
+        check(m["min_iou"] >= 0.999, f"posetrack (a): a detection matched "
+              f"the CPU's at IoU {m['min_iou']:.6f}")
+        card8 = runs[False][runs[False]["image_id"].isin(
+            head.image_metadatas.index)]
+        kp_gap, kp_apart = _matched_keypoint_gap(card8, head.detections_pred)
+        with _model_tape(torch, replay=staged_tape) as cpu_tape:
+            tail, _, _, tail_split = _cli_run(
+                torch, base + ["pipeline=[pose_estimator,reid,track]"]
+                + [pose_mod] + reid_track + cpu
+                + [f"state.load_file={state}"],
+                ("pose", "reid", "scan", "eval"))
+        tail = tail["tracker_state"].detections_pred
+        check(tail.index.equals(card8.index), "posetrack (a): the CPU's "
+              "pose, KPR and tracker rows are not the card's")
+        hm_rel = _maps_rel(cpu_tape["TopDownPose"],
+                           staged_tape["TopDownPose"])
+        check(hm_rel <= 1e-4, f"posetrack (a): TopDownPose-s heatmaps "
+              f"{hm_rel:.2e} of their scale from the CPU's")
+        d_kp = _same_keypoints(tail, card8, "posetrack (a) the card's "
+                               "heatmaps decoded on the CPU")
+        d_emb = _same_embeddings(tail, card8, "posetrack (a) KPR on the CPU "
+                                 "from the card's rows", rel=1e-4)
+        _same_rows(tail, card8, "posetrack (a) KPR and BPBReID on the CPU "
+                   "from the card's rows")
+        log(f"posetrack (a): the first {prefix_frames} frames of the first "
+            f"video against device=cpu: detector and pose model from the "
+            f"frames ({cpu_split['track_dataset_s']:.2f} s) {m}, keypoints "
+            f"within {kp_gap:.2f} px ({kp_apart} of {17 * len(card8)} over 1 "
+            f"px: near-ties); from the card's rows "
+            f"({tail_split['track_dataset_s']:.2f} s): TopDownPose-s "
+            f"heatmaps within {hm_rel:.2e} of their scale, the card's "
+            f"heatmaps decoded to its keypoints "
+            f"within {d_kp:.2e}, KPR's embeddings within {d_emb:.2e} of "
+            f"their scale, {len(tail)} rows, "
+            f"{int(tail['track_id'].notna().sum())} tracked rows, track ids "
+            "equal")
+        stats["cpu_prefix"] = dict(m, frames=prefix_frames,
+                                   keypoints_max_px=kp_gap,
+                                   keypoints_over_1px=kp_apart,
+                                   heatmaps_rel=hm_rel,
+                                   decoded_keypoints_max_diff=d_kp,
+                                   embeddings_rel=d_emb,
+                                   tracked_rows=int(
+                                       tail["track_id"].notna().sum()),
+                                   cpu_s=cpu_split["track_dataset_s"],
+                                   cpu_pose_reid_track_s=tail_split[
+                                       "track_dataset_s"])
+        stats["fused_cpu_prefix"] = _fused_card_vs_cpu(
+            torch, typed + cpu_dev + [
+                f"data_dir={tmp / 'hd'}", "engine.fused=true",
+                "dataset.nvid=1", f"dataset.nframes={prefix_frames}",
+                f"modules.bbox_detector.batch_size={prefix_frames}"],
+            prefix_slots)
+
+        # (a) with KPReIdBatched, and (b) the parts prefix, on the 640 tree:
+        # the detector's, the pose model's, KPR's and the tracker's slots
+        # set equal (32), since the fused program embeds and tracks the
+        # detector's slots and the staged modules their own. Where the
+        # runs part, the first frame that differs is logged with its free
+        # slots: StrongSORT's default-mode appearance stage matches nothing
+        # while a detection slot is free (ROADMAP section 3)
+        slots = ["modules.bbox_detector.max_dets=32",
+                 "modules.track.max_dets=32",
+                 f"modules.bbox_detector.min_confidence={thr_sq}"]
+        batched = ["modules.reid._target_=tracklab_torch.wrappers.reid."
+                   "KPReIdBatched", "+modules.reid.work_size=[640,640]",
+                   "+modules.reid.max_dets=32", "modules.reid.batch_size=8"]
+        pose64 = ["modules.pose_estimator.work_size=[640,640]",
+                  "modules.pose_estimator.max_dets=32",
+                  "modules.pose_estimator.batch_size=8"]
+        parts3 = ["use_rich=false", "dataset=posetrack21",
+                  "eval=posetrack21", "pipeline=[bbox_detector,reid,track]",
+                  "+modules/bbox_detector=yolox", "+modules/reid=bpbreid",
+                  "modules/track=bpbreid_strong_sort"]
+        typed_sq = [a for a in typed if a != conf]
+        cases = {
+            "batched_staged": (typed_sq + slots + pose64 + batched, False),
+            "batched_fused": (typed_sq + slots + pose64 + batched, True),
+            "parts_staged": (parts3 + slots + batched, False),
+            "parts_fused": (parts3 + slots, True)}
+        eq = {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for name, (args, fused) in cases.items():
+                timed = ("loader", "program", "eval") if fused else (
+                    ("loader", "detect", "embed", "scan", "eval")
+                    if name.startswith("parts") else
+                    ("loader", "detect", "pose", "embed", "scan", "eval"))
+                parts, res, launches, split = _cli_run(
+                    torch, args + cpu_dev + [
+                        f"data_dir={tmp / 'sq'}",
+                        f"engine.fused={str(fused).lower()}"], timed)
+                pred = parts["tracker_state"].detections_pred
+                eq[name] = pred
+                per_image = pred.groupby("image_id").size()
+                free = int((per_image < 32).sum())
+                log(f"posetrack ({'b' if name.startswith('parts') else 'a'})"
+                    f" {name} on {card}: {_split_line(split)}; device by "
+                    f"stage {split['device_s_by_stage']}; "
+                    f"{len(pred) / split['frames']:.2f} detections a frame "
+                    f"(at most {int(per_image.max())}), {free} of "
+                    f"{split['frames']} frames with a free slot; launches "
+                    f"{launches}; host syncs in the fused program "
+                    f"{split['host_syncs_in_fused_program']}; PoseTrack "
+                    f"results {_posetrack_results(res)}")
+                for k in ("K3", "K1", "K4"):
+                    check(launches[k] > 0, f"posetrack {name}: {k} never "
+                          "launched")
+                check(2 * free >= split["frames"], f"posetrack {name}: "
+                      f"{free} of {split['frames']} frames with a free slot")
+                if fused:
+                    check(split["fused_program_frames"] >= split["frames"],
+                          f"posetrack {name}: the fused program did not run")
+                    check(split["host_syncs_in_fused_program"] == 0,
+                          f"posetrack {name}: "
+                          f"{split['host_syncs_in_fused_program']} host "
+                          "syncs inside the fused program")
+                stats[name] = dict(split, launches=launches,
+                                   results=_posetrack_results(res),
+                                   detections_per_frame=len(pred)
+                                   / split["frames"],
+                                   frames_with_a_free_slot=free)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        for what, f, s in (("(a) KPReIdBatched", "batched_fused",
+                            "batched_staged"),
+                           ("(b) the parts prefix", "parts_fused",
+                            "parts_staged")):
+            parting = _first_parting(eq[f], eq[s], 32)
+            if parting is not None:
+                log(f"posetrack {what}: fused and staged part first on "
+                    f"{parting} (fused, staged)")
+            stats[f"{f}_first_parting"] = parting
+            _same_rows(eq[f], eq[s], f"posetrack {what} fused vs staged")
+            d_emb = _same_embeddings(eq[f], eq[s],
+                                     f"posetrack {what} fused vs staged")
+            d_kp = (_same_keypoints(eq[f], eq[s], f"posetrack {what} fused "
+                                    "vs staged")
+                    if "keypoints_xyc" in eq[s] else None)
+            stats[f"{f}_vs_staged"] = dict(embeddings_rel=d_emb,
+                                           keypoints_max_diff=d_kp,
+                                           rows=len(eq[s]))
+            log(f"posetrack {what}: fused equals staged ({len(eq[s])} rows, "
+                f"embeddings within {d_emb:.2e} of their scale, keypoints "
+                f"within {d_kp})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) K4 on the recorded layers of the fused run's first chunk
+    check(len(recorded) == 12, f"posetrack (c): {len(recorded)} attention "
+          "calls recorded")
+    errs = []
+    for i, (q, k, v, n_valid, softmax) in enumerate(recorded):
+        check(q.dtype == torch.float32, "posetrack (c): KPR's attention is "
+              f"not f32 ({q.dtype})")
+        errs.append(_check_k4(torch, q, k, v, n_valid,
+                              f"posetrack path layer {i} {tuple(q.shape)}",
+                              softmax))
+    q, k, v, n_valid, softmax = recorded[0]
+    plain = (vit_attention_compute_plain if softmax == "compute"
+             else vit_attention_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    with torch.no_grad():
+        ms = cuda_ms(lambda: vit_attention(q, k, v, n_valid,
+                                           softmax=softmax), 10)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, n_valid), 3)
+        lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt), 10)
+    B, N, H, Dh = q.shape
+    b_ms, b_by = bound_ms(4 * B * N * H * Dh * q.element_size(),
+                          4 * B * H * N * N * Dh, PEAK["f32"])
+    k4_f32 = dict(shape=[B, N, H, Dh], dtype="f32", softmax=softmax,
+                  layers_checked=len(errs), max_abs_err=max(errs), ms=ms,
+                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                  bound_by=b_by)
+    log(f"posetrack (c): K4 f32 ({softmax} softmax) on the path's "
+        f"{len(errs)} layers within {max(errs):.2e} of its plain version; at "
+        f"{tuple(q.shape)}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA f32 (yardstick) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    recorded.clear()
+    stats["k4_f32_on_path"] = k4_f32
+    return stats, k4_f32
+
+
+def _matched_keypoint_gap(a, b):
+    """The largest keypoint coordinate gap (px) between the rows of two runs
+    matched frame by frame by IoU (as :func:`_match_prefix`), and the
+    number of keypoints more than 1 px apart."""
+    from scipy.optimize import linear_sum_assignment
+
+    gap, apart = 0.0, 0
+    for iid in a["image_id"].unique():
+        x, y = a[a["image_id"] == iid], b[b["image_id"] == iid]
+        if not len(x) or not len(y):
+            continue
+        iou = _iou_ltwh(np.stack(x["bbox_ltwh"].to_numpy()),
+                        np.stack(y["bbox_ltwh"].to_numpy()))
+        r, c = linear_sum_assignment(-iou)
+        kx = np.stack(x["keypoints_xyc"].to_numpy())[r, :, :2]
+        ky = np.stack(y["keypoints_xyc"].to_numpy())[c, :, :2]
+        d = np.abs(kx - ky).max(-1)
+        gap, apart = max(gap, float(d.max())), apart + int((d > 1).sum())
+    return gap, apart
+
+
+def _model_tape(torch, replay=None):
+    """A context in which the first forward of the YOLOX and TopDownPose
+    models and the first call of ``models.pose.decode_heatmaps`` (the
+    heatmaps after the sigmoid) are kept, as copies on their device (no
+    host sync), in the dict it yields under "YOLOX", "TopDownPose" and
+    "decode". Given ``replay`` (another run's dict), each of those calls
+    then goes on with the replay's tensors, moved to the call's device: the
+    rest of the program runs on the other run's model outputs and decodes
+    its heatmaps, while each model's own output is kept for comparing the
+    models apart."""
+    from contextlib import contextmanager
+
+    import tracklab_torch.models.pose as PM
+    from tracklab_torch.models.yolox import YOLOX
+
+    def like(src, ref):
+        if isinstance(ref, (list, tuple)):
+            return type(ref)(like(x, r) for x, r in zip(src, ref))
+        check(src.shape == ref.shape, f"replay: shape {tuple(src.shape)} "
+              f"for a call of shape {tuple(ref.shape)}")
+        return src.to(ref.device, ref.dtype)
+
+    def keep(x):
+        if isinstance(x, (list, tuple)):
+            return type(x)(keep(t) for t in x)
+        return x.detach().clone()
+
+    @contextmanager
+    def ctx():
+        tape, decode = {}, PM.decode_heatmaps
+
+        def hook(mod, inp, out):
+            key = type(mod).__name__
+            if type(mod) not in (YOLOX, PM.TopDownPose) or key in tape:
+                return None
+            tape[key] = keep(out)
+            return like(replay[key], out) if replay and key in replay \
+                else None
+
+        def taped_decode(heatmaps):
+            if "decode" not in tape:
+                tape["decode"] = keep(heatmaps)
+                if replay and "decode" in replay:
+                    heatmaps = like(replay["decode"], heatmaps)
+            return decode(heatmaps)
+
+        handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        PM.decode_heatmaps = taped_decode
+        try:
+            yield tape
+        finally:
+            handle.remove()
+            PM.decode_heatmaps = decode
+
+    return ctx()
+
+
+def _maps_rel(a, b):
+    """The largest gap between two lists of maps over ``b``'s largest
+    magnitude."""
+    a = a if isinstance(a, (list, tuple)) else [a]
+    b = b if isinstance(b, (list, tuple)) else [b]
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max()
+                     / y.float().abs().max()) for x, y in zip(a, b))
+
+
+def _first_parting(a, b, slots):
+    """The first frame (in ``image_id`` order) on which two runs' rows or
+    track ids differ: its image id, each run's detections on it and the
+    free detection slots of ``slots``; None when they never part."""
+    for iid in sorted(set(a["image_id"]) | set(b["image_id"])):
+        x, y = a[a["image_id"] == iid], b[b["image_id"] == iid]
+        if not x.index.equals(y.index) or not np.array_equal(
+                x["track_id"].to_numpy(float), y["track_id"].to_numpy(float),
+                equal_nan=True):
+            return dict(image_id=int(iid), detections=(len(x), len(y)),
+                        free_slots=(slots - len(x), slots - len(y)))
+    return None
+
+
+def _fused_card_vs_cpu(torch, args, slots):
+    """The fused program as typed (``args``: the first chunk of one video)
+    on the card and with device=cpu, the detector and the tracker at
+    ``slots`` slots. The CPU run goes on from the card's YOLOX maps and
+    decodes the card's heatmaps (:func:`_model_tape`), each model's own
+    output held to the card's within 1e-4 of its scale; then the rows,
+    boxes, track ids and track boxes (:func:`_same_rows`), the keypoints
+    within 1e-3 px and the embeddings within 1e-4 of their scale. Returns
+    the figures."""
+    args = args + [f"modules.bbox_detector.max_dets={slots}",
+                   f"modules.track.max_dets={slots}"]
+    timed = ("loader", "program", "eval")
+    with _model_tape(torch) as card_tape:
+        card, _, _, _ = _cli_run(torch, args, timed)
+    with _model_tape(torch, replay=card_tape) as cpu_tape:
+        cpu, _, _, cpu_split = _cli_run(
+            torch, [a for a in args if a != "device=cpu"] + ["device=cpu"],
+            timed)
+    frames = len(card["tracker_state"].image_pred)
+    card, cpu = (x["tracker_state"].detections_pred for x in (card, cpu))
+    what = "posetrack (a) the fused program on the CPU"
+    det_rel = _maps_rel(cpu_tape["YOLOX"], card_tape["YOLOX"])
+    hm_rel = _maps_rel(cpu_tape["TopDownPose"], card_tape["TopDownPose"])
+    check(det_rel <= 1e-4, f"{what}: YOLOX-s maps {det_rel:.2e} of their "
+          "scale from the card's")
+    check(hm_rel <= 1e-4, f"{what}: TopDownPose-s heatmaps {hm_rel:.2e} of "
+          "their scale from the card's")
+    _same_rows(cpu, card, what)
+    d_kp = _same_keypoints(cpu, card, what)
+    d_emb = _same_embeddings(cpu, card, what, rel=1e-4)
+    out = dict(rows=len(card), slots=slots, frames=frames,
+               tracked_rows=int(card["track_id"].notna().sum()),
+               yolox_maps_rel=det_rel, heatmaps_rel=hm_rel,
+               keypoints_max_diff=d_kp, embeddings_rel=d_emb,
+               cpu_s=cpu_split["track_dataset_s"])
+    log(f"posetrack (a): the fused program's first chunk ({frames} "
+        f"frames of 1280 x 720, {slots} slots) on the card against "
+        f"device=cpu, the CPU on the card's YOLOX-s maps and heatmaps: "
+        f"YOLOX-s maps within {det_rel:.2e} and TopDownPose-s heatmaps "
+        f"within {hm_rel:.2e} of their scale; {len(card)} rows, "
+        f"{out['tracked_rows']} tracked, boxes and track ids equal, "
+        f"keypoints within {d_kp:.2e}, embeddings within {d_emb:.2e} of "
+        f"their scale ({cpu_split['track_dataset_s']:.2f} s on the CPU)")
+    return out
+
+
+def _typed_apart(fused, staged):
+    """How far the as-typed fused run (device crops and prompts) lies from
+    the staged one (host crops and prompts): rows, tracked rows and equal
+    track ids, keypoint and embedding gaps."""
+    same_rows = fused.index.equals(staged.index)
+    out = dict(same_rows=bool(same_rows), rows=len(staged))
+    if same_rows:
+        kf = np.stack(fused["keypoints_xyc"].to_numpy())
+        ks = np.stack(staged["keypoints_xyc"].to_numpy())
+        ef = np.stack(fused["embeddings"].to_numpy())
+        es = np.stack(staged["embeddings"].to_numpy())
+        tf, ts = (x["track_id"].to_numpy(float) for x in (fused, staged))
+        both = ~np.isnan(tf) & ~np.isnan(ts)
+        out.update(keypoints_max_px=float(np.abs(kf - ks)[..., :2].max()),
+                   embeddings_rel=float(np.abs(ef - es).max()
+                                        / np.abs(es).max()),
+                   tracked_in_both=int(both.sum()),
+                   equal_track_ids=int((tf[both] == ts[both]).sum()))
+    return out
+
+
 def phase_k3_routes_f32(torch, dev, batch=8, size=640):
     """K3's f32 route for each dense CSPLayer of YOLOX-s at ``size``, batch
     ``batch`` (the CLI detector's shapes): the planner's route, K3's time
@@ -4938,25 +5592,37 @@ def main() -> int:
         torch, dev, oru=oru_in["multi_video_path"])
     p_launches, parts_stats = phase_parts(torch, dev)
     oru = phase_oru(torch, oru_in)
-    r_launches, rb_launches, reid_stats = phase_reid(torch, dev)
+    # depth cut for the room of phase posetrack's checks: the ReID path's
+    # plain-solver rerun 32 -> 16 frames
+    r_launches, rb_launches, reid_stats = phase_reid(torch, dev, n_plain=16)
     nkf_in = {}
     m_launches, motion_stats = phase_motion(torch, dev, oru=nkf_in)
     oru_nkf, motion_stats["oru_nkf"] = phase_oru_nkf(torch, dev, nkf_in)
     k3_f32 = phase_k3_routes_f32(torch, dev)
     keep = {}
-    cli_stats = phase_cli(torch, dev, smi, keep=keep)
-    reid_cli = phase_cli_reid(torch, dev, smi, keep=keep)
+    # depth cut for the room of phase posetrack: cli (b) 300 -> 200 -> 150
+    # frames a video, cli_reid (a) 150 -> 100 -> 80, its (b) and (c) tree
+    # 96 -> 64 and its (b) CPU prefix 16 -> 8 frames (and phase 17's
+    # reruns and the K2 checks of phases 8, 15 and 17)
+    cli_stats = phase_cli(torch, dev, smi, n_frames=150, keep=keep)
+    reid_cli = phase_cli_reid(torch, dev, smi, n_frames=80, tree_frames=64,
+                              prefix_frames=8, keep=keep)
     # depth cut for the room of phase pose: engines (a)'s detector runs
     # and (b)'s clips 60 -> 40 frames, K1's plain check 4 -> 2 solving
     # launches; config 4 as typed 100 -> 60 frames. Config 1's tree keeps
     # its 100 frames: the panning texture depends on the length, and on
     # the 60-frame one YOLO11m's card and CPU tracks parted on 16 of 575
-    # rows (detections within IoU 0.9999985: an association near-tie)
+    # rows (detections within IoU 0.9999985: an association near-tie).
+    # For the room of phase posetrack: (b)'s clips 40 -> 30 frames, config
+    # 4 as typed 60 -> 40, pose (c)'s top-down videos 60 -> 40; then
+    # config 5's videos 100 -> 50 frames and (a)'s detector runs 40 -> 32
     engines, engine_runs = phase_engines(torch, dev, smi, keep,
-                                         n_frames=40, file_frames=40,
-                                         reid_frames=40, k1_keep=2)
-    baseline = phase_baseline(torch, dev, smi, gs_frames=60)
-    pose = phase_pose(torch, dev, smi)
+                                         n_frames=32, file_frames=30,
+                                         reid_frames=30, k1_keep=2,
+                                         cfg5_frames=50)
+    baseline = phase_baseline(torch, dev, smi, gs_frames=40)
+    pose = phase_pose(torch, dev, smi, topdown_frames=40)
+    posetrack, k4["f32_kpr_cli"] = phase_posetrack(torch, dev, smi)
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -4985,8 +5651,12 @@ def main() -> int:
                  for k in ("config3", "bottomup_staged", "bottomup_fused",
                            "topdown_staged", "topdown_fused",
                            "vitpose_staged")}
+    posetrack_runs = {f"posetrack_{k}": posetrack[k]["launches"]
+                      for k in ("typed_staged", "typed_fused",
+                                "batched_staged", "batched_fused",
+                                "parts_staged", "parts_fused")}
     by_path = dict(cli_reid_runs, **engine_runs, **baseline_runs,
-                   **pose_runs)
+                   **pose_runs, **posetrack_runs)
     for entry, key in zip((k1, k2, k3, k4, oru, oru_nkf), _CLI_COUNTERS):
         entry["launches_by_path"] = {run: n[key]
                                      for run, n in by_path.items()}
@@ -4999,6 +5669,7 @@ def main() -> int:
                       "k3_f32_yolox_s_640_b8": k3_f32, "cli": cli_stats,
                       "cli_reid": reid_cli, "engines": engines,
                       "baseline": baseline, "pose": pose,
+                      "posetrack": posetrack,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,

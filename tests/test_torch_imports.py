@@ -76,7 +76,9 @@ def test_port_imports_in_a_clean_interpreter():
 # YOLOv8 / YOLO11 and game-state modules (calibration, pitch segmentation,
 # jersey OCR, SoccerNet, GS-HOTA), and the pose modules (the pose models,
 # ViTPose, the coordinate helpers, the pose wrappers and the keypoint
-# prompt masks), which the checks above must cover
+# prompt masks), and the KPR and PoseTrack modules (the KPR wrappers, the
+# pandas accessors, the PoseTrack datasets and metrics), which the checks
+# above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
@@ -150,7 +152,14 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/wrappers/pose_estimator/bottomup_api.py",
                  "tracklab_torch/wrappers/pose_estimator/topdown_api.py",
                  "tracklab_torch/wrappers/pose_estimator/batched_api.py",
-                 "tracklab_torch/wrappers/reid/reid_dataset.py")
+                 "tracklab_torch/wrappers/reid/reid_dataset.py",
+                 "tracklab_torch/wrappers/reid/kpr_api.py",
+                 "tracklab_torch/utils/__init__.py",
+                 "tracklab_torch/utils/accessors.py",
+                 "tracklab_torch/wrappers/dataset/posetrack.py",
+                 "tracklab_torch/eval/pose_metrics.py",
+                 "tracklab_torch/eval/pose_reid_metrics.py",
+                 "tracklab_torch/eval/pose_evaluator.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

@@ -1,7 +1,7 @@
 """Fused detector -> NMS -> tracker paths over a whole video (counterpart
 of tracklab_tpu.engine.fused).
 
-Three paths: detect -> NMS -> track (:func:`make_yolox_detect_fn`,
+The paths: detect -> NMS -> track (:func:`make_yolox_detect_fn`,
 :func:`fused_detect_track`, :func:`fused_detect_track_concat`, and
 :func:`run_fused_video`, the offline engine's fused branch, which drives it
 from the detector and tracker modules and emits their DataFrames); the ReID
@@ -9,9 +9,11 @@ path, detect -> NMS -> device crops -> OSNet embeddings -> an embedding
 tracker, StrongSORT, Deep-OC-SORT or BoT-SORT, with optional camera warps
 (e.g. from ``motion/lk.py:gmc_warps``) (:func:`make_osnet_embed_fn`,
 :func:`fused_detect_reid_track`, and :func:`run_fused_reid_video`, the
-offline engine's 3-module branch); and the promptless KPR parts path,
-detect -> NMS -> device crops -> KPR part features -> BPBReID-StrongSORT
-(:func:`make_kpr_embed_fn`, :func:`fused_detect_parts_track`). The pose
+offline engine's 3-module branch); and the KPR parts paths, detect -> NMS
+-> device crops [-> top-down pose] -> KPR part features (prompted by the
+pose) -> BPBReID-StrongSORT (:func:`make_kpr_embed_fn`,
+:func:`fused_detect_parts_track`, and :func:`run_fused_parts_video` and
+:func:`run_fused_gsr_video`, the offline engine's parts branches). The pose
 paths: bottom-up, a pose model whose one pass gives boxes and keypoints
 (boxes regenerated from the keypoints) -> tracker
 (:func:`make_bottomup_detect_fn`, :func:`fused_bottomup_track`,
@@ -49,6 +51,7 @@ __all__ = ["make_yolox_detect_fn", "fused_detect_track",
            "make_osnet_embed_fn", "fused_detect_reid_track",
            "run_fused_reid_video",
            "make_kpr_embed_fn", "fused_detect_parts_track",
+           "run_fused_parts_video", "run_fused_gsr_video",
            "make_bottomup_detect_fn", "fused_bottomup_track",
            "run_fused_bottomup_video", "make_topdown_pose_fn",
            "fused_detect_pose_track", "run_fused_pose_video"]
@@ -324,14 +327,7 @@ def run_fused_reid_video(detector, reid, tracker, loader, metadatas):
     min_conf = float(getattr(tracker, "min_confidence", 0.0))
     embed_dim = int(getattr(tracker, "embed_dim", 512))
 
-    warps = np.broadcast_to(np.eye(2, 3, dtype=np.float32),
-                            (F_pad, 2, 3)).copy()
-    if ("gmc_warp" in metadatas.columns
-            and not getattr(tracker, "cmc_off", False)):
-        for f, fid in enumerate(frame_ids):
-            w = metadatas.loc[fid, "gmc_warp"]
-            if isinstance(w, np.ndarray) and w.shape == (2, 3):
-                warps[f] = w
+    warps = _frame_warps(tracker, metadatas, frame_ids, F_pad)
 
     def embed(frames, boxes):
         return base_embed(frames, _staged_boxes(boxes))
@@ -364,6 +360,23 @@ def run_fused_reid_video(detector, reid, tracker, loader, metadatas):
                          np.nonzero(dets.valid[:F0].cpu().numpy()))
     trk_df = tracker._emissions_to_df(outs, F0, lut)
     return det_df, reid_df, trk_df[trk_df.index >= 0]
+
+
+def _frame_warps(tracker, metadatas, frame_ids, F_pad):
+    """(F_pad, 2, 3) camera warps of the frames: the ``gmc_warp`` image
+    column where a camera-motion module filled it, else the identity (and
+    the identity throughout with the tracker's ``cmc_off``)."""
+    import numpy as np
+
+    warps = np.broadcast_to(np.eye(2, 3, dtype=np.float32),
+                            (F_pad, 2, 3)).copy()
+    if ("gmc_warp" in metadatas.columns
+            and not getattr(tracker, "cmc_off", False)):
+        for f, fid in enumerate(frame_ids):
+            w = metadatas.loc[fid, "gmc_warp"]
+            if isinstance(w, np.ndarray) and w.shape == (2, 3):
+                warps[f] = w
+    return warps
 
 
 def _detect_chunk(detect_fn, frames, sl, meta, frame_valid):
@@ -546,9 +559,12 @@ def make_kpr_embed_fn(model, crop_size=(384, 128), n_prompt_ch: int = 6,
 
     ``frames`` (B, H, W, 3), ``boxes`` (B, D, 4). Returns ``embeddings``
     (B, D, P', E) and ``visibility`` (B, D, P'), both f32, in the
-    test-embeddings part layout (:func:`extract_test_embeddings`)."""
+    test-embeddings part layout (:func:`extract_test_embeddings`). The
+    normalisation constants are put on the model's device here, so that a
+    program that calls ``embed_fn`` makes no host-to-device copy."""
     ch, cw = crop_size
     consts = {}
+    _imagenet_consts(consts, next(model.parameters()).device)
 
     def embed(frames, boxes, keypoints=None):
         dev = frames.device
@@ -708,6 +724,124 @@ def fused_detect_parts_track(detect_fn, embed_fn, step_fn, init_state,
     kp = torch.cat(all_kp) if all_kp else None
     return state, dets, reid, kp, outs
 
+
+
+def _run_fused_parts(detector, pose, reid, tracker, loader, metadatas):
+    """The parts paths' host side (:func:`run_fused_parts_video` with
+    ``pose`` None, :func:`run_fused_gsr_video` with a top-down pose module):
+    drain the detector's loader, run :func:`fused_detect_parts_track` with
+    the staged modules' boxes (the ltwh round trip) and ``category_id``,
+    read it back once and emit the modules' rows. Returns ``(detector_df,
+    pose_df or None, reid_df, tracker_df)``, or None without frames."""
+    import numpy as np
+    from types import SimpleNamespace
+
+    frame_ids, images, meta, F0, chunk, frame_valid = _collect_frames(
+        detector, loader)
+    if not frame_ids:
+        return None
+    F_pad = len(frame_valid)
+    detect_fn = detector.device_detect_fn()
+    crop_meta = detector.crop_meta(meta)
+    base_embed = reid.device_embed_fn()
+    base_pose = pose.device_pose_fn() if pose is not None else None
+    D = detector.max_dets
+    cfg = tracker._make_config()
+    trk_D = cfg.max_dets
+    base_step = tracker._step_fn()
+    min_conf = float(getattr(tracker, "min_confidence", 0.0))
+    warps = _frame_warps(tracker, metadatas, frame_ids, F_pad)
+
+    def embed(frames, boxes, keypoints=None):
+        return base_embed(frames, _staged_boxes(boxes), keypoints)
+
+    def pose_fn(frames, boxes):
+        return base_pose(frames, _staged_boxes(boxes))
+
+    def step(state, inputs):
+        det, feat, vis, kps, warp = inputs
+        if trk_D < D:
+            det = Detections(*(x[:trk_D] for x in det))
+            feat, vis, kps = feat[:trk_D], vis[:trk_D], kps[:trk_D]
+        det = det._replace(ltrb=_staged_boxes(det.ltrb),
+                           cls=det.cls + detector.class_offset)
+        return base_step(cfg, state, (det, feat, vis, kps, warp))
+
+    dev = detector.device
+
+    def up(a):
+        return torch.from_numpy(a).to(dev)
+
+    _, dets, reid_out, kp, outs = fused_detect_parts_track(
+        detect_fn, embed, step, tracker._init_state(cfg), up(images), chunk,
+        meta={k: up(v) for k, v in meta.items()},
+        crop_meta={k: up(v) for k, v in crop_meta.items()},
+        warps=up(warps), frame_valid=up(frame_valid),
+        min_confidence=min_conf, n_parts=tracker.n_parts,
+        embed_dim=tracker.embed_dim, n_keypoints=tracker.n_keypoints,
+        pose_fn=pose_fn if pose is not None else None,
+        embed_buckets=getattr(reid, "embed_buckets", None),
+        return_embeddings=True)
+    det_df, lut = _detector_df(detector, dets, frame_ids, metadatas, F0,
+                               F_pad)
+    valid = dets.valid[:F0].cpu().numpy()
+    pose_df = (_pose_rows(kp[:F0].cpu().numpy(), valid, lut)
+               if pose is not None else None)
+    reid_df = reid._rows(reid_out, lut.reshape(F_pad, D), np.nonzero(valid))
+    # the detections the tracker took (cut to its max_dets, pre-filtered),
+    # for the cost columns of emit_costs, and its emissions, on the host
+    trk_ref = dets.ref[:, :trk_D].cpu().numpy()
+    trk_valid = dets.valid[:, :trk_D]
+    if min_conf > 0:
+        trk_valid = trk_valid & (dets.conf[:, :trk_D] > min_conf)
+    host = SimpleNamespace(**{k: x.cpu().numpy()
+                              for k, x in outs._asdict().items()
+                              if k in tracker._emitted and x is not None})
+    trk_df = tracker._bpb_emissions_to_df(
+        host, F0, lut, dets=SimpleNamespace(
+            ref=trk_ref, valid=trk_valid.cpu().numpy()))
+    return det_df, pose_df, reid_df, trk_df[trk_df.index >= 0]
+
+
+def run_fused_parts_video(detector, reid, tracker, loader, metadatas):
+    """One video through the fused parts path: drain the detector's loader
+    (host threads decode and letterbox), run detector -> NMS -> device
+    unletterbox -> device crops -> promptless KPR part features ->
+    BPBReID-StrongSORT as one device program with no host sync
+    (:func:`fused_detect_parts_track`), read it back once and emit the
+    three modules' DataFrames with the staged run's rows, row ids and
+    columns: the ReID rows (the part layout and its visibility) as the KPR
+    modules' ``_rows`` give them, the tracker's with the lifecycle columns
+    (``BPBReIDStrongSORT._bpb_emissions_to_df``). As in
+    :func:`run_fused_reid_video`, the crops come from the detector's
+    letterboxed frames (``KPReIdBatched``'s work image when its work size
+    equals the detector's input and the frame size), and the crops and
+    the tracker take the boxes the staged modules read back from
+    ``bbox_ltwh``. Returns ``(detector_df, reid_df, tracker_df)``."""
+    import pandas as pd
+
+    out = _run_fused_parts(detector, None, reid, tracker, loader, metadatas)
+    if out is None:
+        return pd.DataFrame(), pd.DataFrame(), pd.DataFrame()
+    det_df, _, reid_df, trk_df = out
+    return det_df, reid_df, trk_df
+
+
+def run_fused_gsr_video(detector, pose, reid, tracker, loader, metadatas):
+    """One video through the fused pose-tracking path: detector -> NMS ->
+    device unletterbox -> device crops -> top-down pose -> KPR part
+    features prompted by the pose (the cck6 gaussian maps drawn on the
+    device) -> BPBReID-StrongSORT (OKS motion reads the keypoints) as one
+    device program with no host sync (:func:`fused_detect_parts_track` with
+    ``pose_fn``), read back once, emitting the four modules' DataFrames
+    with the staged run's rows: the pose rows as
+    ``TopDownPoseBatched.process`` gives them, the ReID and tracker rows as
+    :func:`run_fused_parts_video`. Returns ``(detector_df, pose_df,
+    reid_df, tracker_df)``."""
+    import pandas as pd
+
+    out = _run_fused_parts(detector, pose, reid, tracker, loader, metadatas)
+    return out if out is not None else (pd.DataFrame(),) * 4
 
 
 # ------------------------------------------------------------------ pose

@@ -4,11 +4,13 @@
 Video-level modules (the scan trackers) take the whole video's detections
 at once. With ``fused=True`` a fusable prefix runs as one device program
 per video and emits the same DataFrames as the staged run: detector ->
-ReID -> embedding tracker (``engine/fused.py:run_fused_reid_video``),
-detector -> top-down pose -> tracker (``run_fused_pose_video``), detector ->
-tracker (``run_fused_video``) or bottom-up pose -> tracker
-(``run_fused_bottomup_video``). The JAX engine's parts branches (KPR, 3
-and 4 modules) wait for their wrappers in the port.
+top-down pose -> prompted KPR -> BPBReID (``engine/fused.py:
+run_fused_gsr_video``), detector -> ReID -> embedding tracker
+(``run_fused_reid_video``), detector -> top-down pose -> tracker
+(``run_fused_pose_video``), detector -> promptless KPR -> BPBReID
+(``run_fused_parts_video``), detector -> tracker (``run_fused_video``) or
+bottom-up pose -> tracker (``run_fused_bottomup_video``). The longest
+fusable prefix is taken first.
 """
 from __future__ import annotations
 
@@ -40,10 +42,24 @@ class OfflineTrackingEngine(TrackingEngine):
         return detections
 
     @staticmethod
+    def _fused_4(det_m, pose_m, reid_m, trk_m):
+        """The fused runner of a 4-module prefix, or None: detector -> NMS
+        -> device crops -> top-down pose -> KPR prompted by the pose ->
+        BPBReID."""
+        from tracklab_torch.engine import fused as FU
+        if (getattr(det_m, "supports_fused_detect", False)
+                and getattr(pose_m, "supports_fused_pose", False)
+                and getattr(reid_m, "supports_fused_prompted_parts", False)
+                and getattr(trk_m, "supports_fused_parts_track", False)):
+            return FU.run_fused_gsr_video
+        return None
+
+    @staticmethod
     def _fused_3(det_m, mid_m, trk_m):
         """The fused runner of a 3-module prefix, or None: detector -> NMS
-        -> device crops -> ReID -> embedding tracker, or detector -> NMS ->
-        device crops -> top-down pose -> tracker."""
+        -> device crops -> ReID -> embedding tracker, detector -> NMS ->
+        device crops -> top-down pose -> tracker, or detector -> NMS ->
+        device crops -> promptless KPR -> BPBReID."""
         from tracklab_torch.engine import fused as FU
         if not getattr(det_m, "supports_fused_detect", False):
             return None
@@ -53,6 +69,9 @@ class OfflineTrackingEngine(TrackingEngine):
         if (getattr(mid_m, "supports_fused_pose", False)
                 and getattr(trk_m, "supports_fused_track", False)):
             return FU.run_fused_pose_video
+        if (getattr(mid_m, "supports_fused_parts", False)
+                and getattr(trk_m, "supports_fused_parts_track", False)):
+            return FU.run_fused_parts_video
         return None
 
     def video_loop(self, video_metadata: pd.Series, video_id):
@@ -61,13 +80,15 @@ class OfflineTrackingEngine(TrackingEngine):
                 model.reset()
         detections, image_pred = self.tracker_state.load()
         model_names = list(self.module_names)
-        if self.fused and len(model_names) >= 3 and len(detections) == 0:
-            run_fused = self._fused_3(*(self.models[n]
-                                        for n in model_names[:3]))
+        for n, pick in ((4, self._fused_4), (3, self._fused_3)):
+            if not (self.fused and len(model_names) >= n
+                    and len(detections) == 0):
+                continue
+            run_fused = pick(*(self.models[m] for m in model_names[:n]))
             if run_fused is not None:
                 detections = self._fused_prefix(
-                    run_fused, model_names[:3], detections, image_pred)
-                model_names = model_names[3:]
+                    run_fused, model_names[:n], detections, image_pred)
+                model_names = model_names[n:]
                 if len(detections) == 0 or not model_names:
                     return detections, image_pred
         if self.fused and len(model_names) >= 2 and len(detections) == 0:

@@ -3,3 +3,9 @@ from tracklab_torch.eval.metrics import (  # noqa
     combine_sequences,
 )
 from tracklab_torch.eval.evaluator import TrackEvalEvaluator  # noqa
+from tracklab_torch.eval.pose_evaluator import (  # noqa
+    PoseTrackEvaluator, PoseTrack21Evaluator, PoseTrack18Evaluator,
+)
+from tracklab_torch.eval.pose_metrics import (  # noqa
+    make_pose_sequence_data, keypoint_map,
+)

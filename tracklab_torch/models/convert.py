@@ -6,7 +6,9 @@ dicts of numpy arrays, as the JAX package's ``model.init`` gives after
 ``np.asarray``) and returns the Megvii-layout state dict that
 ``models.yolox.YOLOX`` loads with ``strict=True``; ``kpr_from_flax`` does
 the same for the KPR ``{"params", "batch_stats"}`` tree and
-``models.kpr.KPR``. ``osnet_from_flax`` builds a ``models.osnet.OSNet``
+``models.kpr.KPR``, and ``convert_kpr_torch`` loads a reference KPR
+checkpoint (the authors' fork's key names, whose aliases it rewrites).
+``osnet_from_flax`` builds a ``models.osnet.OSNet``
 from the JAX package's OSNet tree, and ``convert_osnet_torch`` loads a
 torchreid OSNet state dict (the name map of the JAX package's
 ``convert_osnet_torch``, kept as the port's own copy). ``yolov8_from_flax``
@@ -32,6 +34,7 @@ from tracklab_torch.device import resolve_device
 
 __all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
            "state_dict_from_flax", "kpr_from_flax", "kpr_torch_key",
+           "convert_kpr_torch",
            "osnet_from_flax", "osnet_torch_key", "convert_osnet_torch",
            "yolov8_from_flax", "yolo11_from_flax", "convert_yolov8_torch",
            "pitchsegnet_from_flax", "yoloxpose_from_flax",
@@ -115,6 +118,61 @@ def kpr_from_flax(variables) -> dict:
             t = t.transpose(3, 2, 0, 1) if t.ndim == 4 else t.T
         out[kpr_torch_key(path)] = torch.tensor(np.ascontiguousarray(t))
     return out
+
+
+# Other spellings of the same modules in the KPR / BPBReID fork lineage
+# (the JAX package's ``_KPR_ALIASES``), rewritten before the names are
+# matched
+_KPR_ALIASES = (
+    ("backbone_appearance_feature_extractor.", "backbone."),
+    ("base.", "backbone."),
+    ("global_identity_classifier.bn.", "bn_global."),
+    ("foreground_identity_classifier.bn.", "bn_foreground."),
+    ("concat_parts_identity_classifier.bn.", "bn_concat_parts."),
+    ("parts_identity_classifier.bn.", "bn_parts."),
+    ("global_after_pooling_dim_reduce.", "dim_reduce_global."),
+    ("foreground_after_pooling_dim_reduce.", "dim_reduce_foreground."),
+    ("parts_after_pooling_dim_reduce.", "dim_reduce_parts."),
+    ("concat_parts_after_pooling_dim_reduce.",
+     "dim_reduce_concat_parts."),
+)
+# training-only identity classifier heads, which inference does not use
+_KPR_UNUSED = ("bn_global.classifier", "bn_foreground.classifier",
+               "bn_concat_parts.classifier", "bn_parts.classifier",
+               "classifier.", "global_identity_classifier.",
+               "foreground_identity_classifier.",
+               "concat_parts_identity_classifier.",
+               "parts_identity_classifier.")
+
+
+def convert_kpr_torch(state_dict, model):
+    """Load a reference KPR state dict (tensors or numpy arrays) into
+    ``model`` (a ``models.kpr.KPR`` of the same architecture) and return it:
+    a ``module.`` prefix is dropped, the fork's aliases (``_KPR_ALIASES``)
+    are rewritten, the identity classifier heads and ``num_batches_tracked``
+    are dropped, and the rest loads strict (the port's keys are the
+    checkpoint's). Raises on any missing or unused tensor, or a shape
+    mismatch."""
+    sd = {}
+    for k, v in state_dict.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        for old, new in _KPR_ALIASES:
+            if k.startswith(old):
+                k = new + k[len(old):]
+                break
+        if k.startswith(_KPR_UNUSED) or k.endswith("num_batches_tracked"):
+            continue
+        sd[k] = torch.as_tensor(np.asarray(v, dtype=np.float32))
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd]
+    unused = [k for k in sd if k not in own]
+    bad = [k for k in sd if k in own and sd[k].shape != own[k].shape]
+    if missing or unused or bad:
+        raise ValueError(f"KPR state dict does not fit: missing "
+                         f"{missing[:10]}, unused {unused[:10]}, shape "
+                         f"mismatch {bad[:10]}")
+    model.load_state_dict(sd, strict=True)
+    return model
 
 
 def osnet_torch_key(path):

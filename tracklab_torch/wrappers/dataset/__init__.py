@@ -10,3 +10,6 @@ from tracklab_torch.wrappers.dataset.external_video import (  # noqa
 from tracklab_torch.wrappers.dataset.soccernet import (  # noqa
     SoccerNetGameState, SoccerNetMOT,
 )
+from tracklab_torch.wrappers.dataset.posetrack import (  # noqa
+    PoseTrack18, PoseTrack21,
+)

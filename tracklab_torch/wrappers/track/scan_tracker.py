@@ -701,8 +701,10 @@ class BPBReIDStrongSORT(_EmbScanTrackerBase):
 
     Its step takes (Detections, feat, vis, kps, warp), not the flat
     embedding tracker's 3 inputs, so the ReID fused branch does not drive
-    it; the part-based fused path waits with the KPR wrappers (ROADMAP item
-    3). ``process_video_batch`` steps V videos at once over the video axis
+    it; the part-based fused paths do (``engine/fused.py``:
+    ``run_fused_parts_video`` after a promptless KPR module,
+    ``run_fused_gsr_video`` after top-down pose and a prompted one).
+    ``process_video_batch`` steps V videos at once over the video axis
     (``bpbreid_scan_videos``, each equal to its own scan)."""
 
     input_columns = ["bbox_ltwh", "bbox_conf", "category_id",
@@ -711,6 +713,7 @@ class BPBReIDStrongSORT(_EmbScanTrackerBase):
                       "track_bbox_kf_ltwh", "track_bbox_pred_kf_ltwh",
                       "hits", "age", "time_since_update", "state"]
     supports_fused_emb_track = False
+    supports_fused_parts_track = True
     _emitted = ("valid", "track_id", "ltrb", "conf", "ref", "pred_ltrb",
                 "tstate", "hits", "age", "time_since_update", "costs_r",
                 "costs_s", "costs_k", "matched_stage", "matched_cost",
