@@ -45,7 +45,7 @@ Phases (any failure exits non-zero):
   7. the main path: YOLOX-s 640 bf16 (seeded random weights) -> NMS ->
      OC-SORT over 4 chunks of 128 quasi-static uint8 frames, with the
      kernels' launch counters read around it and 0 host syncs per frame
-     required (the ORU replay runs as a kernel); 32 tracker steps profiled,
+     required (the ORU replay runs as a kernel); 8 tracker steps profiled,
      with K1's own device time and launches on the path read from the
      profile; then an untimed pass over the first chunk that records the
      path's K1 and ORU replay inputs: the share of launches that solve,
@@ -55,7 +55,7 @@ Phases (any failure exits non-zero):
      (~20 detections per frame, 64 slots, min_confidence 0.4 as a mask) ->
      OC-SORT with batched=True stepping the 8 videos at once (K2), with
      the launch counters read around it, 0 host syncs per step required
-     and 16 tracker steps profiled; then an untimed pass that records the
+     and 8 tracker steps profiled; then an untimed pass that records the
      ORU replay's inputs and trips per step and K2's last 4 inputs, on which
      K2 is checked against its plain version and timed (ns per step of
      each launch's longest problem).
@@ -86,7 +86,7 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13, 15, 17 and 16 after them:
      around it and 0 host syncs required in one warmed chunk; then the
      first chunk split into detector, KPR (at full width and with the
      buckets 24, 32, which read the live count on the host; K4 and the top
-     kernels within it, from the profiler) and 16 profiled tracker steps,
+     kernels within it, from the profiler) and 8 profiled tracker steps,
      and K4 checked and timed on the path's own layer-0 q, k, v;
  13. the ORU replay kernel against its plain version on the main path's
      and the multi-video path's recorded replay inputs (x within rtol 1e-5
@@ -109,7 +109,7 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13, 15, 17 and 16 after them:
      its first 16 recorded frames, id for id;
      the detector rerun with the plain CSPLayers, its detections
      matched by IoU and compared; the first chunk split into detector,
-     OSNet and 16 profiled tracker steps; then the tracker stage alone
+     OSNet and 8 profiled tracker steps; then the tracker stage alone
      over V = 4 videos (32 frames each) with batched=True (K2, its
      launches reported apart from the path's) against 4 single-video runs
      in that mode, id for id, K2 identical to its plain version on the
@@ -134,7 +134,7 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13, 15, 17 and 16 after them:
      in one warmed chunk of LK and each tracker's path; the warps within
      0.25 px of the pan and 0.01 of the identity, two pairs within 1e-3 of
      the LK on the CPU; launches of K1, K2, K3 and ORU-NKF counted around
-     each run; 16 tracker steps profiled; the first 8 frames of each
+     each run; 8 tracker steps profiled; the first 8 frames of each
      tracker stage equal to the stage on the CPU and to the stage with the
      plain JV solvers (on host copies of their inputs) and the plain
      ORU-NKF, id for id; the stage over V = 4 videos x 16 frames (the
@@ -183,7 +183,7 @@ Then K3's f32 route per layer and the command line:
      OC-SORT through the batched engine (one V = 8 scan) and the offline
      engine (8 per-video scans), rows equal, 0 host syncs in the scans,
      the tracker stages' seconds, K1 held to its plain version on the
-     V-axis scan's own inputs, 16 of its steps profiled beside 16 steps
+     V-axis scan's own inputs, 8 of its steps profiled beside 8 steps
      of one video; (b) the online engine (engine=video,
      dataset=external_video) on mp4 files of 1920 x 1080 the script
      writes: YOLOX-s (batch 1) -> OC-SORT over 150 frames and YOLOX-s ->
@@ -195,8 +195,9 @@ Then K3's f32 route per layer and the command line:
      to their staged runs; (d) one video of (a) cut to 50 frames with
      visualization=save_videos and TorchProfiler: an mp4 of 50 frames, a
      trace that names K1's and K3's kernels. Frames/s of every run. Depth
-     here: (a)'s detector runs 40 frames, (b)'s clips 30, K1's plain check
-     on the last 2 solving launches.
+     here: config 5's videos 40 frames, (a)'s detector runs 16, (b)'s
+     clips 20, (d)'s video 25, K1's plain check on the last 2 solving
+     launches.
  22. phase baseline: ``tracklab_torch.main.main`` in this process, (a)
      BASELINE config 1, +experiment=mot17_ocsort on a MOT17-layout tree of
      2 x 100 PNG frames of 1920 x 1080 the script writes, YOLOv8n 640 f32
@@ -217,7 +218,7 @@ Then K3's f32 route per layer and the command line:
 
  23. phase pose, the pose-tracking slice with seeded weights: (a) BASELINE
      config 3 as typed, +experiment=sportsmot_pose on a SportsMOT-layout
-     tree of 2 x 60 PNG frames of 1280 x 720 the script writes (depth cut;
+     tree of 2 x 40 PNG frames of 1280 x 720 the script writes (depth cut;
      the pose model's threshold calibrated to ~15 detections a frame):
      YOLOXPose-s 640 (K3) -> OSNet x1_0 with keypoint prompts (8 input
      channels) -> BPBReID-StrongSORT with OKS motion (K1): frames/s and
@@ -237,7 +238,7 @@ Then K3's f32 route per layer and the command line:
 
  24. phase posetrack, KPR part-based pose tracking with seeded weights on
      PoseTrack21-layout trees the script writes (the synthetic set's
-     renders with keypoints in JPEG frames, 2 x 60 at 1280 x 720 and 2 x 30
+     renders with keypoints in JPEG frames, 2 x 40 at 1280 x 720 and 2 x 60
      at 640 x 640; depth cut): (a) ``dataset=posetrack21 eval=posetrack21
      pipeline=[bbox_detector,pose_estimator,reid,track]`` with YOLOX-s
      (K3, threshold calibrated to ~11 detections a frame, at most 32),
@@ -254,10 +255,27 @@ Then K3's f32 route per layer and the command line:
      run's first chunk (512 crops) within 1e-5 of its plain version, and
      its f32 time there beside the plain version, SDPA and its bound.
 
+ 25. phase zoo, the detector zoo and DeepLabV3 with seeded weights, f32:
+     on a MOT17-layout tree of 2 x 40 PNG frames of 1920 x 1080 the script
+     writes, (a) modules/bbox_detector=rtdetr_hf (RT-DETR r50vd 640, one
+     class, deformable decoder) -> OC-SORT (K1, ORU), thresholds
+     calibrated to ~25 detections a frame, staged and fused (fused equal
+     to staged, 0 host syncs inside), the first 4 frames against
+     device=cpu, one forward of 8 frames split into backbone, encoder and
+     decoder (the deformable sampling's kernels apart), the encoder's
+     top-300 equal to the CPU's; (b) modules/bbox_detector=rtmdet
+     (RTMDet-nano 320) the same way; (c) modules/bbox_detector=rtdetr (the
+     lightweight RT-DETR-s 640) staged, against the CPU, and K3 at its
+     CSPDarknet's dense layers within rel 1e-4 of the plain layers;
+     (d) PitchLineDetector(variant="deeplabv3") (ResNet-101, output
+     stride 8) at 288 x 512 over 8 frames: ms per batch, logits within
+     1e-4 of their scale from the CPU's, the argmax equal but at
+     near-ties, the pitch lines equal.
+
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
 launches on its own path, and per run of phases cli_reid, engines,
-baseline, pose and posetrack under ``launches_by_path``; K4's f32 figures
+baseline, pose, posetrack and zoo under ``launches_by_path``; K4's f32 figures
 at the KPR command line's shape under ``f32_kpr_cli``), and {"ok": true,
 "device": ...}.
 """
@@ -275,6 +293,10 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK = {"bf16": 989e12, "f32": 67e12}
+# tracker steps per torch.profiler window (32 on the main path and 16
+# elsewhere before phase zoo: the profiler's post-processing of each window
+# took 10-37 s, and the room went to that phase)
+PROFILED_STEPS = 8
 
 
 _T0 = time.perf_counter()
@@ -1059,14 +1081,15 @@ def phase_main(torch, dev, n_chunks=4, chunk=128, size=640, oru=None):
           "non-finite track boxes")
     check(out.valid.shape == (F, cfg.max_tracks), "output shape")
 
-    # where the time goes: the detector on one chunk, then 32 tracker steps
-    # on its detections under the profiler
+    # where the time goes: the detector on one chunk, then PROFILED_STEPS
+    # tracker steps on its detections under the profiler
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dets = detect(video[:chunk])
     torch.cuda.synchronize()
     det_ms = (time.perf_counter() - t0) * 1e3
-    frames = [Detections(*(x[f] for x in dets)) for f in range(min(32, chunk))]
+    frames = [Detections(*(x[f] for x in dets))
+              for f in range(min(PROFILED_STEPS, chunk))]
     init = ocsort_init(cfg, device=dev)
 
     def track():
@@ -1272,8 +1295,9 @@ def phase_videos(torch, dev, n_videos=8, n_frames=128, size=640,
     check(torch.isfinite(out.ltrb[out.valid]).all().item(),
           "non-finite track boxes")
 
-    # device idle share of 16 tracker steps under the profiler
-    frames = [Detections(*(x[:, f] for x in dets)) for f in range(n_prof)]
+    # device idle share of PROFILED_STEPS tracker steps under the profiler
+    frames = [Detections(*(x[:, f] for x in dets))
+              for f in range(min(PROFILED_STEPS, n_prof))]
     init = repeat_state(ocsort_init(cfg, device=dev), n_videos)
 
     def track():
@@ -1782,14 +1806,15 @@ def phase_parts(torch, dev, n_chunks=8, chunk=16, size=640):
         f"32): {both}")
     init = bpbreid_init(cfg, device=dev)
 
-    def track():
+    def track(frames=inputs):
         st = init
-        for x in inputs:
+        for x in frames:
             st, _ = step(st, x)
 
     track()
     _, trk_ms = timed(track)
-    trk = profile_window(torch, track, len(inputs))
+    prof = inputs[:PROFILED_STEPS]
+    trk = profile_window(torch, lambda: track(prof), len(prof))
     log(f"parts path split (chunk of {chunk}): detector {det_ms:.1f} ms, "
         f"KPR {kpr_ms:.1f} ms at full width (K4 {k4_ms:.2f} ms of it; "
         f"{kpr_bucket_ms:.1f} ms with the buckets (24, 32), "
@@ -2163,14 +2188,15 @@ def phase_reid(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4,
     first = inputs[:chunk]
     init = strongsort_init(cfg, device=dev)
 
-    def track():
+    def track(frames=first):
         st = init
-        for x in first:
+        for x in frames:
             st, _ = step(st, x)
 
     track()
     _, trk_ms = timed(track)
-    trk = profile_window(torch, track, len(first))
+    prof = first[:PROFILED_STEPS]
+    trk = profile_window(torch, lambda: track(prof), len(prof))
     log(f"ReID path split (chunk of {chunk}): detector {det_ms:.1f} ms, "
         f"OSNet {osnet_ms:.1f} ms at full width, {osnet_bucket_ms:.1f} ms "
         f"with the buckets (8, 16, 32) ({int(d0.valid.sum(1).max())} live "
@@ -2615,13 +2641,14 @@ def phase_motion(torch, dev, n_chunks=8, chunk=16, size=640, n_videos=4,
         check(torch.isfinite(out.ltrb[out.valid]).all().item(),
               f"{name}: non-finite track boxes")
 
-        # 16 tracker steps under the profiler
+        # PROFILED_STEPS tracker steps under the profiler
         first = inputs[:chunk]
         init = init_fn(cfg, device=dev)
         _run_stage(step, init, first)
         _, trk_ms = timed(lambda: _run_stage(step, init, first))
-        trk = profile_window(torch, lambda: _run_stage(step, init, first),
-                             len(first))
+        prof = first[:PROFILED_STEPS]
+        trk = profile_window(torch, lambda: _run_stage(step, init, prof),
+                             len(prof))
         log(f"camera path, {name}: tracker {trk_ms / len(first):.2f} ms per "
             f"frame; under the profiler {trk}")
 
@@ -2779,6 +2806,7 @@ class _CliSplit:
         from tracklab_torch.eval.pose_evaluator import PoseTrackEvaluator
         from tracklab_torch.models.kpr import KPR
         from tracklab_torch.models.osnet import OSNet
+        from tracklab_torch.models.rtdetr import RTDETR
         from tracklab_torch.motion.gmc import GMC
         from tracklab_torch.wrappers.calibration_api import (
             PitchLineDetector, TVCalibration)
@@ -2816,6 +2844,9 @@ class _CliSplit:
             (TF, "make_osnet_embed_fn", partial(self._staged_fn, "embed")),
             (TF, "make_kpr_embed_fn", partial(self._staged_fn, "embed")),
             (TF, "make_topdown_pose_fn", partial(self._staged_fn, "pose")),
+            (TF, "make_rtdetr_detect_fn",
+             partial(self._staged_fn, "detect")),
+            (RTDETR, "predict", partial(self._forward, key="detect")),
             (TopDownPoseEstimator, "process", self._pose),
             (OSNet, "forward", self._forward),
             (KPR, "forward", self._forward),
@@ -2890,9 +2921,9 @@ class _CliSplit:
             return lambda *x, **y: self._timed("device", key, fn, *x, **y)
         return make
 
-    def _forward(self, orig):
+    def _forward(self, orig, key="reid"):
         def forward(model, *a, **kw):
-            return self._timed("device", "reid", orig, model, *a, **kw)
+            return self._timed("device", key, orig, model, *a, **kw)
         return forward
 
     def _pose(self, orig):
@@ -3048,14 +3079,19 @@ def _same_rows(a, b, what, box_col="bbox_ltwh"):
 
 
 def _calibrate_cli(torch, dev, n_objects, per_frame=25, born=15,
-                   img_wh=(1920, 1080), frames=None, detector=None):
+                   img_wh=(1920, 1080), frames=None, detector=None,
+                   own_input=False):
     """The score thresholds that leave ~``per_frame`` detections per frame
     (detector and tracker pre-filter) and ~``born`` above the tracker's
     birth threshold, from ``detector`` (built with min_confidence 0; by
     default the seeded YOLOX-s of yolox.yaml, or a bottom-up pose module)
     on ``frames`` (RGB uint8), by
     default the first 8 frames of the CLI's validation video at
-    ``img_wh``."""
+    ``img_wh``. The frames are letterboxed to 640 x 640 and go through the
+    fused closure, or with ``own_input`` through the detector's own
+    ``preprocess`` and the staged closure (the detector zoo: RTMDet at
+    320, the HF RT-DETR's stretch resize, the lightweight RT-DETR, which
+    has no fused closure)."""
     from tracklab_torch.utils.cv2 import cv2_load_image
     from tracklab_torch.wrappers.bbox_detector.yolox_api import (
         YOLOXDetector, letterbox)
@@ -3066,9 +3102,15 @@ def _calibrate_cli(torch, dev, n_objects, per_frame=25, born=15,
                                seed=1, id_offset=2, img_w=img_wh[0],
                                img_h=img_wh[1])
         frames = [cv2_load_image(p) for p in s.image_metadatas["file_path"]]
-    boxes = [letterbox(f, (640, 640)) for f in frames]
     det = detector or YOLOXDetector(min_confidence=0.0, device=dev)
-    out = det.device_detect_fn()(
+    if own_input:
+        boxes = [det.preprocess(f, None, None) for f in frames]
+        det._build()
+        fn = det._staged_detect_fn()
+    else:
+        boxes = [letterbox(f, (640, 640)) for f in frames]
+        fn = det.device_detect_fn()
+    out = fn(
         torch.from_numpy(np.stack([b["image"] for b in boxes])).to(dev),
         {k: torch.from_numpy(np.stack([b[k] for b in boxes])).to(dev)
          for k in ("scale", "pad", "shape")})
@@ -3754,12 +3796,13 @@ def phase_engines(torch, dev, card, keep, n_videos=8, n_frames=100,
         repeat_state(OC.ocsort_init(cfg, device=dev), n_videos), frames,
         n_keep=k1_keep, what="the batched engine's V-axis scan")
     # the default mode's step over the video axis (stacked K1) against one
-    # video's, on the same recorded frames: up to 64 steps unprofiled, 16
-    # profiled
+    # video's, on the same recorded frames: up to 64 steps unprofiled,
+    # PROFILED_STEPS profiled
     profiles = {}
-    lo = max(min(64, n_frames - 16), 0)
+    lo = max(min(64, n_frames - PROFILED_STEPS), 0)
     for v in (n_videos, 1):
-        fr = [Detections(*(x[:v] for x in d)) for d in frames[:lo + 16]]
+        fr = [Detections(*(x[:v] for x in d))
+              for d in frames[:lo + PROFILED_STEPS]]
         st = repeat_state(OC.ocsort_init(cfg, device=dev), v)
         for d in fr[:lo]:
             st, _ = OC.ocsort_step(cfg, st, d)
@@ -4941,12 +4984,13 @@ def _k4_recorder(store, n_keep):
 
 
 def phase_posetrack(torch, dev, card, n_videos=2, n_frames=60, n_objects=14,
-                    prefix_frames=4, prefix_slots=16):
+                    prefix_frames=4, prefix_slots=16, hd_frames=None):
     """The KPR pose-tracking slice through ``tracklab_torch.main.main`` in
     this process, with seeded weights, on PoseTrack21-layout trees the
-    script writes (``n_videos`` x ``n_frames`` JPEG frames, the synthetic
-    set's renders of ``n_objects`` people with keypoints; PoseTrack's
-    labelled sequences run longer: a depth cut).
+    script writes (``n_videos`` x ``n_frames`` JPEG frames, ``hd_frames``
+    on the 1280 x 720 tree where given, the synthetic set's renders of
+    ``n_objects`` people with keypoints; PoseTrack's labelled sequences run
+    longer: a depth cut).
 
     (a) The main path as typed on a 1280 x 720 tree: ``dataset=posetrack21
     eval=posetrack21 pipeline=[bbox_detector,pose_estimator,reid,track]``
@@ -5008,11 +5052,13 @@ def phase_posetrack(torch, dev, card, n_videos=2, n_frames=60, n_objects=14,
     recorded = []
     try:
         t0 = time.perf_counter()
-        frames8 = _posetrack_tree(tmp / "hd", n_videos, n_frames, n_objects)
+        hd_frames = hd_frames or n_frames
+        frames8 = _posetrack_tree(tmp / "hd", n_videos, hd_frames, n_objects)
         sq8 = _posetrack_tree(tmp / "sq", n_videos, n_frames, n_objects,
                               wh=(640, 640))
-        log(f"posetrack: wrote {n_videos} x {n_frames} JPEG frames of 1280 x "
-            f"720 and of 640 x 640 in {time.perf_counter() - t0:.1f} s")
+        log(f"posetrack: wrote {n_videos} x {hd_frames} JPEG frames of 1280 "
+            f"x 720 and {n_videos} x {n_frames} of 640 x 640 in "
+            f"{time.perf_counter() - t0:.1f} s")
         # each tree's own threshold, so that its frames have free slots
         thr, _ = _calibrate_cli(torch, dev, n_objects, per_frame=18,
                                 born=8, frames=frames8)
@@ -5539,6 +5585,296 @@ def _kernel_ms_in(torch, fn, name, top=8):
 
 
 
+def _zoo_detector_runs(torch, dev, card, what, group, det, tree, frames8,
+                       n_objects, fused, prefix_frames, cpu_dev):
+    """One detector of the zoo -> OC-SORT through the command line on the
+    MOT17-layout ``tree``: thresholds calibrated on ``frames8`` through the
+    detector's own input (``_calibrate_cli``), staged and (with ``fused``)
+    fused runs, fused equal to staged with 0 host syncs inside the fused
+    program, K1 and ORU launched, and the first ``prefix_frames`` frames of
+    the staged run against a device=cpu run (detections at IoU >= 0.999,
+    the same track ids). Returns (stats by run, the staged run's parts)."""
+    thr, born = _calibrate_cli(torch, dev, n_objects, frames=frames8,
+                               detector=det, own_input=True)
+    args = ["use_rich=false", "+experiment=mot17_ocsort",
+            f"data_dir={tree}"] + group + [
+        f"modules.bbox_detector.min_confidence={thr}",
+        f"modules.track.min_confidence={thr}",
+        f"modules.track.det_thresh={born}"]
+    stats, runs, staged_parts = {}, {}, None
+    # staged first: a fresh process's first tracker scans sync
+    for f in (False, True) if fused else (False,):
+        run = "fused" if f else "staged"
+        parts, res, launches, split = _cli_run(
+            torch, args + cpu_dev + [f"engine.fused={str(f).lower()}"],
+            ("loader", "program", "eval") if f
+            else ("loader", "detect", "scan", "eval"))
+        pred = parts["tracker_state"].detections_pred
+        runs[f] = pred
+        staged_parts = staged_parts or parts
+        per_frame = len(pred) / split["frames"]
+        log(f"zoo {what} {run} on {card}: {_split_line(split)}; device by "
+            f"stage {split['device_s_by_stage']}; {per_frame:.2f} "
+            f"detections/frame, {pred['track_id'].nunique()} tracks; "
+            f"launches {launches}; host syncs in the fused program "
+            f"{split['host_syncs_in_fused_program']}, in the scans "
+            f"{split['host_syncs_in_scans']}")
+        check(5 <= per_frame <= 64,
+              f"zoo {what} {run}: {per_frame:.2f} detections/frame")
+        for k in ("K1", "ORU"):
+            check(launches[k] > 0, f"zoo {what} {run}: {k} never launched")
+        if f:
+            check(split["fused_program_frames"] >= split["frames"],
+                  f"zoo {what}: the fused program did not run")
+            check(split["host_syncs_in_fused_program"] == 0,
+                  f"zoo {what}: {split['host_syncs_in_fused_program']} host "
+                  "syncs inside the fused program")
+        stats[run] = dict(split, launches=launches,
+                          detections_per_frame=per_frame, min_confidence=thr,
+                          det_thresh=born)
+    if fused:
+        _same_rows(runs[True], runs[False], f"zoo {what} fused vs staged")
+        log(f"zoo {what}: fused equals staged ({len(runs[True])} rows)")
+    # the CPU's batch is the prefix, not padded to the card's 8
+    cpu_parts, _, _, cpu_split = _cli_run(
+        torch, args + ["device=cpu", f"dataset.nframes={prefix_frames}",
+                       f"modules.bbox_detector.batch_size={prefix_frames}"],
+        ("loader", "detect", "scan", "eval"))
+    m = _match_prefix(runs[False], cpu_parts["tracker_state"].detections_pred,
+                      cpu_parts["tracker_state"].image_metadatas.index)
+    log(f"zoo {what}: the first {prefix_frames} frames on the card against "
+        f"device=cpu ({cpu_split['track_dataset_s']:.2f} s): {m}")
+    check(m["matched"] == m["card_rows"] == m["cpu_rows"] > 0,
+          f"zoo {what}: detections differ from the CPU's: {m}")
+    check(m["min_iou"] >= 0.999, f"zoo {what}: a detection matched the "
+          f"CPU's at IoU {m['min_iou']:.6f}")
+    check(m["other_track_ids"] == 0 and m["tracked_in_one"] == 0
+          and m["tracked_in_both"] > 0,
+          f"zoo {what}: card and CPU tracks differ: {m}")
+    stats["cpu_prefix"] = dict(m, cpu_s=cpu_split["track_dataset_s"])
+    return stats, staged_parts
+
+
+def _stretch_batch(torch, dev, det, frames):
+    """``frames`` through the detector's own ``preprocess``, stacked on
+    ``dev`` as the model's input (pixels / 255)."""
+    imgs = np.stack([det.preprocess(f, None, None)["image"] for f in frames])
+    return torch.from_numpy(imgs).to(dev).float() / 255.0
+
+
+def _rtdetr_hf_split(torch, model, x):
+    """CUDA-event ms of one RT-DETR HF forward on ``x`` and of its
+    backbone and its encoder (input projections + hybrid encoder) alone;
+    the decoder's share is the rest (decoder projections, anchors, query
+    selection, the decoder layers and heads); the deformable sampling's
+    own kernels (``grid_sampler``) from torch.profiler over one forward."""
+    core = model.model
+    xc = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        feats = core.backbone(xc)
+        total = cuda_ms(lambda: model(x), 5)
+        backbone = cuda_ms(lambda: core.backbone(xc), 5)
+        encoder = cuda_ms(lambda: core.encoder(
+            [p(f) for p, f in zip(core.encoder_input_proj, feats)]), 5)
+        grid, top = _kernel_ms_in(torch, lambda: model(x), "grid_sampler")
+    decoder = total - backbone - encoder
+    return dict(batch=int(x.shape[0]), forward_ms=total, backbone_ms=backbone,
+                encoder_ms=encoder, decoder_ms=decoder,
+                shares={k: v / total for k, v in (
+                    ("backbone", backbone), ("encoder", encoder),
+                    ("decoder", decoder))},
+                grid_sample_ms=grid, grid_sample_share=grid / total,
+                top_kernels=top)
+
+
+def _encoder_topk_gap(torch, model, x, cpu_model):
+    """The encoder's top-``num_queries`` selection on the card and on the
+    CPU for the same input: whether the selected sets agree per frame, and
+    the card's score gap between the last selected and the first left out
+    (its smallest over the frames)."""
+    scores = []
+    hook = model.model.enc_score_head.register_forward_hook(
+        lambda mod, inp, out: scores.append(out.amax(-1)))
+    try:
+        with torch.no_grad():
+            _, _, topk = model(x, return_topk=True)
+    finally:
+        hook.remove()
+    with torch.no_grad():
+        _, _, topk_cpu = cpu_model(x.cpu(), return_topk=True)
+    q = topk.shape[1]
+    srt = torch.sort(scores[0], dim=-1, descending=True).values
+    gaps = (srt[:, q - 1] - srt[:, q]).cpu().numpy()
+    same = [set(a.tolist()) == set(b.tolist())
+            for a, b in zip(topk.cpu(), topk_cpu)]
+    return dict(queries=q, same_sets=same, min_gap_at_rank=float(gaps.min()),
+                score_scale=float(srt.abs().max()))
+
+
+def phase_zoo(torch, dev, card, n_videos=2, n_frames=40, n_objects=24,
+              prefix_frames=4, topk_frames=2, seg_frames=8,
+              seg_cpu_frames=2):
+    """The detector zoo and DeepLabV3 through ``tracklab_torch.main.main``
+    and their modules, with seeded weights, in f32.
+
+    On a MOT17-layout tree the script writes (``n_videos`` x ``n_frames``
+    PNG frames of 1920 x 1080; ``_mot17_tree``), each detector -> OC-SORT
+    (K1, ORU) with its thresholds calibrated to ~25 detections a frame
+    (``_zoo_detector_runs``: fused equal to staged, 0 host syncs in the
+    fused program, the first ``prefix_frames`` frames against the CPU):
+    (a) ``modules/bbox_detector=rtdetr_hf`` (RT-DETR r50vd at 640, one
+    class), staged and fused; one forward of 8 frames split into backbone,
+    encoder and decoder (``_rtdetr_hf_split``: CUDA events; the deformable
+    sampling's own kernels by torch.profiler), and the encoder's top-300
+    on ``topk_frames`` frames against the CPU's with its score gap at rank
+    300;
+    (b) ``modules/bbox_detector=rtmdet`` (nano at 320), staged and fused;
+    (c) ``modules/bbox_detector=rtdetr`` (the lightweight RT-DETR-s at 640,
+    100 queries), staged (it has no fused closure), and K3 at its
+    CSPDarknet's dense layers against the plain layers (``_csp_vs_plain``).
+    (d) ``PitchLineDetector(variant="deeplabv3")`` (ResNet-101, output
+    stride 8) at 288 x 512 over ``seg_frames`` frames of the tree: ms per
+    batch, logits of the first ``seg_cpu_frames`` against the CPU (within
+    1e-4 of their scale), the argmax equal wherever the top two are
+    1e-5 of the scale apart or more, and the pitch lines of those frames
+    equal to the CPU's where the class maps agree.
+
+    Returns the stats; each run's kernel launches under its name."""
+    import copy
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tracklab_torch.models.segmentation import extract_segment_points
+    from tracklab_torch.wrappers.bbox_detector import (RTDETRDetector,
+                                                       RTMDetDetector)
+    from tracklab_torch.wrappers.calibration_api import PitchLineDetector
+
+    stats = {}
+    cpu_dev = ["device=cpu"] if dev.type == "cpu" else []
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_zoo_"))
+    try:
+        t0 = time.perf_counter()
+        frames8 = _mot17_tree(torch, dev, tmp, n_videos, n_frames, n_objects)
+        log(f"zoo: wrote {n_videos} x {n_frames} PNG frames of 1920 x 1080 "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+        # (a) the HF RT-DETR
+        hf = RTDETRDetector(variant="r50vd", num_classes=1,
+                            min_confidence=0.0, device=dev)
+        runs, parts = _zoo_detector_runs(
+            torch, dev, card, "(a) RT-DETR r50vd", [
+                "modules/bbox_detector=rtdetr_hf",
+                "modules.bbox_detector.num_classes=1"], hf, tmp, frames8,
+            n_objects, True, prefix_frames, cpu_dev)
+        stats.update({f"rtdetr_hf_{k}": v for k, v in runs.items()})
+        model = parts["modules"][0]._model
+        x = _stretch_batch(torch, dev, hf, frames8)
+        split = _rtdetr_hf_split(torch, model, x) if dev.type == "cuda" \
+            else {}
+        cpu_model = copy.deepcopy(model).cpu()
+        gap = _encoder_topk_gap(torch, model, x[:topk_frames], cpu_model)
+        del cpu_model
+        log(f"zoo (a) RT-DETR r50vd 640 f32 on {card}, one forward of "
+            f"{len(x)} frames: {split}; the encoder's top-{gap['queries']} "
+            f"on the card and the CPU: the same sets {gap['same_sets']}, the "
+            f"card's gap at rank {gap['queries']} "
+            f"{gap['min_gap_at_rank']:.3e} "
+            f"(scores up to {gap['score_scale']:.3e})")
+        check(all(gap["same_sets"]), f"zoo (a): the encoder's top-k parts "
+              f"from the CPU's: {gap}")
+        stats["rtdetr_hf_forward"] = dict(split, encoder_topk=gap)
+
+        # (b) RTMDet
+        runs, _ = _zoo_detector_runs(
+            torch, dev, card, "(b) RTMDet-nano",
+            ["modules/bbox_detector=rtmdet"],
+            RTMDetDetector(min_confidence=0.0, device=dev), tmp, frames8,
+            n_objects, True, prefix_frames, cpu_dev)
+        stats.update({f"rtmdet_{k}": v for k, v in runs.items()})
+
+        # (c) the lightweight RT-DETR, staged
+        light = RTDETRDetector(variant="s", num_classes=1,
+                               min_confidence=0.0, device=dev)
+        runs, parts = _zoo_detector_runs(
+            torch, dev, card, "(c) RT-DETR-s", [
+                "modules/bbox_detector=rtdetr"], light, tmp, frames8,
+            n_objects, False, prefix_frames, cpu_dev)
+        check(runs["staged"]["launches"]["K3"] > 0 or dev.type == "cpu",
+              "zoo (c): K3 never launched")
+        stats.update({f"rtdetr_s_{k}": v for k, v in runs.items()})
+        model = parts["modules"][0]._model
+        x = _stretch_batch(torch, dev, parts["modules"][0], frames8)
+        stats["rtdetr_s_k3"] = _csp_vs_plain(
+            torch, model, x, "zoo (c) RT-DETR-s 640 f32") \
+            if dev.type == "cuda" else {}
+
+        # (d) DeepLabV3 in PitchLineDetector
+        seg = PitchLineDetector(variant="deeplabv3", device=dev)
+        imgs = np.stack([seg.preprocess(f, None, None)["image"]
+                         for f in (frames8 * seg_frames)[:seg_frames]])
+        images = torch.from_numpy(imgs).to(dev)
+        seg._build()
+        if dev.type == "cuda":
+            ms = cuda_ms(lambda: seg.infer(images), 5)
+            fwd_ms = cuda_ms(lambda: seg._model(images.float()), 5)
+        else:
+            ms = fwd_ms = float("nan")
+        # the same seeded weights on the CPU
+        cpu_seg = PitchLineDetector(variant="deeplabv3", device="cpu")
+        cpu_seg._build()
+        n = seg_cpu_frames
+        norm = (images[:n].float() - torch.tensor(
+            [0.485, 0.456, 0.406], device=dev) * 255.0) / (torch.tensor(
+                [0.229, 0.224, 0.225], device=dev) * 255.0)
+        with torch.no_grad():
+            card_logits = seg._model(norm)["out"].cpu()
+            cpu_logits = cpu_seg._model(norm.cpu())["out"]
+        scale = float(cpu_logits.abs().max())
+        rel = float((card_logits - cpu_logits).abs().max()) / scale
+        top2 = torch.sort(cpu_logits, dim=-1).values[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0]) >= 1e-5 * scale
+        apart = int(((card_logits.argmax(-1) != cpu_logits.argmax(-1))
+                     & clear).sum())
+        cmap_card = seg._class_map(images[:n]).cpu()
+        cmap_cpu = cpu_seg._class_map(images[:n].cpu())
+        map_apart = int((cmap_card != cmap_cpu).sum())
+        xy_card, v_card = (t.cpu() for t in seg.infer(images[:n]))
+        # where the maps agree the CPU's own lines must be the card's; where
+        # a near-tie moved a pixel, the CPU extracts from the card's map
+        xy_cpu, v_cpu = (cpu_seg.infer(images[:n].cpu()) if map_apart == 0
+                         else extract_segment_points(
+                             cmap_card, seg.num_classes,
+                             seg.points_per_line))
+        lines_equal = bool(torch.equal(v_card, v_cpu)
+                           and torch.equal(xy_card[v_card], xy_cpu[v_cpu]))
+        counts = np.bincount(cmap_card.flatten().numpy(),
+                             minlength=seg.num_classes)
+        log(f"zoo (d) DeepLabV3-ResNet101 288x512 f32 on {card}: "
+            f"{ms:.3f} ms per batch of {seg_frames} (class map, LUT and "
+            f"points; the forward alone {fwd_ms:.3f}); logits of {n} frames "
+            f"{rel:.2e} of their scale ({scale:.3e}) from the CPU's; argmax "
+            f"apart at {apart} clear pixels, {int((~clear).sum())} near-tie "
+            f"pixels; segment maps apart at {map_apart} pixels; segment "
+            f"classes present {int((counts[1:] > 0).sum())}, valid points "
+            f"{int(v_card.sum())}; pitch lines "
+            f"{'equal' if lines_equal else 'apart'} (the CPU's own"
+            f"{'' if map_apart == 0 else ' extraction from the card map'})")
+        check(rel <= 1e-4, f"zoo (d): DeepLabV3 logits {rel:.2e} of their "
+              "scale from the CPU's")
+        check(apart == 0, f"zoo (d): the argmax parts from the CPU's at "
+              f"{apart} pixels that are no near-tie")
+        check(lines_equal, "zoo (d): pitch lines differ between devices")
+        stats["deeplabv3"] = dict(
+            batch=seg_frames, ms_per_batch=ms, forward_ms=fwd_ms,
+            logits_rel=rel, argmax_apart=apart,
+            near_tie_pixels=int((~clear).sum()), map_apart=map_apart,
+            valid_points=int(v_card.sum()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return stats
+
+
 def _host_packages():
     """Whether pandas, yaml, cv2, scipy, tqdm and rich import here, with
     their versions."""
@@ -5581,22 +5917,26 @@ def main() -> int:
     k2_random = phase_k2(torch, dev)
     k3 = phase_k3(torch, dev, time_batch=128)
     phase_tracker(torch, dev)
-    phase_batched_trackers(torch, dev)
+    # for the room of phase zoo (as the cuts below): 60 -> 40 frames
+    phase_batched_trackers(torch, dev, n_frames=40)
     k4 = phase_k4(torch, dev)
     kpr_stats = phase_kpr(torch, dev)
     phase_bpbreid(torch, dev)
     lx_stats = phase_yolox_lx(torch, dev)
     oru_in = {"main_path": {}, "multi_video_path": {}}
     launches, main_stats = phase_main(torch, dev, oru=oru_in["main_path"])
+    # for the room of phase zoo: 8 videos x 128 -> 64 frames
     v_launches, k2, videos_stats = phase_videos(
-        torch, dev, oru=oru_in["multi_video_path"])
+        torch, dev, n_frames=64, oru=oru_in["multi_video_path"])
     p_launches, parts_stats = phase_parts(torch, dev)
     oru = phase_oru(torch, oru_in)
     # depth cut for the room of phase posetrack's checks: the ReID path's
     # plain-solver rerun 32 -> 16 frames
     r_launches, rb_launches, reid_stats = phase_reid(torch, dev, n_plain=16)
     nkf_in = {}
-    m_launches, motion_stats = phase_motion(torch, dev, oru=nkf_in)
+    # for the room of phase zoo: 8 -> 4 chunks of 16 frames
+    m_launches, motion_stats = phase_motion(torch, dev, n_chunks=4,
+                                            oru=nkf_in)
     oru_nkf, motion_stats["oru_nkf"] = phase_oru_nkf(torch, dev, nkf_in)
     k3_f32 = phase_k3_routes_f32(torch, dev)
     keep = {}
@@ -5604,8 +5944,10 @@ def main() -> int:
     # frames a video, cli_reid (a) 150 -> 100 -> 80, its (b) and (c) tree
     # 96 -> 64 and its (b) CPU prefix 16 -> 8 frames (and phase 17's
     # reruns and the K2 checks of phases 8, 15 and 17)
-    cli_stats = phase_cli(torch, dev, smi, n_frames=150, keep=keep)
-    reid_cli = phase_cli_reid(torch, dev, smi, n_frames=80, tree_frames=64,
+    # for the room of phase zoo: cli (b) 150 -> 100 frames a video,
+    # cli_reid (a) 80 -> 60, its (b) and (c) tree 64 -> 48
+    cli_stats = phase_cli(torch, dev, smi, n_frames=100, keep=keep)
+    reid_cli = phase_cli_reid(torch, dev, smi, n_frames=60, tree_frames=48,
                               prefix_frames=8, keep=keep)
     # depth cut for the room of phase pose: engines (a)'s detector runs
     # and (b)'s clips 60 -> 40 frames, K1's plain check 4 -> 2 solving
@@ -5615,14 +5957,21 @@ def main() -> int:
     # rows (detections within IoU 0.9999985: an association near-tie).
     # For the room of phase posetrack: (b)'s clips 40 -> 30 frames, config
     # 4 as typed 60 -> 40, pose (c)'s top-down videos 60 -> 40; then
-    # config 5's videos 100 -> 50 frames and (a)'s detector runs 40 -> 32
+    # config 5's videos 100 -> 50 frames and (a)'s detector runs 40 -> 32.
+    # For the room of phase zoo: config 5's videos 50 -> 40, (a)'s
+    # detector runs 32 -> 16, (b)'s clips 30 -> 20, (d)'s rendered video
+    # 50 -> 25; pose (a)'s config 3 tree 60 -> 40 frames a video;
+    # posetrack (a)'s 1280 x 720 tree 60 -> 40 (its 640 tree keeps 60: most
+    # of its frames have a free slot, PERF.md section 7)
     engines, engine_runs = phase_engines(torch, dev, smi, keep,
-                                         n_frames=32, file_frames=30,
-                                         reid_frames=30, k1_keep=2,
-                                         cfg5_frames=50)
+                                         n_frames=16, file_frames=20,
+                                         reid_frames=20, vis_frames=25,
+                                         k1_keep=2, cfg5_frames=40)
     baseline = phase_baseline(torch, dev, smi, gs_frames=40)
-    pose = phase_pose(torch, dev, smi, topdown_frames=40)
-    posetrack, k4["f32_kpr_cli"] = phase_posetrack(torch, dev, smi)
+    pose = phase_pose(torch, dev, smi, n_frames=40, topdown_frames=40)
+    posetrack, k4["f32_kpr_cli"] = phase_posetrack(torch, dev, smi,
+                                                   hd_frames=40)
+    zoo = phase_zoo(torch, dev, smi)
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -5655,8 +6004,12 @@ def main() -> int:
                       for k in ("typed_staged", "typed_fused",
                                 "batched_staged", "batched_fused",
                                 "parts_staged", "parts_fused")}
+    zoo_runs = {f"zoo_{k}": zoo[k]["launches"]
+                for k in ("rtdetr_hf_staged", "rtdetr_hf_fused",
+                          "rtmdet_staged", "rtmdet_fused",
+                          "rtdetr_s_staged")}
     by_path = dict(cli_reid_runs, **engine_runs, **baseline_runs,
-                   **pose_runs, **posetrack_runs)
+                   **pose_runs, **posetrack_runs, **zoo_runs)
     for entry, key in zip((k1, k2, k3, k4, oru, oru_nkf), _CLI_COUNTERS):
         entry["launches_by_path"] = {run: n[key]
                                      for run, n in by_path.items()}
@@ -5669,7 +6022,7 @@ def main() -> int:
                       "k3_f32_yolox_s_640_b8": k3_f32, "cli": cli_stats,
                       "cli_reid": reid_cli, "engines": engines,
                       "baseline": baseline, "pose": pose,
-                      "posetrack": posetrack,
+                      "posetrack": posetrack, "zoo": zoo,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,

@@ -2,13 +2,17 @@
 template, the priors and the one-cycle schedule, ``project_points`` and
 ``backproject_to_pitch``, TVCalib's ``_frame_loss`` and its gradient
 against ``jax.grad``, ``optimize_cameras`` at 30 steps, ``PitchSegNet`` and
-``extract_segment_points`` (equal indices), and the wrappers
+``extract_segment_points`` (equal indices), the wrappers
 ``PitchLineDetector``, ``TVCalibration`` and ``PitchProjection`` on the
-same rows.
+same rows, and DeepLabV3 (cut to one bottleneck per layer): its logits,
+``convert_deeplabv3_torch`` on torchvision keys and
+``PitchLineDetector(variant="deeplabv3")``.
 
 Observations are the synthetic game-state camera's pitch lines (the JAX
 package's ``_gs_camera`` / ``_gs_pitch_lines``) at 640 x 360.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +25,9 @@ from tracklab_tpu.calibration import camera as JC
 from tracklab_tpu.calibration import tvcalib as JT
 from tracklab_tpu.calibration.cam_distr import priors_array as jpriors
 from tracklab_tpu.calibration.pitch import pitch_segments as jsegments
+from tracklab_tpu.models.convert import (_generic_torch_key,
+                                         export_torch_state_dict)
+from tracklab_tpu.models.deeplabv3 import DeepLabV3 as JDeepLabV3
 from tracklab_tpu.models.segmentation import PitchSegNet as JPitchSegNet
 from tracklab_tpu.models.segmentation import \
     extract_segment_points as jextract
@@ -31,7 +38,10 @@ from tracklab_torch.calibration import camera as TC
 from tracklab_torch.calibration import tvcalib as TT
 from tracklab_torch.calibration.cam_distr import priors_array
 from tracklab_torch.calibration.pitch import pitch_segments
-from tracklab_torch.models.convert import pitchsegnet_from_flax
+from tracklab_torch.models.convert import (convert_deeplabv3_torch,
+                                           deeplabv3_from_flax,
+                                           pitchsegnet_from_flax)
+from tracklab_torch.models.deeplabv3 import DeepLabV3
 from tracklab_torch.models.segmentation import (PitchSegNet,
                                                 extract_segment_points)
 from tracklab_torch.wrappers import calibration_api as TAPI
@@ -292,8 +302,104 @@ def test_pitch_line_detector_matches_jax(segnet):
     w = jdet.preprocess(frame, None, None)
     np.testing.assert_array_equal(g["scale"], w["scale"])
     assert np.abs(g["image"].astype(int) - w["image"].astype(int)).max() <= 1
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        TAPI.PitchLineDetector(variant="deeplabv3", device="cpu")
+
+
+# ------------------------------------------------------------ DeepLabV3
+DEEPLAB_LAYERS = (1, 1, 1, 1)     # ResNet-101's (3, 4, 23, 3), cut
+
+
+@pytest.fixture(scope="module")
+def deeplab(tmp_path_factory):
+    """DeepLabV3 with one bottleneck per ResNet layer at 64 x 128: JAX's
+    model with seeded variables, the port's through
+    ``deeplabv3_from_flax`` (also saved as a checkpoint)."""
+    jmodel = JDeepLabV3(layers=DEEPLAB_LAYERS)
+    variables = _seg_variables(jmodel, (64, 128), seed=1)
+    model = DeepLabV3(layers=DEEPLAB_LAYERS, device="cpu")
+    model.load_state_dict(deeplabv3_from_flax(variables), strict=True)
+    ckpt = tmp_path_factory.mktemp("deeplab") / "deeplabv3.pt"
+    torch.save(model.state_dict(), ckpt)
+    return jmodel, variables, model, ckpt
+
+
+def test_deeplabv3_matches_jax(deeplab):
+    """``out`` and ``aux`` logits within 1e-4 of their scale; the argmax
+    equal wherever the top two classes are 1e-5 apart or more."""
+    jmodel, variables, model, _ = deeplab
+    x = np.random.default_rng(5).normal(0, 1, (2, 64, 128, 3)).astype(
+        np.float32)
+    want = jax.jit(jmodel.apply)(variables, x)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    for k in ("out", "aux"):
+        w = np.asarray(want[k])
+        assert got[k].shape == w.shape == (2, 64, 128, 29)
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max())
+    w = np.asarray(want["out"])
+    top2 = np.sort(w, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] >= 1e-5
+    assert clear.mean() > 0.99
+    np.testing.assert_array_equal(
+        model.predict(torch.from_numpy(x)).numpy()[clear],
+        np.argmax(w, -1)[clear])
+
+
+def test_convert_deeplabv3_torch_loads_torchvision_keys(deeplab):
+    """The torchvision-named dict JAX's exporter writes, held under
+    ``model`` with ``module.`` prefixes and BN's ``num_batches_tracked``
+    as a training checkpoint holds it, loads equal to
+    ``deeplabv3_from_flax``'s; a model without ``aux`` leaves the aux head's
+    tensors unread; a missing tensor raises."""
+    jmodel, variables, model, _ = deeplab
+    sd = export_torch_state_dict(jmodel, variables, _generic_torch_key)
+    sd["backbone.bn1.num_batches_tracked"] = np.int64(2)
+    ckpt = {"model": {f"module.{k}": v for k, v in sd.items()}}
+    got = convert_deeplabv3_torch(ckpt, DeepLabV3(layers=DEEPLAB_LAYERS,
+                                                  device="cpu"))
+    want = model.state_dict()
+    for k, v in got.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0, msg=k)
+    no_aux = convert_deeplabv3_torch(sd, DeepLabV3(
+        layers=DEEPLAB_LAYERS, aux=False, device="cpu"))
+    assert not any(k.startswith("aux_") for k in no_aux.state_dict())
+    del sd["classifier.0.convs.4.2.running_mean"]
+    with pytest.raises(ValueError, match="missing"):
+        convert_deeplabv3_torch(sd, DeepLabV3(layers=DEEPLAB_LAYERS,
+                                              device="cpu"))
+
+
+def test_pitch_line_detector_deeplabv3_matches_jax(deeplab, monkeypatch):
+    """``PitchLineDetector(variant="deeplabv3")`` in both packages (the
+    model cut to DEEPLAB_LAYERS in both) on the same resized batch: the
+    same LUT, segments and points."""
+    import tracklab_tpu.models.deeplabv3 as JD
+    import tracklab_torch.models.deeplabv3 as TD
+
+    _, variables, _, ckpt = deeplab
+    np.testing.assert_array_equal(
+        TD.segment_class_lut(pitch_segments()).numpy(),
+        np.asarray(JD.segment_class_lut(jsegments())))
+    for mod, cls in ((JD, JDeepLabV3), (TD, DeepLabV3)):
+        monkeypatch.setattr(mod, "DeepLabV3",
+                            functools.partial(cls, layers=DEEPLAB_LAYERS))
+    jdet = JAPI.PitchLineDetector(variant="deeplabv3", input_size=(64, 128))
+    jdet._variables = variables
+    tdet = TAPI.PitchLineDetector(variant="deeplabv3", input_size=(64, 128),
+                                  checkpoint_path=str(ckpt), device="cpu")
+    images = np.random.default_rng(7).integers(0, 256, (2, 64, 128, 3),
+                                               dtype=np.uint8)
+    meta = pd.DataFrame(index=[20, 21])
+    batch = {"image": images.astype(np.float32),
+             "scale": np.array([[3.0, 3.0]] * 2, np.float32)}
+    _, want = jdet.process(batch, None, meta)
+    _, got = tdet.process(dict(batch, image=images), None, meta)
+    assert sum(len(w["pitch_lines"]) for w in want) >= 4
+    for g, w in zip(got, want):
+        assert g.name == w.name
+        assert list(g["pitch_lines"]) == list(w["pitch_lines"])
+        for k, v in w["pitch_lines"].items():
+            np.testing.assert_array_equal(g["pitch_lines"][k], v)
 
 
 def test_tvcalibration_and_projection_match_jax():

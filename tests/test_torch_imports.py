@@ -77,8 +77,9 @@ def test_port_imports_in_a_clean_interpreter():
 # jersey OCR, SoccerNet, GS-HOTA), and the pose modules (the pose models,
 # ViTPose, the coordinate helpers, the pose wrappers and the keypoint
 # prompt masks), and the KPR and PoseTrack modules (the KPR wrappers, the
-# pandas accessors, the PoseTrack datasets and metrics), which the checks
-# above must cover
+# pandas accessors, the PoseTrack datasets and metrics), and the detector
+# zoo and DeepLabV3 (RTMDet, both RT-DETR families, their converters and
+# wrappers), which the checks above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
@@ -159,7 +160,15 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/wrappers/dataset/posetrack.py",
                  "tracklab_torch/eval/pose_metrics.py",
                  "tracklab_torch/eval/pose_reid_metrics.py",
-                 "tracklab_torch/eval/pose_evaluator.py")
+                 "tracklab_torch/eval/pose_evaluator.py",
+                 "tracklab_torch/models/rtmdet.py",
+                 "tracklab_torch/models/rtdetr.py",
+                 "tracklab_torch/models/rtdetr_hf.py",
+                 "tracklab_torch/models/deeplabv3.py",
+                 "tracklab_torch/models/convert.py",
+                 "tracklab_torch/wrappers/bbox_detector/rtmdet_api.py",
+                 "tracklab_torch/wrappers/bbox_detector/rtdetr_api.py",
+                 "tracklab_torch/wrappers/bbox_detector/__init__.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

@@ -1,7 +1,8 @@
 """Fused detector -> NMS -> tracker paths over a whole video (counterpart
 of tracklab_tpu.engine.fused).
 
-The paths: detect -> NMS -> track (:func:`make_yolox_detect_fn`,
+The paths: detect -> NMS -> track (:func:`make_yolox_detect_fn`, or
+:func:`make_rtdetr_detect_fn` for the NMS-free HF RT-DETR;
 :func:`fused_detect_track`, :func:`fused_detect_track_concat`, and
 :func:`run_fused_video`, the offline engine's fused branch, which drives it
 from the detector and tracker modules and emits their DataFrames); the ReID
@@ -46,7 +47,8 @@ from tracklab_torch.ops.nms import postprocess_detections
 from tracklab_torch.trackers.common import (Detections, concat_resets,
                                             reset_wrapped_step, stack_frames)
 
-__all__ = ["make_yolox_detect_fn", "fused_detect_track",
+__all__ = ["make_yolox_detect_fn", "make_rtdetr_detect_fn",
+           "fused_detect_track",
            "fused_detect_track_concat", "run_fused_video",
            "make_osnet_embed_fn", "fused_detect_reid_track",
            "run_fused_reid_video",
@@ -94,6 +96,49 @@ def make_yolox_detect_fn(model, conf_threshold: float = 0.4,
                                              zero), wh0)
             hi = torch.minimum(torch.maximum((ltrb[..., 2:4] - pad) / scale,
                                              zero), wh0)
+            ltrb = torch.cat([lo, hi], dim=-1)
+            side = hi - lo
+            valid = valid & (side[..., 0] > 0) & (side[..., 1] > 0)
+        B = ltrb.shape[0]
+        ref = torch.arange(max_dets, dtype=torch.int32,
+                           device=ltrb.device).expand(B, max_dets)
+        return Detections(ltrb, d["score"].float(), d["cls"].float(), ref,
+                          valid)
+
+    return detect
+
+
+def make_rtdetr_detect_fn(model, input_size, conf_threshold: float = 0.4,
+                          max_dets: int = 32):
+    """Build ``detect_fn(frames, meta) -> Detections`` for the HF-exact
+    RT-DETR (``models/rtdetr_hf.py``) in f32: pixels / 255
+    (RTDetrImageProcessor: no normalisation), NMS-free top-k decode
+    (``postprocess_rtdetr``).
+
+    ``frames``: (B, H, W, 3) uint8 stretch-resized to ``input_size`` (h,
+    w). ``meta``: optional dict with ``scale`` (B, 2) per-axis [sx, sy] and
+    ``shape`` (B, 2) [w0, h0]; when given, boxes are mapped to
+    original-image coordinates in the host wrapper's order (scale, clip,
+    drop collapsed boxes).
+    """
+    from tracklab_torch.models.rtdetr_hf import postprocess_rtdetr
+
+    th, tw = input_size
+
+    def detect(frames, meta=None) -> Detections:
+        with torch.no_grad():
+            logits, boxes = model(frames.float() / 255.0)
+            d = postprocess_rtdetr(logits, boxes, img_w=tw, img_h=th,
+                                   conf_threshold=conf_threshold,
+                                   max_out=max_dets)
+        ltrb = d["ltrb"].float()
+        valid = d["valid"]
+        if meta is not None:
+            sxy = meta["scale"][:, None, :].float()
+            wh0 = meta["shape"][:, None, :].float()
+            zero = torch.zeros((), device=ltrb.device)
+            lo = torch.minimum(torch.maximum(ltrb[..., 0:2] * sxy, zero), wh0)
+            hi = torch.minimum(torch.maximum(ltrb[..., 2:4] * sxy, zero), wh0)
             ltrb = torch.cat([lo, hi], dim=-1)
             side = hi - lo
             valid = valid & (side[..., 0] > 0) & (side[..., 1] > 0)

@@ -21,7 +21,11 @@ The pose models: ``yoloxpose_from_flax``, ``topdownpose_from_flax`` and
 ``yolo11_from_flax`` also carries ``YOLO11Pose``, ``vitpose_from_flax``
 carries ``ViTPose``, and ``convert_vitpose_torch`` loads an HF
 ``VitPoseForPoseEstimation`` state dict (the port's ViTPose holds its key
-names).
+names). The detector zoo and DeepLabV3: ``rtmdet_from_flax``,
+``rtdetr_from_flax``, ``rtdetr_hf_from_flax`` and ``deeplabv3_from_flax``
+carry the JAX package's trees across; ``convert_rtmdet_torch`` (mmdet
+keys), ``convert_rtdetr_hf_torch`` (HF keys) and
+``convert_deeplabv3_torch`` (torchvision keys) load reference checkpoints.
 """
 from __future__ import annotations
 
@@ -39,7 +43,10 @@ __all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
            "yolov8_from_flax", "yolo11_from_flax", "convert_yolov8_torch",
            "pitchsegnet_from_flax", "yoloxpose_from_flax",
            "topdownpose_from_flax", "simccpose_from_flax",
-           "vitpose_from_flax", "convert_vitpose_torch"]
+           "vitpose_from_flax", "convert_vitpose_torch",
+           "rtmdet_from_flax", "convert_rtmdet_torch", "rtdetr_from_flax",
+           "rtdetr_hf_from_flax", "convert_rtdetr_hf_torch",
+           "deeplabv3_from_flax", "convert_deeplabv3_torch"]
 
 _LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var"}
@@ -85,6 +92,27 @@ def state_dict_from_flax(variables, key_fn=module_torch_key) -> dict:
             t = t.transpose(3, 2, 0, 1)
         out[key_fn(path)] = torch.tensor(t)
     return out
+
+
+def _load_checked(sd, model, what, unused_ok=()):
+    """Load ``sd`` (tensors or numpy arrays; BN's ``num_batches_tracked``
+    and keys starting with ``unused_ok`` dropped) into ``model`` strictly
+    and return it; raises on any missing or unused tensor, or a shape
+    mismatch."""
+    sd = {k: torch.as_tensor(np.asarray(v, dtype=np.float32))
+          for k, v in sd.items()
+          if not k.endswith("num_batches_tracked")
+          and not k.startswith(unused_ok)}
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd]
+    unused = [k for k in sd if k not in own]
+    bad = [k for k in sd if k in own and sd[k].shape != own[k].shape]
+    if missing or unused or bad:
+        raise ValueError(f"{what} state dict does not fit: missing "
+                         f"{missing[:10]}, unused {unused[:10]}, shape "
+                         f"mismatch {bad[:10]}")
+    model.load_state_dict(sd, strict=True)
+    return model
 
 
 def yolox_from_flax(variables) -> dict:
@@ -160,19 +188,8 @@ def convert_kpr_torch(state_dict, model):
             if k.startswith(old):
                 k = new + k[len(old):]
                 break
-        if k.startswith(_KPR_UNUSED) or k.endswith("num_batches_tracked"):
-            continue
-        sd[k] = torch.as_tensor(np.asarray(v, dtype=np.float32))
-    own = model.state_dict()
-    missing = [k for k in own if k not in sd]
-    unused = [k for k in sd if k not in own]
-    bad = [k for k in sd if k in own and sd[k].shape != own[k].shape]
-    if missing or unused or bad:
-        raise ValueError(f"KPR state dict does not fit: missing "
-                         f"{missing[:10]}, unused {unused[:10]}, shape "
-                         f"mismatch {bad[:10]}")
-    model.load_state_dict(sd, strict=True)
-    return model
+        sd[k] = v
+    return _load_checked(sd, model, "KPR", unused_ok=_KPR_UNUSED)
 
 
 def osnet_torch_key(path):
@@ -276,20 +293,8 @@ def convert_yolov8_torch(state_dict, model):
           for k, v in state_dict.items()}
     if not any(k.startswith("model.") for k in sd):
         sd = {f"model.{k}": v for k, v in sd.items()}
-    sd = {k: torch.as_tensor(np.asarray(v, dtype=np.float32))
-          for k, v in sd.items()
-          if not k.startswith(_YOLO_UNUSED)
-          and not k.endswith("num_batches_tracked")}
-    own = model.state_dict()
-    missing = [k for k in own if k not in sd]
-    unused = [k for k in sd if k not in own]
-    bad = [k for k in sd if k in own and sd[k].shape != own[k].shape]
-    if missing or unused or bad:
-        raise ValueError(f"ultralytics YOLO state dict does not fit: missing "
-                         f"{missing[:10]}, unused {unused[:10]}, shape "
-                         f"mismatch {bad[:10]}")
-    model.load_state_dict(sd, strict=True)
-    return model
+    return _load_checked(sd, model, "ultralytics YOLO",
+                         unused_ok=_YOLO_UNUSED)
 
 
 # flax auto-names of PitchSegNet's submodules -> the port's attributes
@@ -419,16 +424,209 @@ def convert_vitpose_torch(state_dict, model):
     variant, decoder and input size) and return it: the keys are the
     port's own; BN's ``num_batches_tracked`` is dropped. Raises on any
     missing or unused tensor, or a shape mismatch."""
-    sd = {k: torch.as_tensor(np.asarray(v, dtype=np.float32))
-          for k, v in state_dict.items()
-          if not k.endswith("num_batches_tracked")}
-    own = model.state_dict()
-    missing = [k for k in own if k not in sd]
-    unused = [k for k in sd if k not in own]
-    bad = [k for k in sd if k in own and sd[k].shape != own[k].shape]
-    if missing or unused or bad:
-        raise ValueError(f"HF ViTPose state dict does not fit: missing "
-                         f"{missing[:10]}, unused {unused[:10]}, shape "
-                         f"mismatch {bad[:10]}")
-    model.load_state_dict(sd, strict=True)
-    return model
+    return _load_checked(state_dict, model, "HF ViTPose")
+
+
+def _split_indices(name):
+    """A flax module name -> its torch key components: '__' spells '.',
+    and trailing '_<index>' segments expand to '.<index>' recursively
+    (``encoder_input_proj_0_1`` -> encoder_input_proj, 0, 1)."""
+    import re
+
+    comps = []
+    for part in name.split("__"):
+        stack = [part]
+        while True:
+            m = re.match(r"^(.*)_(\d+)$", stack[0])
+            if not m:
+                break
+            stack = [m.group(1), m.group(2)] + stack[1:]
+        comps.extend(stack)
+    return comps
+
+
+def _indexed_key(path) -> str:
+    """Flax path (collection, *modules, leaf) -> torch key by
+    :func:`_split_indices` (the JAX package's ``_rtdetr_hf_torch_key`` and
+    ``_generic_torch_key`` rules)."""
+    _, *mods, leaf = path
+    comps = []
+    for m in mods:
+        comps.extend(_split_indices(m))
+    return ".".join(comps + [_LEAF_MAP[leaf]])
+
+
+# ----------------------------------------------------------------- RTMDet
+
+def _rtmdet_keys(path):
+    """Flax path of the JAX package's RTMDet -> the mmdet keys it fills:
+    module names split as mmdet's segments (``stage1_2`` -> ``stage1.2``);
+    the head's shared conv ``{cls,reg}_convs_share_j`` fills every level's
+    ``{cls,reg}_convs.{lvl}.j.conv``, its BN ``{cls,reg}_bn_{lvl}_j`` the
+    level's ``.bn``."""
+    import re
+
+    _, *mods, leaf = path
+    comps, levels = [], [None]
+    for m in mods:
+        sh = re.match(r"^(cls|reg)_convs_share_(\d+)$", m)
+        bn = re.match(r"^(cls|reg)_bn_(\d+)_(\d+)$", m)
+        if sh:
+            comps.extend([f"{sh.group(1)}_convs", "{lvl}", sh.group(2),
+                          "conv"])
+            levels = [0, 1, 2]
+        elif bn:
+            comps.extend([f"{bn.group(1)}_convs", bn.group(2), bn.group(3),
+                          "bn"])
+        else:
+            comps.extend(_split_indices(m))
+    key = ".".join(comps + [_LEAF_MAP[leaf]])
+    return [key if lvl is None else key.replace("{lvl}", str(lvl))
+            for lvl in levels]
+
+
+def rtmdet_from_flax(variables) -> dict:
+    """Flax RTMDet variables (the JAX package's ``models.rtmdet.RTMDet``)
+    -> the mmdet-named state dict ``models.rtmdet.RTMDet`` loads with
+    ``strict=True``; the head's shared conv kernels copied to each
+    level."""
+    out = {}
+    for path, leaf in _flatten(variables):
+        t = np.asarray(leaf, dtype=np.float32)
+        if t.ndim == 4:
+            t = t.transpose(3, 2, 0, 1)
+        for key in _rtmdet_keys(path):
+            out[key] = torch.tensor(np.ascontiguousarray(t))
+    return out
+
+
+def convert_rtmdet_torch(state_dict, model):
+    """Load an mmdetection RTMDet state dict (tensors or numpy arrays; a
+    ``state_dict``-style export whose keys start with ``backbone.``,
+    ``neck.`` and ``bbox_head.``) into ``model`` (a ``models.rtmdet.RTMDet``
+    of the same variant) and return it. The SepBN head shares its conv
+    kernels across levels (mmdet's ``share_conv``): level 0's are loaded
+    into every level and the other levels' copies, where present, are not
+    read, as the JAX package's converter does. Raises on any other missing
+    or unused tensor, or a shape mismatch."""
+    import re
+
+    tied = re.compile(r"^bbox_head\.(cls|reg)_convs\.([12])\.(\d+)\.conv\.")
+    sd = {k: v for k, v in state_dict.items() if not tied.match(k)}
+    for k in model.state_dict():
+        src = tied.sub(r"bbox_head.\1_convs.0.\3.conv.", k)
+        if src != k and src in sd:
+            sd[k] = sd[src]
+    return _load_checked(sd, model, "mmdet RTMDet")
+
+
+# ---------------------------------------------------------------- RT-DETR
+
+_RTDETR_TOP = {"CSPDarknet_0": "backbone", "Dense_0": "proj5",
+               "Dense_1": "proj3", "Dense_2": "proj4", "Dense_3": "cls_head",
+               "Dense_4": "box_head", "EncoderLayer_0": "encoder"}
+_RTDETR_ENC = {"MultiHeadDotProductAttention_0": "attn",
+               "LayerNorm_0": "norm1", "Dense_0": "ffn.fc1",
+               "Dense_1": "ffn.fc2", "LayerNorm_1": "norm2"}
+_RTDETR_DEC = {"MultiHeadDotProductAttention_0": "self_attn",
+               "LayerNorm_0": "norm1",
+               "MultiHeadDotProductAttention_1": "cross_attn",
+               "LayerNorm_1": "norm2", "Dense_0": "ffn.fc1",
+               "Dense_1": "ffn.fc2", "LayerNorm_2": "norm3"}
+
+
+def rtdetr_from_flax(variables) -> dict:
+    """Flax variables of the JAX package's lightweight ``models.rtdetr.
+    RTDETR`` (flax auto-names, in the module's call order: the /32, /8 and
+    /16 token projections, then the heads) -> the state dict
+    ``models.rtdetr.RTDETR`` loads with ``strict=True``. The
+    ``MultiHeadDotProductAttention`` kernels (dim, heads, head_dim) and
+    (heads, head_dim, dim) become Linear weights (heads * head_dim, dim) and
+    (dim, heads * head_dim)."""
+    out = {}
+    for path, leaf in _flatten(variables):
+        t = np.asarray(leaf, dtype=np.float32)
+        coll, top, *rest = path
+        if top == "CSPDarknet_0":
+            key = "backbone." + module_torch_key((coll, *rest))
+            if t.ndim == 4:
+                t = t.transpose(3, 2, 0, 1)
+        elif top in ("pos5", "queries"):
+            key = top
+        else:
+            if top.startswith("DecoderLayer_"):
+                prefix = ["decoder", top.rsplit("_", 1)[1],
+                          _RTDETR_DEC[rest[0]]]
+                rest = rest[1:]
+            elif top == "EncoderLayer_0":
+                prefix = ["encoder", _RTDETR_ENC[rest[0]]]
+                rest = rest[1:]
+            else:
+                prefix = [_RTDETR_TOP[top]]
+            leaf_name = rest[-1]
+            if prefix[-1].endswith("attn"):          # query/key/value/out
+                prefix.append(rest[0])
+                if leaf_name == "kernel":
+                    t = (t.reshape(t.shape[0], -1) if rest[0] != "out"
+                         else t.reshape(-1, t.shape[-1])).T
+                else:
+                    t = t.reshape(-1)
+            elif leaf_name == "kernel":
+                t = t.T
+            key = ".".join(prefix + [_LEAF_MAP[leaf_name]])
+        out[key] = torch.tensor(np.ascontiguousarray(t))
+    return out
+
+
+def rtdetr_hf_from_flax(variables) -> dict:
+    """Flax variables of the JAX package's ``models.rtdetr_hf.RTDetrHF``
+    (module names spelling the HF keys) -> the HF-named state dict
+    ``models.rtdetr_hf.RTDetrHF`` loads with ``strict=True``."""
+    return _pose_state_dict(variables, _indexed_key)
+
+
+def convert_rtdetr_hf_torch(state_dict, model):
+    """Load an HF ``RTDetrForObjectDetection`` state dict (tensors or numpy
+    arrays; the PekingU rtdetr_* checkpoints) into ``model`` (a
+    ``models.rtdetr_hf.RTDetrHF`` of the same variant) and return it. The
+    prediction heads are tied into the decoder, so the
+    ``model.decoder.{bbox,class}_embed.*`` alias fills the top-level names
+    where those are absent; the denoising class table (training only), the
+    anchor buffers and RT-DETRv2's ``n_points_scale`` buffers (whose
+    released defaults reduce v2's sampling to this one's) are not read.
+    Raises on any other missing or unused tensor, or a shape mismatch."""
+    sd = dict(state_dict)
+    for k in list(sd):
+        for head in ("bbox_embed", "class_embed"):
+            pref = f"model.decoder.{head}."
+            if k.startswith(pref):
+                sd.setdefault(k[len("model.decoder."):], sd[k])
+    sd = {k: v for k, v in sd.items() if not k.endswith("n_points_scale")}
+    return _load_checked(sd, model, "HF RT-DETR", unused_ok=(
+        "model.decoder.bbox_embed.", "model.decoder.class_embed.",
+        "model.denoising_class_embed.", "model.anchors",
+        "model.valid_mask"))
+
+
+# -------------------------------------------------------------- DeepLabV3
+
+def deeplabv3_from_flax(variables) -> dict:
+    """Flax variables of the JAX package's ``models.deeplabv3.DeepLabV3``
+    (module names spelling torchvision's keys) -> the torchvision-named
+    state dict ``models.deeplabv3.DeepLabV3`` loads with ``strict=True``."""
+    return _pose_state_dict(variables, _indexed_key)
+
+
+def convert_deeplabv3_torch(state_dict, model):
+    """Load a torchvision DeepLabV3-ResNet101 state dict (tensors or numpy
+    arrays; the SoccerNet pitch-line checkpoint keeps it under ``model``,
+    which is unwrapped) into ``model`` (a ``models.deeplabv3.DeepLabV3``)
+    and return it: a ``module.`` prefix is dropped; without ``model.aux``
+    the aux classifier's tensors are not read. Raises on any other missing
+    or unused tensor, or a shape mismatch."""
+    if isinstance(state_dict.get("model"), Mapping):
+        state_dict = state_dict["model"]
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in state_dict.items()}
+    return _load_checked(sd, model, "torchvision DeepLabV3",
+                         unused_ok=() if model.aux else ("aux_classifier.",))

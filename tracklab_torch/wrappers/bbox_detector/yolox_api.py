@@ -117,7 +117,12 @@ class YOLOXDetector(ImageLevelModule):
                         "random weights", type(self).__name__)
             model.randomize_(0)
         self._model = model
-        self._detect = self.device_detect_fn()
+        self._detect = self._staged_detect_fn()
+
+    def _staged_detect_fn(self):
+        """The closure ``process`` runs on a batch (boxes in input pixels):
+        the fused path's own, so that the two give the same rows."""
+        return self.device_detect_fn()
 
     def device_detect_fn(self):
         """``(frames, meta) -> Detections`` on the card for the fused path,
@@ -159,19 +164,24 @@ class YOLOXDetector(ImageLevelModule):
         det = self._detect(torch.from_numpy(images).to(self.device))
         ltrb, score, cls, valid = (x[:n].cpu().numpy() for x in
                                    (det.ltrb, det.conf, det.cls, det.valid))
-        # host unletterbox in f32: rescale, clip to the image, drop boxes
-        # that collapse
-        scale = np.asarray(batch["scale"], np.float32)[:, None, None]
-        pad = np.asarray(batch["pad"], np.float32)[:, None, :]
-        wh0 = np.asarray(batch["shape"], np.float32)[:, None, :]
-        lo = np.clip((ltrb[..., 0:2] - pad) / scale, 0, wh0)
-        hi = np.clip((ltrb[..., 2:4] - pad) / scale, 0, wh0)
+        lo, hi = self._to_frame(batch, ltrb)
         wh = hi - lo
         keep = valid & (wh[..., 0] > 0) & (wh[..., 1] > 0)
         fs, ds = np.nonzero(keep)
         rows = self._rows(metadatas, fs, lo[fs, ds], wh[fs, ds],
                           cls[fs, ds], score[fs, ds])
         return rows
+
+    @staticmethod
+    def _to_frame(batch, ltrb):
+        """Host unletterbox in f32: boxes (B, D, 4) in input pixels -> (lo,
+        hi) corners in frame pixels, rescaled and clipped to the image (the
+        caller drops the boxes that collapse)."""
+        scale = np.asarray(batch["scale"], np.float32)[:, None, None]
+        pad = np.asarray(batch["pad"], np.float32)[:, None, :]
+        wh0 = np.asarray(batch["shape"], np.float32)[:, None, :]
+        return (np.clip((ltrb[..., 0:2] - pad) / scale, 0, wh0),
+                np.clip((ltrb[..., 2:4] - pad) / scale, 0, wh0))
 
     def _rows(self, metadatas, fs, lt, wh, cls, score):
         """Detection rows of frames ``metadatas.index[fs]``, numbered from

@@ -33,11 +33,16 @@ __all__ = ["PitchLineDetector", "TVCalibration", "PitchProjection"]
 
 class PitchLineDetector(ImageLevelModule):
     """Pitch-line segmentation front-end. ``variant`` is a YOLOX backbone
-    width ("nano" .. "x"); the reference's DeepLabV3 ("deeplabv3") waits for
-    ROADMAP item 4. ``checkpoint_path`` names a state dict of the port's
-    ``PitchSegNet`` (``models/convert.py:pitchsegnet_from_flax`` writes one
-    from the JAX package's tree), loaded with ``strict=True``; without one
-    the weights are seeded random, with a warning."""
+    width ("nano" .. "x") of the port's ``PitchSegNet``, or "deeplabv3",
+    the reference's DeepLabV3-ResNet101 (``models/deeplabv3.py``: ImageNet
+    mean and std on 0-255 pixels, argmax, then a LUT gather from its 29
+    line classes onto the port's segments). ``checkpoint_path`` names a
+    state dict: the port's ``PitchSegNet`` (``models/convert.py:
+    pitchsegnet_from_flax`` writes one from the JAX package's tree), loaded
+    with ``strict=True``, or a torchvision DeepLabV3 (the SoccerNet
+    checkpoint, or ``deeplabv3_from_flax``'s), through
+    ``convert_deeplabv3_torch``; without one the weights are seeded random,
+    with a warning."""
 
     input_columns = {"image": [], "detection": []}
     output_columns = {"image": ["pitch_lines"], "detection": []}
@@ -48,10 +53,6 @@ class PitchLineDetector(ImageLevelModule):
                  checkpoint_path: str | None = None,
                  batch_size: int = 8, device=None, **kwargs):
         super().__init__(batch_size)
-        if variant == "deeplabv3":
-            raise NotImplementedError(
-                "PitchLineDetector(variant='deeplabv3') is not ported to "
-                "tracklab_torch yet (ROADMAP item 4: models/deeplabv3.py)")
         from tracklab_torch.calibration.pitch import pitch_segments
         self.segment_names = list(pitch_segments())
         self.num_classes = len(self.segment_names) + 1
@@ -63,13 +64,30 @@ class PitchLineDetector(ImageLevelModule):
         self._model = None
 
     def _build(self):
-        from tracklab_torch.models.segmentation import PitchSegNet
-        model = PitchSegNet(self.num_classes, self.variant,
-                            device=self.device)
+        if self.variant == "deeplabv3":
+            from tracklab_torch.models.convert import convert_deeplabv3_torch
+            from tracklab_torch.models.deeplabv3 import (DeepLabV3,
+                                                         segment_class_lut)
+            model = DeepLabV3(device=self.device)
+            load = convert_deeplabv3_torch
+            lut = segment_class_lut(self.segment_names, self.device)
+            mean = torch.tensor([0.485, 0.456, 0.406],
+                                device=self.device) * 255.0
+            std = torch.tensor([0.229, 0.224, 0.225],
+                               device=self.device) * 255.0
+            self._class_map = lambda images: lut[model.predict(
+                (images.float() - mean) / std)]
+        else:
+            from tracklab_torch.models.segmentation import PitchSegNet
+            model = PitchSegNet(self.num_classes, self.variant,
+                                device=self.device)
+
+            def load(state, model):
+                model.load_state_dict(state, strict=True)
+            self._class_map = model.predict
         if self.checkpoint_path:
-            model.load_state_dict(torch.load(
-                self.checkpoint_path, map_location="cpu", weights_only=True),
-                strict=True)
+            load(torch.load(self.checkpoint_path, map_location="cpu",
+                            weights_only=True), model)
         else:
             log.warning("PitchLineDetector: no checkpoint_path given — "
                         "running with random weights")
@@ -82,7 +100,7 @@ class PitchLineDetector(ImageLevelModule):
         from tracklab_torch.models.segmentation import extract_segment_points
         if self._model is None:
             self._build()
-        cmap = self._model.predict(images)
+        cmap = self._class_map(images)
         return extract_segment_points(cmap, self.num_classes,
                                       self.points_per_line)
 
