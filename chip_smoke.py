@@ -272,10 +272,24 @@ Then K3's f32 route per layer and the command line:
      1e-4 of their scale from the CPU's, the argmax equal but at
      near-ties, the pitch lines equal.
 
+ 26. phase reid_zoo, the ReID backbone zoo with seeded weights, f32: (a)
+     ``pipeline=[bbox_detector,reid,track] +modules/bbox_detector=yolox
+     +modules/reid=backbone_zoo modules/track=strong_sort`` (resnet50_ibn_a
+     at 256 x 128 on host crops, batch 32, 2048-d; StrongSORT at embed_dim
+     2048) staged on 2 synthetic 640 x 640 videos x 40 frames x 24 objects,
+     thresholds calibrated: K3 and K1 launched, 0 host syncs in the tracker
+     scans, frames/s and its split (loader, detect, embed, scan, eval); the
+     first 8 frames rerun with device=cpu, rows matched by IoU, track ids
+     equal and embeddings within 1e-4 of their scale; (b) one key per zoo
+     family at full width (HACNN 160 x 64, the rest 256 x 128): a batch of 4
+     on the card within 1e-4 of the output's scale from the CPU's, and a
+     batch of 32 timed with CUDA events.
+
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
 launches on its own path, and per run of phases cli_reid, engines,
-baseline, pose, posetrack and zoo under ``launches_by_path``; K4's f32 figures
+baseline, pose, posetrack, zoo and reid_zoo under ``launches_by_path``; K4's
+f32 figures
 at the KPR command line's shape under ``f32_kpr_cli``), and {"ok": true,
 "device": ...}.
 """
@@ -2784,7 +2798,8 @@ def _timed_sync_count(torch, fn, *a, **kw):
 class _CliSplit:
     """Where a CLI run's host wall time goes: seconds blocked on the
     loader (decode, letterbox and crops on its threads), in device programs
-    (the fused program, or the staged detector, ReID, pose and tracker scan
+    (the fused program, or the staged detector, ReID (OSNet, KPR, and the
+    zoo's backbones under "embed"), pose and tracker scan
     calls, each synchronised and also kept per stage in ``s_by``; the
     scans, single-video or over the batched engine's video axis, also
     apart), in camera-motion estimates
@@ -2805,7 +2820,7 @@ class _CliSplit:
         from tracklab_torch.eval.gs_evaluator import GameStateEvaluator
         from tracklab_torch.eval.pose_evaluator import PoseTrackEvaluator
         from tracklab_torch.models.kpr import KPR
-        from tracklab_torch.models.osnet import OSNet
+        from tracklab_torch.models.osnet import OSNet, ReidBackbone
         from tracklab_torch.models.rtdetr import RTDETR
         from tracklab_torch.motion.gmc import GMC
         from tracklab_torch.wrappers.calibration_api import (
@@ -2849,6 +2864,7 @@ class _CliSplit:
             (RTDETR, "predict", partial(self._forward, key="detect")),
             (TopDownPoseEstimator, "process", self._pose),
             (OSNet, "forward", self._forward),
+            (ReidBackbone, "forward", partial(self._forward, key="embed")),
             (KPR, "forward", self._forward),
             (_ScanTrackerBase, "process_video_batch", self._tracker),
             (GMC, "apply", self._camera),
@@ -5875,6 +5891,171 @@ def phase_zoo(torch, dev, card, n_videos=2, n_frames=40, n_objects=24,
     return stats
 
 
+ZOO_KEYS = ("resnet50", "resnext50_32x4d", "resnet50_ibn_a", "resnet50_ibn_b",
+            "mobilenetv2_x1_0", "shufflenet_v2_x1_0", "osnet_ain_x1_0",
+            "se_resnet50", "resnet50mid", "pcb_p6", "densenet121",
+            "squeezenet1_0", "mlfn", "xception", "hacnn", "mudeep",
+            "inceptionv4", "inceptionresnetv2", "nasnetamobile")
+
+
+def _crop_windows(rows):
+    """``crop_bbox``'s integer windows (x1, y1, x2, y2) of ltwh rows,
+    before the clamp to the image."""
+    b = np.stack(rows["bbox_ltwh"].to_numpy()).astype(float)
+    return np.stack([b[:, 0], b[:, 1], b[:, 0] + b[:, 2],
+                     b[:, 1] + b[:, 3]], 1).astype(int)
+
+
+def _matched_embedding_gap(card, cpu, image_ids):
+    """The rows of ``image_ids`` of two runs matched frame by frame by IoU
+    (as ``_match_prefix``): the largest embedding difference over the CPU
+    embeddings' scale on the matched rows whose crop windows are equal
+    (a box that rounds to another window crops other pixels), and the
+    counts of compared rows and of rows left out for their windows."""
+    from scipy.optimize import linear_sum_assignment
+
+    pairs, other_window = [], 0
+    for iid in image_ids:
+        a = card[card["image_id"] == iid]
+        b = cpu[cpu["image_id"] == iid]
+        if not len(a) or not len(b):
+            continue
+        iou = _iou_ltwh(np.stack(a["bbox_ltwh"].to_numpy()),
+                        np.stack(b["bbox_ltwh"].to_numpy()))
+        r, c = linear_sum_assignment(-iou)
+        keep = iou[r, c] >= 0.5
+        r, c = r[keep], c[keep]
+        same = (_crop_windows(a.iloc[r]) == _crop_windows(b.iloc[c])).all(1)
+        other_window += int((~same).sum())
+        ea = np.stack(a["embeddings"].to_numpy())[r[same]]
+        eb = np.stack(b["embeddings"].to_numpy())[c[same]]
+        pairs += list(zip(ea, eb))
+    if not pairs:
+        return dict(compared=0, other_window=other_window, rel=float("nan"))
+    ea, eb = (np.stack(x) for x in zip(*pairs))
+    return dict(compared=len(pairs), other_window=other_window,
+                rel=float(np.abs(ea - eb).max() / np.abs(eb).max()))
+
+
+def phase_reid_zoo(torch, dev, card, n_videos=2, n_frames=40, n_objects=24,
+                   prefix_frames=8, check_batch=4, time_batch=32,
+                   keys=ZOO_KEYS):
+    """The ReID backbone zoo, seeded weights, f32 with TF32 off.
+
+    (a) ``modules/reid=backbone_zoo`` as the command line runs it:
+    ``tracklab_torch.main.main`` with pipeline [bbox_detector, reid, track],
+    yolox.yaml (YOLOX-s 640, K3) -> backbone_zoo.yaml (resnet50_ibn_a at
+    256 x 128 on host crops, batch 32, 2048-d) -> strong_sort.yaml (K1) at
+    embed_dim 2048, staged, on the synthetic set (``n_videos`` x
+    ``n_frames`` x ``n_objects`` at 640 x 640) with thresholds calibrated
+    by ``_calibrate_cli``: K3 and K1 launched, 0 host syncs in the (warm)
+    tracker scans, frames/s and the split printed; the first
+    ``prefix_frames`` frames of the first video rerun with device=cpu, the
+    rows matched by IoU, track ids equal on the matched rows and the
+    embeddings within 1e-4 of their scale where the crop windows agree.
+    (b) One key per family (``keys``) at full width (HACNN at its 160 x 64,
+    the rest at 256 x 128): a batch of ``check_batch`` seeded crops on the
+    card against the same model on the CPU, within 1e-4 of the output's
+    scale; then a batch of ``time_batch`` (the config's ``batch_size``, a
+    frame's detections) timed with CUDA events.
+
+    Returns the stats; (a)'s launches under "staged"."""
+    import copy
+
+    from tracklab_torch.wrappers.reid.osnet_api import select_backbone_model
+
+    stats = {}
+    det_thr, _ = _calibrate_cli(torch, dev, n_objects, img_wh=(640, 640))
+    args = ["use_rich=false", "pipeline=[bbox_detector,reid,track]",
+            "+modules/bbox_detector=yolox", "+modules/reid=backbone_zoo",
+            "modules/track=strong_sort", "modules.track.embed_dim=2048",
+            "engine.fused=false",
+            f"modules.bbox_detector.min_confidence={det_thr}",
+            f"modules.track.min_confidence={det_thr}",
+            f"dataset.n_videos={n_videos}", f"dataset.n_frames={n_frames}",
+            f"dataset.n_objects={n_objects}", "dataset.img_w=640",
+            "dataset.img_h=640"]
+    parts, res, launches, split = _cli_run(
+        torch, args + [f"device={dev.type}"],
+        ("loader", "detect", "embed", "scan", "eval"))
+    pred = parts["tracker_state"].detections_pred
+    per_frame = len(pred) / split["frames"]
+    emb_dim = np.stack(pred["embeddings"].to_numpy()).shape[1]
+    log(f"reid_zoo (a) backbone_zoo (resnet50_ibn_a) staged on {card}: "
+        f"{_split_line(split)}; device by stage "
+        f"{split['device_s_by_stage']}; {per_frame:.2f} detections/frame, "
+        f"{pred['track_id'].nunique()} tracks, {emb_dim}-d embeddings; "
+        f"launches {launches}; host syncs in the scans "
+        f"{split['host_syncs_in_scans']}")
+    check(10 <= per_frame <= 64,
+          f"reid_zoo (a): {per_frame:.2f} detections per frame")
+    check(emb_dim == 2048, f"reid_zoo (a): {emb_dim}-d embeddings")
+    for k in ("K3", "K1"):
+        check(launches[k] > 0 or dev.type == "cpu",
+              f"reid_zoo (a): {k} never launched")
+    check(split["host_syncs_in_scans"] == 0,
+          f"reid_zoo (a): {split['host_syncs_in_scans']} host syncs in the "
+          "tracker scans")
+    stats["staged"] = dict(split, launches=launches,
+                           detections_per_frame=per_frame,
+                           min_confidence=det_thr,
+                           HOTA=res["COMBINED_SEQ"]["HOTA"])
+    cpu_parts, _, _, cpu_split = _cli_run(
+        torch, args + ["device=cpu", "dataset.nvid=1",
+                       f"dataset.nframes={prefix_frames}"],
+        ("loader", "detect", "embed", "scan", "eval"))
+    cpu_pred = cpu_parts["tracker_state"].detections_pred
+    ids = cpu_parts["tracker_state"].image_metadatas.index
+    m = _match_prefix(pred, cpu_pred, ids)
+    e = _matched_embedding_gap(pred, cpu_pred, ids)
+    log(f"reid_zoo (a): the first {prefix_frames} frames on the card against "
+        f"device=cpu ({cpu_split['track_dataset_s']:.2f} s): {m}; "
+        f"embeddings {e}")
+    check(m["matched"] == m["card_rows"] == m["cpu_rows"] > 0,
+          f"reid_zoo (a): detections differ from the CPU's: {m}")
+    check(m["min_iou"] >= 0.999, f"reid_zoo (a): a detection matched the "
+          f"CPU's at IoU {m['min_iou']:.6f}")
+    check(m["other_track_ids"] == 0 and m["tracked_in_one"] == 0
+          and m["tracked_in_both"] > 0,
+          f"reid_zoo (a): card and CPU tracks differ: {m}")
+    check(e["compared"] >= 0.9 * m["matched"] and e["rel"] <= 1e-4,
+          f"reid_zoo (a): embeddings differ from the CPU's: {e}")
+    stats["cpu_prefix"] = dict(m, embeddings=e,
+                               cpu_s=cpu_split["track_dataset_s"])
+
+    g = torch.Generator().manual_seed(11)
+    stats["families"] = {}
+    for key in keys:
+        crop = (160, 64) if key == "hacnn" else (256, 128)
+        t0 = time.perf_counter()
+        model = select_backbone_model(key, crop_size=crop, device=dev)
+        cpu_model = copy.deepcopy(model).cpu()
+        x = torch.randn((check_batch,) + crop + (3,), generator=g)
+        with torch.no_grad():
+            got = model(x.to(dev)).cpu()
+            want = cpu_model(x)
+        rel = float((got - want).abs().max() / want.abs().max())
+        xb = torch.randn((time_batch,) + crop + (3,), generator=g).to(dev)
+        ms = (cuda_ms(lambda: model(xb), 5) if dev.type == "cuda"
+              else float("nan"))
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"reid_zoo (b) {key} f32 {crop[0]} x {crop[1]} on {card}: "
+            f"{ms:.3f} ms per batch of {time_batch}; {tuple(got.shape[1:])} "
+            f"features, {n_params / 1e6:.2f} M parameters; batch "
+            f"{check_batch} {rel:.2e} of its scale from the CPU's "
+            f"({time.perf_counter() - t0:.1f} s)")
+        check(bool(torch.isfinite(got).all()) and rel <= 1e-4,
+              f"reid_zoo (b) {key}: {rel:.2e} of its scale from the CPU's")
+        stats["families"][key] = dict(crop=crop, ms_per_batch=ms,
+                                      batch=time_batch, rel_vs_cpu=rel,
+                                      dim=int(got.shape[1]),
+                                      params=n_params)
+        del model, cpu_model, xb
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return stats
+
+
 def _host_packages():
     """Whether pandas, yaml, cv2, scipy, tqdm and rich import here, with
     their versions."""
@@ -5972,6 +6153,9 @@ def main() -> int:
     posetrack, k4["f32_kpr_cli"] = phase_posetrack(torch, dev, smi,
                                                    hd_frames=40)
     zoo = phase_zoo(torch, dev, smi)
+    t0 = time.perf_counter()
+    reid_zoo = phase_reid_zoo(torch, dev, smi)
+    log(f"phase reid_zoo: {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -6008,6 +6192,7 @@ def main() -> int:
                 for k in ("rtdetr_hf_staged", "rtdetr_hf_fused",
                           "rtmdet_staged", "rtmdet_fused",
                           "rtdetr_s_staged")}
+    zoo_runs["zoo_reid_staged"] = reid_zoo["staged"]["launches"]
     by_path = dict(cli_reid_runs, **engine_runs, **baseline_runs,
                    **pose_runs, **posetrack_runs, **zoo_runs)
     for entry, key in zip((k1, k2, k3, k4, oru, oru_nkf), _CLI_COUNTERS):
@@ -6023,6 +6208,7 @@ def main() -> int:
                       "cli_reid": reid_cli, "engines": engines,
                       "baseline": baseline, "pose": pose,
                       "posetrack": posetrack, "zoo": zoo,
+                      "reid_zoo": reid_zoo,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,

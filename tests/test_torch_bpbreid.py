@@ -174,8 +174,8 @@ def test_part_based_distance_and_nsa_filter_match_jax():
     tv = rng.uniform(0, 1, (5, P)) * (rng.uniform(size=(5, P)) < 0.7)
     dv = rng.uniform(0, 1, (7, P)) * (rng.uniform(size=(7, P)) < 0.7)
     tv[0] = 0.0
-    want = np.asarray(JB.part_based_distance(*map(jnp.asarray,
-                                                  (tf, tv, df, dv))))
+    want = np.asarray(jax.jit(JB.part_based_distance)(
+        *map(jnp.asarray, (tf, tv, df, dv))))
     got = TB.part_based_distance(*map(torch.from_numpy, (tf, tv, df, dv)))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
 
@@ -225,9 +225,10 @@ def test_oks_matrix_matches_jax():
     trk[0, 1] = 0.0                              # degenerate: NaN row
     trk[0, 2, :, 1] = trk[0, 2, :, 0]            # collinear: 45-deg scale
     det = trk[:, ::-1, :, :] + rng.normal(0, 4, (2, 5, 17, 3))
+    oks_matrix = jax.jit(JO.oks_matrix)
     for v in range(2):
-        want = np.asarray(JO.oks_matrix(jnp.asarray(trk[v]),
-                                        jnp.asarray(det[v])))
+        want = np.asarray(oks_matrix(jnp.asarray(trk[v]),
+                                     jnp.asarray(det[v])))
         got = TO.oks_matrix(torch.from_numpy(trk[v]), torch.from_numpy(det[v]))
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
                                    equal_nan=True)

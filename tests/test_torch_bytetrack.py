@@ -49,7 +49,7 @@ def test_xyah_filter_matches_jax():
     z = np.concatenate([rng.uniform(50, 500, (T, 2)),
                         rng.uniform(0.3, 2.0, (T, 1)),
                         rng.uniform(40, 200, (T, 1))], axis=1)
-    jx, jP = jax.vmap(JKF.initiate)(jnp.asarray(z))
+    jx, jP = jax.jit(jax.vmap(JKF.initiate))(jnp.asarray(z))
     tx, tP = TKF.initiate(torch.from_numpy(z))
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-12)
     np.testing.assert_allclose(tP.numpy(), np.asarray(jP), rtol=1e-12)
@@ -57,7 +57,8 @@ def test_xyah_filter_matches_jax():
                                          rng.normal(0, 2, (T, 4))], 1)
     A = rng.normal(size=(T, 8, 8))
     P = A @ A.transpose(0, 2, 1) + np.eye(8) * 4.0
-    jpx, jpP = jax.vmap(JKF.predict)(jnp.asarray(x), jnp.asarray(P))
+    jpx, jpP = jax.jit(jax.vmap(JKF.predict))(jnp.asarray(x),
+                                              jnp.asarray(P))
     # two videos of T tracks: the leading axes are batch axes
     x2, P2 = torch.from_numpy(np.stack([x, x])), torch.from_numpy(
         np.stack([P, P]))
@@ -68,8 +69,8 @@ def test_xyah_filter_matches_jax():
         np.testing.assert_allclose(tpP[v].numpy(), np.asarray(jpP),
                                    rtol=1e-10, atol=1e-10)
     zz = z + rng.normal(0, [2, 2, 0.05, 3], (T, 4))
-    jux, juP = jax.vmap(JKF.update)(jnp.asarray(x), jnp.asarray(P),
-                                    jnp.asarray(zz))
+    jux, juP = jax.jit(jax.vmap(JKF.update))(jnp.asarray(x), jnp.asarray(P),
+                                             jnp.asarray(zz))
     tux, tuP = TKF.update(torch.from_numpy(x), torch.from_numpy(P),
                           torch.from_numpy(zz))
     np.testing.assert_allclose(tux.numpy(), np.asarray(jux), rtol=1e-9,

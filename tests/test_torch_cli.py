@@ -4,11 +4,9 @@ start (results and tracks id for id), the metrics, the YOLOX-nano detector
 CLI fused and staged (and fused equal to staged on crowded frames), the
 letterbox against cv2, ``_pad_video``, and state files read across the two
 packages."""
-import functools
 import types
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pandas as pd
 import pytest
@@ -33,6 +31,7 @@ from tracklab_torch.wrappers.bbox_detector.yolox_api import (YOLOXDetector,
 from tracklab_torch.wrappers.dataset.synthetic import \
     make_synthetic_set as tmake_set
 from tracklab_torch.wrappers.track.scan_tracker import _pad_video as tpad
+from test_torch_yolox import jax_yolox_prng0
 
 # one intra-op thread per process: the suite runs in parallel workers,
 # and a torch thread pool per worker oversubscribes the cores
@@ -246,21 +245,14 @@ def test_metrics_match_jax_on_noisy_tables():
                           atol=1e-12)
 
 
-def _jax_detector_run(args, fused, variables=None):
-    """The JAX CLI's detector run; ``variables=None`` takes the wrapper's
-    own PRNGKey(0) init."""
+def _jax_detector_run(args, fused, variables):
+    """The JAX CLI's detector run on ``variables``."""
     cfg = jcompose(JM.CONFIG_DIR, "config", args + [
         "+modules.detect._target_=tracklab_tpu." + DETECTOR,
         f"engine.fused={fused}"])
     JM.init_environment(cfg)
     jparts = JM.build(cfg)
     jdet = jparts["modules"][0]
-    if variables is None:
-        # the wrapper's PRNGKey(0) init, jitted: the eager values, one
-        # compile instead of one per op
-        variables = jax.jit(functools.partial(
-            jdet._make_model().init, train=False))(
-            jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 3)))
     jdet._variables = variables
     jparts["engine"].track_dataset()
     return jparts["tracker_state"].detections_pred, variables
@@ -279,7 +271,8 @@ def detector_runs(tmp_path_factory):
     """JAX's fused detector CLI run, its PRNGKey(0) YOLOX-nano weights
     carried into a state dict, and the port's fused and staged runs on
     them."""
-    want, variables = _jax_detector_run(DETECT, "true")
+    want, variables = _jax_detector_run(
+        DETECT, "true", jax_yolox_prng0(tmp_path_factory, "nano"))
     ckpt = tmp_path_factory.mktemp("detect") / "yolox_nano.pt"
     torch.save(yolox_from_flax(jax.tree_util.tree_map(np.asarray,
                                                       variables)), ckpt)

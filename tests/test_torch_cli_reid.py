@@ -15,8 +15,6 @@ to the port through ``yolox_from_flax``/``osnet_from_flax`` and
 runs start from that state file, which is the staged pipeline's input to
 its tracker by construction.
 """
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +31,7 @@ from tracklab_torch.config import compose as tcompose
 from tracklab_torch.models.convert import osnet_from_flax, yolox_from_flax
 from tracklab_torch.wrappers.reid import OSNetReId
 from tracklab_torch.wrappers.track import scan_tracker as TST
+from test_torch_yolox import jax_yolox_prng0
 
 # one intra-op thread per process: the suite runs in parallel workers,
 # and a torch thread pool per worker oversubscribes the cores
@@ -149,12 +148,10 @@ def _torch_run(args, weights):
 
 @pytest.fixture(scope="module")
 def weights(tmp_path_factory):
-    """JAX's PRNGKey(0) YOLOX-nano init (jitted: the eager values, one
-    compile) and the seeded OSNet tree, each also as a port checkpoint."""
-    from tracklab_tpu.wrappers.bbox_detector.yolox_api import YOLOXDetector
-    det = YOLOXDetector(variant="nano", input_size=(128, 128))
-    yv = jax.jit(functools.partial(det._make_model().init, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 3)))
+    """JAX's PRNGKey(0) YOLOX-nano init (its wrapper's own weights,
+    computed once per session) and the seeded OSNet tree, each also as a
+    port checkpoint."""
+    yv = jax_yolox_prng0(tmp_path_factory, "nano")
     ov = _osnet_variables()
     tmp = tmp_path_factory.mktemp("reid")
     torch.save(yolox_from_flax(jax.tree_util.tree_map(np.asarray, yv)),
@@ -364,8 +361,12 @@ def test_osnet_checkpoint_forms(tmp_path):
 
 
 def test_osnet_reid_raises_for_what_waits():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        OSNetReId(backbone="resnet50", device="cpu")
+    """The zoo backbones build (test_torch_reid_zoo*.py hold them against
+    JAX); training waits for ROADMAP item 6."""
+    reid = OSNetReId(backbone="resnet50", device="cpu")
+    reid._build()
+    assert type(reid._model).__name__ == "ReidResNet"
+    assert not reid.use_parts and not reid.use_keypoints
     with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
         OSNetReId(device="cpu").train()
 

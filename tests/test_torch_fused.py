@@ -15,6 +15,7 @@ from tracklab_torch.engine import fused as TF
 from tracklab_torch.models.convert import yolox_from_flax
 from tracklab_torch.models.yolox import YOLOX
 from tracklab_torch.trackers import ocsort as TO
+from test_torch_yolox import jax_yolox_prng0
 
 # one intra-op thread per process: the suite runs in parallel workers,
 # and a torch thread pool per worker oversubscribes the cores
@@ -33,11 +34,9 @@ def _static_frames(n, seed):
 
 
 @pytest.fixture(scope="module")
-def models():
+def models(tmp_path_factory):
     jm = JYOLOX(num_classes=1, variant="tiny")
-    # jitted init: the eager values, one compile instead of one per op
-    v = jax.jit(partial(jm.init, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
+    v = jax_yolox_prng0(tmp_path_factory, "tiny")
     tm = YOLOX(num_classes=1, variant="tiny", device="cpu")
     tm.load_state_dict(yolox_from_flax(jax.tree_util.tree_map(np.asarray, v)),
                        strict=True)

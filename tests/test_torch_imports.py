@@ -79,7 +79,7 @@ def test_port_imports_in_a_clean_interpreter():
 # prompt masks), and the KPR and PoseTrack modules (the KPR wrappers, the
 # pandas accessors, the PoseTrack datasets and metrics), and the detector
 # zoo and DeepLabV3 (RTMDet, both RT-DETR families, their converters and
-# wrappers), which the checks above must cover
+# wrappers), and the ReID backbone zoo, which the checks above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
@@ -168,7 +168,9 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/convert.py",
                  "tracklab_torch/wrappers/bbox_detector/rtmdet_api.py",
                  "tracklab_torch/wrappers/bbox_detector/rtdetr_api.py",
-                 "tracklab_torch/wrappers/bbox_detector/__init__.py")
+                 "tracklab_torch/wrappers/bbox_detector/__init__.py",
+                 "tracklab_torch/models/reid_backbones.py",
+                 "tracklab_torch/models/nasnet_reid.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

@@ -9,6 +9,8 @@ in f32 to rtol 2e-4 / atol 2e-5 for each ``attn_impl`` (with and without
 ``token_pad``) and each ``gelu``: the two frameworks sum in other orders,
 and LayerNorm's variance is computed by other formulas.
 """
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,14 +49,21 @@ def data():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((3, 64, 32, 3)).astype(np.float32)
     p = rng.uniform(0, 1, (3, 64, 32, 7)).astype(np.float32)
-    v = JK.KPR(**ARCH).init(jax.random.PRNGKey(1), jnp.asarray(x),
-                            jnp.asarray(p), train=False)
+    # jitted: one compile instead of one per op
+    v = jax.jit(partial(JK.KPR(**ARCH).init, train=False))(
+        jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(p))
     v = _perturbed(v, rng)
     # the SIE model's tree is the same plus backbone/sie_embed
     vs = jax.tree_util.tree_map(lambda a: a, v)
     vs["params"]["backbone"]["sie_embed"] = rng.normal(
         0, 0.05, (3, 1, ARCH["embed_dim"])).astype(np.float32)
     return x, p, v, vs
+
+
+def _jax_apply(model, *args):
+    """``model.apply(*args, train=False)``, jitted (one compile instead of
+    one per op)."""
+    return jax.jit(partial(model.apply, train=False))(*args)
 
 
 def _port(variables, **kw):
@@ -80,8 +89,8 @@ def _assert_outputs_match(got, want):
 def test_kpr_matches_jax(data, attn_impl, token_pad, gelu):
     x, p, v, _ = data
     kw = dict(attn_impl=attn_impl, token_pad=token_pad, gelu=gelu)
-    want = JK.KPR(**ARCH, **kw).apply(v, jnp.asarray(x), jnp.asarray(p),
-                                      train=False)
+    want = _jax_apply(JK.KPR(**ARCH, **kw), v, jnp.asarray(x),
+                      jnp.asarray(p))
     got = _port(v, **kw)(torch.from_numpy(x), torch.from_numpy(p))
     _assert_outputs_match(got, want)
     je, jv = JK.extract_test_embeddings(want)
@@ -94,8 +103,8 @@ def test_kpr_matches_jax(data, attn_impl, token_pad, gelu):
 def test_kpr_sie_camera_and_no_prompt(data):
     x, _, _, vs = data
     cam = np.array([2, 0, 1], np.int32)
-    want = JK.KPR(n_cameras=3, **ARCH).apply(vs, jnp.asarray(x), None,
-                                             jnp.asarray(cam), train=False)
+    want = _jax_apply(JK.KPR(n_cameras=3, **ARCH), vs, jnp.asarray(x), None,
+                      jnp.asarray(cam))
     got = _port(vs, n_cameras=3)(torch.from_numpy(x), None,
                                  torch.from_numpy(cam))
     _assert_outputs_match(got, want)
@@ -106,9 +115,8 @@ def test_kpr_bf16_dtype_flow(data):
     promotion: LayerNorm f32, Dense bf16, pixel softmax f32, BatchNorm
     bf16) and stays near it."""
     x, p, v, _ = data
-    want = JK.KPR(dtype=jnp.bfloat16, **ARCH).apply(
-        v, jnp.asarray(x, jnp.bfloat16), jnp.asarray(p, jnp.bfloat16),
-        train=False)
+    want = _jax_apply(JK.KPR(dtype=jnp.bfloat16, **ARCH), v,
+                      jnp.asarray(x, jnp.bfloat16), jnp.asarray(p, jnp.bfloat16))
     got = _port(v, dtype=torch.bfloat16)(
         torch.from_numpy(x).bfloat16(), torch.from_numpy(p).bfloat16())
     names = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
@@ -157,7 +165,7 @@ def test_gaussian_prompt_maps_match_jax():
     kp[0, 0, 3, 2] = 0.0                         # an invisible keypoint
     neg = kp[:, ::-1, :5].copy()
     for negative in (None, neg):
-        want = JK.gaussian_prompt_maps(
+        want = jax.jit(JK.gaussian_prompt_maps, static_argnums=2)(
             jnp.asarray(kp), jnp.asarray(box), (32, 16),
             negative_kps=None if negative is None else jnp.asarray(negative))
         got = TK.gaussian_prompt_maps(

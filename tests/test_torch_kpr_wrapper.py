@@ -20,7 +20,6 @@ compiled; KPR's prompt conv drawn non-zero, so the prompts move the
 embeddings). The port reads them through ``*_from_flax`` and
 ``checkpoint_path``.
 """
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +29,7 @@ import pytest
 import torch
 
 import test_fused_engine as TFE
+from test_torch_yolox import jax_yolox_prng0
 from tracklab_tpu import main as JM
 from tracklab_tpu.config import compose as jcompose
 from tracklab_tpu.models.kpr import KPR as JKPR
@@ -102,10 +102,7 @@ def _lecun(jmodel, shape, seed):
 def weights(tmp_path_factory):
     """JAX's PRNGKey(0) YOLOX-nano init, the TopDownPose-nano and tiny-KPR
     draws, each also as a port checkpoint."""
-    from tracklab_tpu.wrappers.bbox_detector.yolox_api import YOLOXDetector
-    det = YOLOXDetector(variant="nano", input_size=(SIZE, SIZE))
-    yv = jax.jit(functools.partial(det._make_model().init, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
+    yv = jax_yolox_prng0(tmp_path_factory, "nano")
     pv = _lecun(JTopDownPose(num_keypoints=17, variant="nano"),
                 (1, 64, 48, 3), seed=2)
     kv = _kpr_variables()

@@ -8,6 +8,8 @@ package's ``crop_resize_auto`` and ``crop_resize_onehot``. The flax variables ar
 in the shapes of the model's tree, with norm statistics away from
 identity.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,14 +32,22 @@ torch.set_num_threads(1)
 KEYS = ("embeddings", "part_features", "visibility")
 
 
-def _flax(variant, ibn, hw, seed, n_parts=6, feat_dim=512):
-    """The flax OSNet and seeded variables of its tree's shapes (no init
-    program is compiled): He-normal kernels, norm scales and variances in
-    [0.5, 1.5], biases and means N(0, 0.1), so every norm layer does work.
-    Returns (model, variables, jitted apply)."""
+@functools.lru_cache(maxsize=4)
+def _flax_tree(variant, ibn, hw, n_parts, feat_dim):
+    """The flax OSNet, its tree's shapes (no init program is compiled) and
+    its jitted apply, shared by the tests of one configuration."""
     jm = JOSNet(variant=variant, ibn=ibn, n_parts=n_parts, feat_dim=feat_dim)
     shapes = jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), jnp.zeros((1,) + hw + (3,)), train=False))
+    return jm, shapes, jax.jit(lambda v, x: jm.apply(v, x, train=False))
+
+
+def _flax(variant, ibn, hw, seed, n_parts=6, feat_dim=512):
+    """The flax OSNet and seeded variables of its tree's shapes: He-normal
+    kernels, norm scales and variances in [0.5, 1.5], biases and means
+    N(0, 0.1), so every norm layer does work. Returns (model, variables,
+    jitted apply)."""
+    jm, shapes, apply = _flax_tree(variant, ibn, hw, n_parts, feat_dim)
     rng = np.random.default_rng(seed)
 
     def draw(path, a):
@@ -51,7 +61,7 @@ def _flax(variant, ibn, hw, seed, n_parts=6, feat_dim=512):
         return rng.normal(0, 0.1, a.shape).astype(np.float32)
 
     v = jax.tree_util.tree_map_with_path(draw, shapes)
-    return jm, v, jax.jit(lambda v, x: jm.apply(v, x, train=False))
+    return jm, v, apply
 
 
 def _images(n, hw, seed):
@@ -111,7 +121,7 @@ def test_torchreid_state_dict_loads():
     sd["module.classifier.weight"] = np.zeros((10, 64), np.float32)
     sd["module.conv1.bn.num_batches_tracked"] = np.zeros((), np.int64)
     tm = convert_osnet_torch(sd, OSNet("x0_25", 64, 4, device="cpu"))
-    x = _images(2, hw, seed=12)
+    x = _images(3, hw, seed=12)
     want = np.asarray(apply(v, jnp.asarray(x))["embeddings"])
     got = tm(torch.from_numpy(x))["embeddings"].numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4,

@@ -30,6 +30,7 @@ from tracklab_torch.models.convert import kpr_from_flax, yolox_from_flax
 from tracklab_torch.models.kpr import KPR
 from tracklab_torch.models.yolox import YOLOX
 from tracklab_torch.trackers import bpbreid_strongsort as TB
+from test_torch_yolox import jax_yolox_prng0
 
 # one intra-op thread per process: the suite runs in parallel workers,
 # and a torch thread pool per worker oversubscribes the cores
@@ -75,12 +76,11 @@ def _cfg(mod, with_pose):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
     jy = JYOLOX(num_classes=1, variant="tiny")
-    # jitted inits: the eager values, one compile instead of one per op
-    yv = jax.jit(partial(jy.init, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
+    yv = jax_yolox_prng0(tmp_path_factory, "tiny")
     jk = JKPR(**KPR_ARCH)
+    # jitted init: the eager values, one compile instead of one per op
     kv = jax.jit(partial(jk.init, train=False))(
         jax.random.PRNGKey(3), jnp.zeros((1, 32, 16, 3)),
         jnp.zeros((1, 32, 16, jk.n_prompt_ch)))

@@ -27,6 +27,7 @@ from tracklab_torch.engine import fused as TF
 from tracklab_torch.models.convert import osnet_from_flax, yolox_from_flax
 from tracklab_torch.models.yolox import YOLOX
 from tracklab_torch.trackers import strongsort as TS
+from test_torch_yolox import jax_yolox_prng0
 
 # one intra-op thread per process: the suite runs in parallel workers,
 # and a torch thread pool per worker oversubscribes the cores
@@ -69,11 +70,9 @@ def _osnet_variables(jo):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
     jy = JYOLOX(num_classes=1, variant="nano")
-    # jitted init: the eager values, one compile instead of one per op
-    yv = jax.jit(partial(jy.init, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
+    yv = jax_yolox_prng0(tmp_path_factory, "nano")
     jo = JOSNet(**OSNET)
     ov = _osnet_variables(jo)
     frames = _static_frames(F, seed=12)

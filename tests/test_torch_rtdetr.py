@@ -129,9 +129,10 @@ def test_deformable_sampling_matches_jax_gather(case):
                                        + 0.5) / h
     loc = loc.astype(np.float32)
     weights = rng.uniform(0, 1, (B, Q, H, L, P)).astype(np.float32)
-    want = JH.MSDeformableAttention._sample_gather(
+    want = jax.jit(JH.MSDeformableAttention._sample_gather,
+                   static_argnums=(0, 4))(
         None, jnp.asarray(value), jnp.asarray(loc), jnp.asarray(weights),
-        shapes)
+        tuple(shapes))
     got = TH.sample_deformable(torch.from_numpy(value),
                                torch.from_numpy(loc),
                                torch.from_numpy(weights), shapes)

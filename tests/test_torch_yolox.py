@@ -1,6 +1,11 @@
 """tracklab_torch YOLOX, weight conversion and NMS vs the JAX package on
-the CPU (f32, small variants and sizes)."""
+the CPU (f32, small variants and sizes).
+
+``jax_yolox_prng0`` is the JAX package's PRNGKey(0) YOLOX init that the
+port's CLI, ReID, KPR, parts and fused tests share across the suite's
+worker processes."""
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +24,42 @@ from tracklab_torch.ops import nms as TN
 # one intra-op thread per process: the suite runs in parallel workers,
 # and a torch thread pool per worker oversubscribes the cores
 torch.set_num_threads(1)
+
+
+def jax_yolox_prng0(tmp_path_factory, variant, num_classes=1):
+    """The JAX package's ``YOLOX(num_classes, variant).init`` at
+    PRNGKey(0) (its YOLOX wrappers' own weights; the values do not depend
+    on the input's size), as nested dicts of jax arrays. Its jitted init
+    takes ~15 s of XLA compile on a CPU, so it is computed once per test
+    session: the first process to ask writes it, bit for bit, to an .npz
+    under the session's temporary root, which the suite's worker processes
+    share, and every later call, in any worker, reads that file."""
+    import filelock
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    path = root / f"jax_yolox_{variant}_{num_classes}_prng0.npz"
+    with filelock.FileLock(f"{path}.lock"):
+        if not path.exists():
+            model = JYOLOX(num_classes=num_classes, variant=variant)
+            v = jax.jit(functools.partial(model.init, train=False))(
+                jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32))
+            flat = jtu.tree_flatten_with_path(v)[0]
+            tmp = path.with_suffix(".tmp.npz")
+            np.savez(tmp, **{"|".join(k.key for k in p): np.asarray(a)
+                             for p, a in flat})
+            os.replace(tmp, path)
+        with np.load(path) as data:
+            flat = {k: data[k] for k in data.files}
+    tree = {}
+    for key, a in flat.items():
+        *parents, leaf = key.split("|")
+        node = tree
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = jnp.asarray(a)
+    return tree
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,6 +26,10 @@ names). The detector zoo and DeepLabV3: ``rtmdet_from_flax``,
 carry the JAX package's trees across; ``convert_rtmdet_torch`` (mmdet
 keys), ``convert_rtdetr_hf_torch`` (HF keys) and
 ``convert_deeplabv3_torch`` (torchvision keys) load reference checkpoints.
+The ReID backbone zoo: ``reid_backbone_from_flax`` builds a zoo model from
+the JAX package's tree (its ``_generic_torch_key`` names, and
+``_inception_torch_key``'s for the Inception families and NASNet), and
+``convert_reid_backbone_torch`` loads a torchreid checkpoint.
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ __all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
            "vitpose_from_flax", "convert_vitpose_torch",
            "rtmdet_from_flax", "convert_rtmdet_torch", "rtdetr_from_flax",
            "rtdetr_hf_from_flax", "convert_rtdetr_hf_torch",
-           "deeplabv3_from_flax", "convert_deeplabv3_torch"]
+           "deeplabv3_from_flax", "convert_deeplabv3_torch",
+           "reid_backbone_from_flax", "convert_reid_backbone_torch"]
 
 _LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var"}
@@ -630,3 +635,93 @@ def convert_deeplabv3_torch(state_dict, model):
           for k, v in state_dict.items()}
     return _load_checked(sd, model, "torchvision DeepLabV3",
                          unused_ok=() if model.aux else ("aux_classifier.",))
+
+
+# ------------------------------------------------------- the ReID zoo
+
+# the zoo models whose torch names hold literal underscores, which the JAX
+# package spells 'q' (``branch1q0`` -> ``branch1_0``, ``cellq0`` ->
+# ``cell_0``)
+_Q_MODELS = ("ReidInceptionV4", "ReidInceptionResNetV2", "ReidNASNetAMobile")
+# training-only heads of torchreid checkpoints: the classifiers and PCB's
+# ``conv5`` (its eval forward returns the features before it); read only
+# where the model has no such tensor
+_ZOO_UNUSED = ("classifier.", "classifier_global.", "classifier_local.",
+               "conv5.")
+
+
+def _zoo_torch_key(path, q=False) -> str:
+    """Flax path -> torchreid key (the JAX package's
+    ``_generic_torch_key``; with ``q`` its ``_inception_torch_key``):
+    :func:`_split_indices` on each module name; a raw parameter's leaf
+    carries its own path (``block5__a1`` -> ``block5.a1``)."""
+    _, *mods, leaf = path
+    comps = []
+    for m in mods:
+        comps.extend(_split_indices(m))
+    comps.extend([_LEAF_MAP[leaf]] if leaf in _LEAF_MAP
+                 else leaf.split("__"))
+    key = ".".join(comps)
+    return key.replace("q", "_") if q else key
+
+
+def _fit_raw(sd, model) -> dict:
+    """Raw parameters to the model's shapes: MuDeep's fusion weights are
+    (1, 256, 1, 1) in torch and (256,) in flax."""
+    own = model.state_dict()
+    out = {}
+    for k, v in sd.items():
+        t = torch.as_tensor(np.asarray(v, dtype=np.float32))
+        if (k in own and t.shape != own[k].shape
+                and t.dim() != own[k].dim()
+                and t.numel() == own[k].numel()):
+            t = t.reshape(own[k].shape)
+        out[k] = t
+    return out
+
+
+def reid_backbone_from_flax(variables, backbone, crop_size=(256, 128),
+                            device=None):
+    """Build the zoo model of ``backbone`` (any ``OSNetReId`` key but
+    "osnet") from the JAX package's ``{"params", "batch_stats"}`` tree
+    (numpy arrays) of the same key: conv kernels HWIO -> OIHW, Dense
+    kernels (in, out) -> (out, in); OSNet-AIN's ``feat_dim`` from its head.
+    Loads with ``strict=True`` and returns the model on ``device`` (``cuda``
+    unless told otherwise)."""
+    from tracklab_torch.models.reid_backbones import zoo_model
+
+    feat_dim = 512
+    if backbone.startswith("osnet_ain"):
+        feat_dim = np.asarray(variables["params"]["fc_0"]["kernel"]).shape[1]
+    with torch.device("meta"):
+        model = zoo_model(backbone, feat_dim, crop_size)
+    model = model.to_empty(device="cpu")
+    q = type(model).__name__ in _Q_MODELS
+    sd = {}
+    for path, leaf in _flatten(variables):
+        # transposed as torch views: the load's copy gathers them (numpy's
+        # transposing copy of MuDeep's 134M-weight fc takes ~6x as long)
+        t = torch.tensor(np.asarray(leaf, dtype=np.float32))
+        if path[-1] == "kernel":
+            t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.T
+        sd[_zoo_torch_key(path, q)] = t
+    _load_checked(_fit_raw(sd, model), model, f"flax {backbone}")
+    return model.to(resolve_device(device))
+
+
+def convert_reid_backbone_torch(state_dict, model):
+    """Load a torchreid checkpoint of a zoo backbone (tensors or numpy
+    arrays; a ``state_dict`` entry is unwrapped) into ``model`` (the zoo
+    model of the same key) and return it: a ``module.`` prefix is dropped,
+    the classifier heads and PCB's ``conv5`` are not read where the model
+    has no such tensor, nor is ``num_batches_tracked``. Raises on any other
+    missing or unused tensor, or a shape mismatch."""
+    if isinstance(state_dict.get("state_dict"), Mapping):
+        state_dict = state_dict["state_dict"]
+    own = model.state_dict()
+    sd = {}
+    for k, v in state_dict.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if k in own or not k.startswith(_ZOO_UNUSED):
+            sd[k] = v
+    return _load_checked(_fit_raw(sd, model), model, "torchreid backbone")

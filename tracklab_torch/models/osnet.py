@@ -17,6 +17,11 @@ Dtype rule (flax promotion in the JAX model): parameters are f32, convs and
 dense layers compute in the model dtype, BatchNorm and InstanceNorm in f32.
 The JAX package computes OSNet with XLA convolutions and no Pallas kernel;
 here it is cuDNN's, through ``torch.nn.functional``.
+
+Beside it: ``ReidBackbone``, the base of the ReID backbone zoo's
+global-feature models (``models/reid_backbones.py``, ``nasnet_reid.py``),
+and ``OSNetAIN`` (torchreid's osnet_ain_x*: per-stream lite-conv stacks, one
+shared gate, InstanceNorm inside selected residuals), one of them.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ import torch.nn.functional as F
 
 from tracklab_torch.device import resolve_device
 
-__all__ = ["OSNet", "OSNET_VARIANTS"]
+__all__ = ["OSNet", "OSNET_VARIANTS", "OSNetAIN", "OSNET_AIN_VARIANTS",
+           "ReidBackbone"]
 
 OSNET_VARIANTS = {
     # channels per stage, blocks per stage (torchreid osnet.py factories)
@@ -70,11 +76,12 @@ class _Linear(nn.Linear):
 
 
 class _BatchNorm(nn.Module):
-    """Inference flax ``nn.BatchNorm(epsilon=1e-5)`` over dim 1 (NCHW or
+    """Inference flax ``nn.BatchNorm(epsilon=eps)`` over dim 1 (NCHW or
     (B, C)) in f32: ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
 
-    def __init__(self, c):
+    def __init__(self, c, eps=_EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -82,7 +89,7 @@ class _BatchNorm(nn.Module):
 
     def forward(self, x):
         sh = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var + _EPS) * self.weight
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return ((x.float() - self.running_mean.view(sh)) * mul.view(sh)
                 + self.bias.view(sh))
 
@@ -274,3 +281,148 @@ class OSNet(nn.Module):
             else:
                 t.zero_()
         return self
+
+
+class ReidBackbone(nn.Module):
+    """A global-feature backbone of the ReID zoo. ``forward(images (B, H, W,
+    C))`` (NHWC, already normalised, f32) returns the eval-mode feature
+    vector (B, D) in f32, the appearance embedding StrongSORT consumes;
+    subclasses compute it from NCHW in ``_embed``."""
+
+    def _embed(self, x):
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def forward(self, images):
+        return self._embed(images.permute(0, 3, 1, 2)).float()
+
+    @torch.no_grad()
+    def randomize_(self, seed: int = 0):
+        """Seeded random weights for runs without a checkpoint, drawn on the
+        CPU (the same on every device): conv kernels He-normal (std
+        sqrt(2 / fan_in)), linear weights normal(0.01), BatchNorm and
+        InstanceNorm at identity, biases zero, and raw parameters (MuDeep's
+        fusion weights) uniform in [0, 1) as flax initialises them."""
+        g = torch.Generator().manual_seed(seed)
+        for name, t in self.state_dict().items():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight" and t.dim() == 4:
+                t.copy_(torch.randn(t.shape, generator=g)
+                        * math.sqrt(2.0 / t[0].numel()))
+            elif leaf == "weight" and t.dim() == 2:
+                t.copy_(torch.randn(t.shape, generator=g) * 0.01)
+            elif leaf in ("weight", "running_var"):
+                t.fill_(1.0)
+            elif leaf in ("bias", "running_mean"):
+                t.zero_()
+            else:
+                t.copy_(torch.rand(t.shape, generator=g))
+        return self
+
+
+# ---------------------------------------------------------------------------
+# OSNet-AIN (torchreid osnet_ain.py): the counterpart of the JAX package's
+# ``OSNetAIN``
+# ---------------------------------------------------------------------------
+
+OSNET_AIN_VARIANTS = {
+    # channels and per-stage block kinds (True: OSBlockINin)
+    "ain_x1_0": dict(channels=(64, 256, 384, 512),
+                     blocks=((True, True), (False, True), (True, False))),
+    "ain_x0_75": dict(channels=(48, 192, 288, 384),
+                      blocks=((True, True), (False, True), (True, False))),
+    "ain_x0_5": dict(channels=(32, 128, 192, 256),
+                     blocks=((True, True), (False, True), (True, False))),
+    "ain_x0_25": dict(channels=(16, 64, 96, 128),
+                      blocks=((True, True), (False, True), (True, False))),
+}
+
+
+class _LightConvStream(nn.Module):
+    """``depth`` LightConv3x3 layers (torchreid's ``layers``)."""
+
+    def __init__(self, c, depth):
+        super().__init__()
+        self.layers = nn.Sequential(*[LightConv3x3(c, c)
+                                      for _ in range(depth)])
+
+    def forward(self, x):
+        return self.layers(x)
+
+
+class _Conv1x1NoBN(nn.Module):
+    """Conv1x1Linear(bn=False): a bare 1x1 conv named ``conv``."""
+
+    def __init__(self, cin, cout):
+        super().__init__()
+        self.conv = _Conv(cin, cout, 1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class OSBlockAIN(nn.Module):
+    """osnet_ain's OSBlock / OSBlockINin: four lite streams of depth 1..4
+    from a 1x1 bottleneck (width / 4), one shared gate, a linear 1x1 out;
+    the INin kind drops the 1x1's BN and instance-normalises it before the
+    residual add."""
+
+    def __init__(self, cin, cout, instance_norm=False, T=4, reduction=4):
+        super().__init__()
+        mid = cout // reduction
+        self.conv1 = Conv1x1(cin, mid)
+        self.conv2 = nn.ModuleList([_LightConvStream(mid, t + 1)
+                                    for t in range(T)])
+        self.gate = ChannelGate(mid)
+        if instance_norm:
+            self.conv3 = _Conv1x1NoBN(mid, cout)
+            self.IN = _InstanceNorm(cout)
+        else:
+            self.conv3 = Conv1x1(mid, cout, relu=False)
+            self.IN = None
+        self.downsample = (Conv1x1(cin, cout, relu=False)
+                           if cin != cout else None)
+
+    def forward(self, x):
+        x1 = self.conv1(x)
+        x2 = None
+        for stream in self.conv2:
+            s = self.gate(stream(x1))
+            x2 = s if x2 is None else x2 + s
+        x3 = self.conv3(x2)
+        if self.IN is not None:
+            x3 = self.IN(x3)
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(x3 + identity)
+
+
+class OSNetAIN(ReidBackbone):
+    """osnet_ain_x*: an InstanceNorm stem, three stages of OSBlockAIN with
+    1x1 + average-pool transitions (``pool2``, ``pool3``), a 1x1 conv5 and
+    the Linear + BN + ReLU head; returns the (B, feat_dim) feature."""
+
+    def __init__(self, variant="ain_x1_0", feat_dim=512):
+        super().__init__()
+        v = OSNET_AIN_VARIANTS[variant]
+        chans = v["channels"]
+        self.conv1 = ConvLayer(3, chans[0], 7, 2, instance_norm=True)
+        cin = chans[0]
+        for stage, kinds in enumerate(v["blocks"]):
+            c = chans[stage + 1]
+            setattr(self, f"conv{stage + 2}", nn.Sequential(
+                *[OSBlockAIN(cin if b == 0 else c, c, instance_norm=inin)
+                  for b, inin in enumerate(kinds)]))
+            if stage < len(v["blocks"]) - 1:
+                setattr(self, f"pool{stage + 2}", nn.Sequential(
+                    Conv1x1(c, c), nn.AvgPool2d(2, 2)))
+            cin = c
+        self.conv5 = Conv1x1(chans[-1], chans[-1])
+        self.fc = nn.Sequential(_Linear(chans[-1], feat_dim),
+                                _BatchNorm(feat_dim), nn.ReLU())
+
+    def _embed(self, x):
+        x = F.max_pool2d(self.conv1(x), 3, 2, 1)
+        x = self.pool2(self.conv2(x))
+        x = self.pool3(self.conv3(x))
+        x = self.conv5(self.conv4(x))
+        return self.fc(x.mean(dim=(2, 3)))

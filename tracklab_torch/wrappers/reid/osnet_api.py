@@ -16,11 +16,18 @@ arms, legs, feet; ``reid_dataset.py:gaussian_keypoint_masks`` of the row's
 channels, and the visibility of stripe parts 1..5 is the group's largest
 keypoint confidence (the KPR prompt mechanism).
 
+``backbone`` other than "osnet" picks a model of the ReID backbone zoo
+(``select_backbone_model``: torchreid's ResNet, ResNeXt, IBN-a/b,
+MobileNetV2, ShuffleNetV2, OSNet-AIN, SE-ResNet, ResNet-mid, PCB, DenseNet,
+SqueezeNet, MLFN, Xception, HACNN, MuDeep, InceptionV4, InceptionResNetV2
+and NASNet-A mobile): parts and keypoint prompts are off, and
+``embeddings`` is the model's global feature (``visibility_scores`` 1).
+
 Weights: ``checkpoint_path`` names a ``torch.save``d state dict, either the
-port's (``models/convert.py:osnet_from_flax`` builds the model from the
-JAX package's tree) or a torchreid OSNet's (loaded through
-``convert_osnet_torch``); without one the weights are seeded random
-(``OSNet.randomize_(0)``).
+port's (``models/convert.py:osnet_from_flax`` / ``reid_backbone_from_flax``
+build the model from the JAX package's tree) or a torchreid one (loaded
+through ``convert_osnet_torch`` / ``convert_reid_backbone_torch``); without
+one the weights are seeded random (``randomize_(0)``).
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ from tracklab_torch.utils.collate import default_collate
 
 log = logging.getLogger(__name__)
 
-__all__ = ["OSNetReId", "build_osnet"]
+__all__ = ["OSNetReId", "build_osnet", "select_backbone_model"]
 
 _NOT_PORTED = "{} is not ported to tracklab_torch yet (ROADMAP item {})"
 
@@ -67,6 +74,48 @@ def build_osnet(owner: str, variant: str, feat_dim: int, n_parts: int,
     return model.to(resolve_device(device))
 
 
+def select_backbone_model(backbone, variant="x1_0", feat_dim=512, n_parts=6,
+                          ibn=False, crop_size=(256, 128), device=None):
+    """The model of a ``backbone=`` key (the JAX package's keys) on
+    ``device`` (``cuda`` unless told otherwise) with seeded weights
+    (``randomize_(0)``; none on the ``meta`` device). Raises ValueError for
+    an unknown key and for HACNN and MuDeep given another crop than their
+    fixed input."""
+    from tracklab_torch.models.osnet import OSNet
+    from tracklab_torch.models.reid_backbones import zoo_model
+
+    dev = resolve_device(device)
+    if backbone == "osnet":
+        if dev.type == "meta":
+            return OSNet(variant, feat_dim, n_parts, ibn=ibn, device=dev)
+        model = OSNet(variant, feat_dim, n_parts, ibn=ibn, device="cpu")
+        return model.randomize_(0).to(dev)
+    with torch.device("meta"):
+        model = zoo_model(backbone, feat_dim, crop_size)
+    model = model.to_empty(device=dev)
+    return model if dev.type == "meta" else model.randomize_(0)
+
+
+def build_backbone(owner: str, backbone: str, feat_dim: int, crop_size,
+                   checkpoint_path, device):
+    """A zoo model (``select_backbone_model``) on ``device`` with the
+    weights of ``checkpoint_path`` (the port's state dict or a torchreid
+    one, both through ``convert_reid_backbone_torch``), else seeded random
+    weights."""
+    from tracklab_torch.models.convert import convert_reid_backbone_torch
+
+    model = select_backbone_model(backbone, feat_dim=feat_dim,
+                                  crop_size=crop_size, device="cpu")
+    if checkpoint_path:
+        convert_reid_backbone_torch(
+            torch.load(checkpoint_path, map_location="cpu",
+                       weights_only=True), model)
+    else:
+        log.warning("%s: no checkpoint_path given — running with random "
+                    "weights", owner)
+    return model.to(resolve_device(device))
+
+
 class OSNetReId(DetectionLevelModule):
     input_columns = ["bbox_ltwh"]
     output_columns = ["embeddings", "visibility_scores"]
@@ -85,9 +134,11 @@ class OSNetReId(DetectionLevelModule):
                  checkpoint_path: str | None = None, device=None,
                  backbone: str = "osnet", **kwargs):
         super().__init__(batch_size)
+        self.backbone = backbone
         if backbone != "osnet":
-            raise NotImplementedError(_NOT_PORTED.format(
-                f"the ReID backbone {backbone!r}", "4: the model zoo"))
+            # the zoo's backbones give one global feature
+            use_parts = False
+            use_keypoints = False
         self.variant = variant
         self.feat_dim = feat_dim
         self.n_parts = n_parts
@@ -104,10 +155,15 @@ class OSNetReId(DetectionLevelModule):
 
     def _build(self):
         in_channels = 3 + (len(self.KP_GROUPS) if self.use_keypoints else 0)
-        self._model = build_osnet(type(self).__name__, self.variant,
-                                  self.feat_dim, self.n_parts, self.ibn,
-                                  self.checkpoint_path, self.device,
-                                  in_channels)
+        if self.backbone == "osnet":
+            self._model = build_osnet(type(self).__name__, self.variant,
+                                      self.feat_dim, self.n_parts, self.ibn,
+                                      self.checkpoint_path, self.device,
+                                      in_channels)
+        else:
+            self._model = build_backbone(
+                type(self).__name__, self.backbone, self.feat_dim,
+                (self.crop_h, self.crop_w), self.checkpoint_path, self.device)
         self._consts = tuple(torch.tensor(c, dtype=torch.float32,
                                           device=self.device)
                              for c in (IMAGENET_MEAN, IMAGENET_STD))
@@ -164,7 +220,8 @@ class OSNetReId(DetectionLevelModule):
             result["embeddings"] = list(out["part_features"].cpu().numpy())
             result["visibility_scores"] = list(vis)
         else:
-            result["embeddings"] = list(out["embeddings"].cpu().numpy())
+            emb = out["embeddings"] if isinstance(out, dict) else out
+            result["embeddings"] = list(emb.cpu().numpy())
             result["visibility_scores"] = [
                 np.ones(1, np.float32)] * len(detections)
         return result
