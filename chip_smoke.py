@@ -284,11 +284,27 @@ Then K3's f32 route per layer and the command line:
      family at full width (HACNN 160 x 64, the rest 256 x 128): a batch of 4
      on the card within 1e-4 of the output's scale from the CPU's, and a
      batch of 32 timed with CUDA events.
+ 27. phase train, YOLOX training, f32 with TF32 off: (a) YOLOX-s 640
+     (seeded, one class) on one fixed batch of 8 synthetic frames, AdamW
+     1e-4: the first step against the same step on the CPU (loss 1e-4
+     relative, gradients 5e-3 of their scale, BN statistics 1e-3), 20
+     steps timed (ms per step, images/s, peak memory) and one more under
+     torch.profiler (the card's busy share, launches), the loss falling,
+     0 K3 launches in training, 7 in the inference after it; (b)
+     ``train_tracking=true +experiment=mot17_ocsort
+     modules/bbox_detector=yolox`` (1 epoch, asked of ``train_detector``
+     by the phase's spy around ``YOLOXDetector.train``) on a
+     MOT17-layout tree of 2 x 20 1080p PNG frames: the detector trains
+     (weights move, 0 K3 launches), then detects through K3 and tracks
+     through K1; seconds in training, frames/s after. Phase baseline (c)
+     also runs the SoccerNet baseline's cameras as TVCalib's start on the
+     chain's 16 frames against the default start.
 
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
 launches on its own path, and per run of phases cli_reid, engines,
-baseline, pose, posetrack, zoo and reid_zoo under ``launches_by_path``; K4's
+baseline, pose, posetrack, zoo, reid_zoo and train under
+``launches_by_path``; K4's
 f32 figures
 at the KPR command line's shape under ``f32_kpr_cli``), and {"ok": true,
 "device": ...}.
@@ -4235,6 +4251,63 @@ def _cameras_apart(got, want):
     return gap, ok
 
 
+def _sn_baseline_chain(torch, dev, lines, wh=(1920, 1080), threshold=5.0):
+    """The SoccerNet baseline's cameras (``calibration/sn_baseline.py``:
+    line DLT homography, its camera, TVCalib's latent under each camera
+    type's priors) as ``optimize_cameras``' start, against its default
+    start, 300 steps on ``dev`` over ``lines`` (per frame: segment -> image
+    points): the relative mean reprojection error TVCalib reports, the
+    cameras' accuracy and mean reprojection in px at ``threshold`` px
+    (``evaluate_camera_prediction`` of the projected segments), seconds.
+    A frame without 4 straight markings starts from 0."""
+    from tracklab_torch.calibration import sn_baseline as SB
+    from tracklab_torch.calibration.cam_distr import priors_array
+    from tracklab_torch.calibration.camera import project_points
+    from tracklab_torch.calibration.pitch import pitch_segments
+    from tracklab_torch.calibration.tvcalib import (TVCalibConfig,
+                                                    optimize_cameras)
+
+    cfg = TVCalibConfig(image_width=wh[0], image_height=wh[1])
+    priors = priors_array(cfg.camera_types)
+    init = np.zeros((len(cfg.camera_types), len(lines), 9), np.float32)
+    found = 0
+    for b, obs in enumerate(lines):
+        hmat = SB.estimate_homography_from_markings(obs)
+        cam = None if hmat is None else SB.camera_from_homography(hmat, wh)
+        if cam is None:
+            continue
+        found += 1
+        for h in range(len(cfg.camera_types)):
+            init[h, b] = SB.camera_to_latent(cam, priors[h], cfg)
+    segs = {k: torch.tensor(v, dtype=torch.float32)
+            for k, v in pitch_segments().items()}
+    out = {"frames": len(lines), "baseline_cameras": found}
+    for start, z in (("default_start", None), ("sn_baseline_start", init)):
+        t0 = time.perf_counter()
+        cams, err = optimize_cameras(lines, cfg, init_latents=z, device=dev)
+        secs = time.perf_counter() - t0
+        conf, errors = np.zeros((2, 2)), {}
+        for c, obs in zip(cams, lines):
+            proj = {}
+            for name in obs:
+                px, front = project_points(c["camera"], segs[name])
+                px = px.numpy()[front.numpy()]
+                if len(px):
+                    proj[name] = px
+            g, _, e = SB.evaluate_camera_prediction(proj, obs, threshold)
+            conf += g
+            for k, v in e.items():
+                errors.setdefault(k, []).extend(v)
+        summary = SB.summarize_camera_eval(conf, errors)
+        out[start] = dict(
+            relative_mean_reproj_max=float(np.max(err)),
+            relative_mean_reproj_mean=float(np.mean(err)),
+            accuracy=summary["accuracy"],
+            mean_reprojection_px=summary["mean_reprojection_error"],
+            seconds=secs)
+    return out
+
+
 def phase_baseline(torch, dev, card, mot_videos=2, mot_frames=100,
                    n_objects=24, gs_frames=100, chain_frames=50,
                    prefix_frames=8):
@@ -4531,8 +4604,16 @@ def phase_baseline(torch, dev, card, mot_videos=2, mot_frames=100,
               f"baseline (c): at 300 steps the card's and the CPU's cameras "
               f"differ off the focal-distance ridge: {gap300}, CPU error "
               f"{float(np.max(cpu_err))}")
+        sn = _sn_baseline_chain(torch, dev, gt_lines)
+        log(f"baseline (c): the SoccerNet baseline's cameras as TVCalib's "
+            f"start on the chain's 16 frames on {card} ({sn['baseline_cameras']}"
+            f" found), against the default start: {sn}")
+        check(sn["baseline_cameras"] > 0
+              and all(math.isfinite(sn[k]["relative_mean_reproj_max"])
+                      for k in ("default_start", "sn_baseline_start")),
+              f"baseline (c): the SoccerNet baseline chain failed: {sn}")
         stats["gamestate_chain"] = dict(
-            split, launches=launches, GS_HOTA=c["GS-HOTA"],
+            split, launches=launches, GS_HOTA=c["GS-HOTA"], sn_baseline=sn,
             CLR_FN=c["CLR_FN"], IDSW=c["IDSW"],
             max_relative_mean_reproj=max(reproj),
             tvcalib_s_per_16_frames=per16,
@@ -6056,6 +6137,244 @@ def phase_reid_zoo(torch, dev, card, n_videos=2, n_frames=40, n_objects=24,
     return stats
 
 
+# ------------------------------------------------------------ phase train
+
+def _train_batch(n, size, n_objects, seed=21):
+    """``n`` synthetic frames of ``size`` x ``size`` (RGB uint8) and their
+    ground truth as the trainer takes it: (n, 64, 5) [cx, cy, w, h, 0] in
+    pixels and (n, 64) valid."""
+    from tracklab_torch.utils.cv2 import cv2_load_image
+    from tracklab_torch.wrappers.dataset.synthetic import make_synthetic_set
+
+    s = make_synthetic_set(n_videos=1, n_frames=n, n_objects=n_objects,
+                           seed=seed, img_w=size, img_h=size)
+    imgs = np.stack([cv2_load_image(p) for p in s.image_metadatas["file_path"]])
+    boxes = np.zeros((n, 64, 5), np.float32)
+    valid = np.zeros((n, 64), bool)
+    gt = s.detections_gt
+    for i, image_id in enumerate(s.image_metadatas.index):
+        b = np.stack(gt.loc[gt.image_id == image_id, "bbox_ltwh"]
+                     .to_numpy())[:64]
+        boxes[i, :len(b), :2] = b[:, :2] + b[:, 2:] / 2
+        boxes[i, :len(b), 2:4] = b[:, 2:]
+        valid[i, :len(b)] = True
+    return imgs, boxes, valid
+
+
+def _grads_apart(card, cpu):
+    """Per parameter, the largest gap between the card's and the CPU's
+    gradients over the CPU's largest magnitude; returns the worst and the
+    median."""
+    cpu_named = dict(cpu.named_parameters())
+    rel = []
+    for k, p in card.named_parameters():
+        want = cpu_named[k].grad
+        scale = float(want.abs().max())
+        if scale > 0:
+            rel.append(float((p.grad.cpu() - want).abs().max()) / scale)
+    return max(rel), float(np.median(rel))
+
+
+def phase_train(torch, dev, card, batch=8, size=640, steps=20,
+                n_objects=24, cli_videos=2, cli_frames=20):
+    """YOLOX training on the card (``models/train.py``), f32 with TF32 off.
+
+    (a) YOLOX-s at ``size`` x ``size`` (seeded weights, one class) on one
+    fixed batch of ``batch`` synthetic frames with ~``n_objects`` boxes
+    each, AdamW(1e-4, weight decay 1e-4): the first ``make_train_step``
+    against the same step of a copy on the CPU (loss within 1e-4 relative,
+    every gradient within 5e-3 of its largest magnitude, the BN running
+    statistics within 1e-3 of theirs); then ``steps`` steps in all, timed
+    with CUDA events (ms per step, images/s, peak memory), and one more
+    under torch.profiler (the card's busy ms and the kernel launches of a
+    step, on CUDA): the loss finite
+    and lower at the end than at the start, 0 K3 launches in the steps
+    (no CSPLayer takes the kernel in training); then the trained model's
+    inference under no_grad launches K3 once per dense CSPLayer (7).
+    (b) ``train_tracking=true`` on the command line:
+    ``+experiment=mot17_ocsort modules/bbox_detector=yolox`` (YOLOX-s 640)
+    on a MOT17-layout tree of ``cli_videos`` x ``cli_frames`` 1080p PNG
+    frames written here, 1 epoch (the spy around ``YOLOXDetector.train``
+    that times it asks ``train_detector`` for one): the detector trains
+    (its weights move, 0 K3 launches while it does), then the run detects through
+    K3 and tracks through K1 (0 host syncs in the scans); seconds in
+    training and frames/s of the tracking after it.
+
+    Returns the stats; (a)'s launches under "steps" and "inference", (b)'s
+    under "cli"."""
+    import copy
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tracklab_torch.models.train import create_train_state, make_train_step
+    from tracklab_torch.models.yolox import YOLOX
+    from tracklab_torch.wrappers.bbox_detector.yolox_api import YOLOXDetector
+
+    stats = {}
+    counters = _launch_counters()
+    imgs, boxes, valid = _train_batch(batch, size, n_objects)
+    model = YOLOX(num_classes=1, variant="s", device="cpu").randomize_(0)
+    cpu_model = copy.deepcopy(model)
+    model = model.to(dev)
+    adamw = partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)
+    step = make_train_step((size, size))
+
+    def on(d):
+        return {"images": torch.from_numpy(imgs).to(d),
+                "gt_boxes": torch.from_numpy(boxes).to(d),
+                "gt_valid": torch.from_numpy(valid).to(d)}
+
+    data = on(dev)
+    state = create_train_state(model, adamw)
+    for c in counters.values():
+        c.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state, loss0 = step(state, data)
+    t0 = time.perf_counter()
+    cpu_state, cpu_loss = step(create_train_state(cpu_model, adamw), on("cpu"))
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss0) / float(cpu_loss) - 1)
+    g_max, g_median = _grads_apart(model, cpu_model)
+    own, cpu_own = model.state_dict(), cpu_model.state_dict()
+    bn = max(float((own[k].cpu() - v).abs().max() / v.abs().max())
+             for k, v in cpu_own.items() if "running" in k)
+    log(f"train (a) first step of YOLOX-s {size} batch {batch} on {card} "
+        f"against the CPU ({cpu_s:.1f} s there): loss {float(loss0):.6f} vs "
+        f"{float(cpu_loss):.6f} ({loss_rel:.2e} relative); gradients "
+        f"{g_max:.2e} of their scale at worst, median {g_median:.2e}; BN "
+        f"running statistics {bn:.2e} of theirs")
+    check(loss_rel <= 1e-4, f"train (a): first loss {loss_rel:.2e} from "
+          "the CPU's")
+    check(g_max <= 5e-3, f"train (a): gradients {g_max:.2e} of their scale "
+          "from the CPU's")
+    check(bn <= 1e-3, f"train (a): BN statistics {bn:.2e} from the CPU's")
+    del cpu_model, cpu_state
+    losses = [loss0]
+    if dev.type == "cuda":
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        state, loss = step(state, data)
+        losses.append(loss)
+    if dev.type == "cuda":
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / (steps - 1)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    else:
+        ms, peak = (time.perf_counter() - t0) * 1e3 / (steps - 1), 0.0
+    prof = None
+    if dev.type == "cuda":
+        # one more step under torch.profiler: the card's busy time in a
+        # step against the step's time above, and the launches it takes
+        def one_step():
+            nonlocal state
+            state, _ = step(state, data)
+
+        prof = profile_window(torch, one_step, 1)
+        log(f"train (a) one step under torch.profiler on {card}: host "
+            f"{prof['host_ms_per_frame']:.2f} ms (profiled), device busy "
+            f"{prof['device_ms_per_frame']:.2f} ms = "
+            f"{prof['device_ms_per_frame'] / ms:.3f} of the unprofiled "
+            f"{ms:.2f} ms step, {prof['launches_per_frame']:.0f} kernel "
+            f"launches; top kernels {prof['top_kernels_ms_per_frame']}")
+    losses = [float(x) for x in losses]
+    step_launches = {k: c.launches for k, c in counters.items()}
+    model.eval()
+    for c in counters.values():
+        c.launches = 0
+    with torch.no_grad():
+        dec = model.predict(data["images"].float())
+    infer_launches = {k: c.launches for k, c in counters.items()}
+    log(f"train (a) {steps} steps on {card}: {ms:.2f} ms per step, "
+        f"{batch * 1e3 / ms:.1f} images/s, peak memory {peak:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ({losses}); launches in the "
+        f"steps {step_launches}, in the inference after {infer_launches}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train (a): the loss does not fall: {losses}")
+    check(step_launches["K3"] == 0, f"train (a): K3 launched "
+          f"{step_launches['K3']} times in training")
+    check(bool(torch.isfinite(dec).all()), "train (a): inference after "
+          "training is not finite")
+    check(infer_launches["K3"] == 7 or dev.type == "cpu",
+          f"train (a): {infer_launches['K3']} K3 launches in the inference "
+          "after training (7 dense CSPLayers)")
+    stats["steps"] = dict(ms_per_step=ms, images_per_s=batch * 1e3 / ms,
+                          peak_memory_gib=peak, losses=losses,
+                          first_step_vs_cpu=dict(
+                              loss_rel=loss_rel, grad_rel_max=g_max,
+                              grad_rel_median=g_median, bn_rel=bn,
+                              cpu_s=cpu_s),
+                          launches=step_launches, profiled_step=prof)
+    stats["inference"] = dict(launches=infer_launches)
+    del model, state, data
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    trained = {}
+    real_train = YOLOXDetector.train
+
+    def timed_train(self, *a, **kw):
+        self._build()
+        before = {k: v.clone() for k, v in self._model.state_dict().items()}
+        k3 = counters["K3"].launches
+        t0 = time.perf_counter()
+        out = real_train(self, *a, **dict(kw, epochs=1))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        trained.update(
+            seconds=time.perf_counter() - t0, loss=out.get("loss"),
+            k3_in_training=counters["K3"].launches - k3,
+            moved=any(not torch.equal(before[k], v)
+                      for k, v in self._model.state_dict().items()))
+        return out
+
+    try:
+        _mot17_tree(torch, dev, tmp, cli_videos, cli_frames, n_objects)
+        YOLOXDetector.train = timed_train
+        args = ["use_rich=false", "+experiment=mot17_ocsort",
+                f"data_dir={tmp}", "modules/bbox_detector=yolox",
+                "train_tracking=true",
+                "modules.bbox_detector.min_confidence=0.01",
+                "modules.track.min_confidence=0.01",
+                "modules.track.det_thresh=0.05", "engine.fused=false",
+                f"device={dev.type}"]
+        parts, res, launches, split = _cli_run(
+            torch, args, ("loader", "detect", "scan", "eval"))
+    finally:
+        YOLOXDetector.train = real_train
+        shutil.rmtree(tmp, ignore_errors=True)
+    pred = parts["tracker_state"].detections_pred
+    tracked = int(pred["track_id"].notna().sum()) if len(pred) else 0
+    log(f"train (b) train_tracking=true on {card}: training "
+        f"{trained.get('seconds', float('nan')):.2f} s (losses "
+        f"{trained.get('loss')}, K3 launches in it "
+        f"{trained.get('k3_in_training')}), then {_split_line(split)}; "
+        f"{len(pred)} rows, {tracked} tracked; launches {launches}; host "
+        f"syncs in the scans {split['host_syncs_in_scans']}")
+    check(trained.get("moved") and trained.get("loss")
+          and all(math.isfinite(x) for x in trained["loss"]),
+          f"train (b): the command line did not train: {trained}")
+    check(trained["k3_in_training"] == 0, "train (b): K3 launched in "
+          "training")
+    check(tracked > 0, "train (b): nothing tracked after training")
+    for k in ("K3", "K1"):
+        check(launches[k] > 0 or dev.type == "cpu",
+              f"train (b): {k} never launched")
+    check(split["host_syncs_in_scans"] == 0, "train (b): host syncs in the "
+          "tracker scans")
+    stats["cli"] = dict(split, launches=launches, rows=len(pred),
+                        tracked=tracked, training_s=trained["seconds"],
+                        training_losses=trained["loss"],
+                        k3_in_training=trained["k3_in_training"],
+                        HOTA=res["COMBINED_SEQ"]["HOTA"] if res else None)
+    return stats
+
+
 def _host_packages():
     """Whether pandas, yaml, cv2, scipy, tqdm and rich import here, with
     their versions."""
@@ -6156,6 +6475,9 @@ def main() -> int:
     t0 = time.perf_counter()
     reid_zoo = phase_reid_zoo(torch, dev, smi)
     log(f"phase reid_zoo: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train = phase_train(torch, dev, smi)
+    log(f"phase train: {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -6193,8 +6515,10 @@ def main() -> int:
                           "rtmdet_staged", "rtmdet_fused",
                           "rtdetr_s_staged")}
     zoo_runs["zoo_reid_staged"] = reid_zoo["staged"]["launches"]
+    train_runs = {f"train_{k}": train[k]["launches"]
+                  for k in ("steps", "inference", "cli")}
     by_path = dict(cli_reid_runs, **engine_runs, **baseline_runs,
-                   **pose_runs, **posetrack_runs, **zoo_runs)
+                   **pose_runs, **posetrack_runs, **zoo_runs, **train_runs)
     for entry, key in zip((k1, k2, k3, k4, oru, oru_nkf), _CLI_COUNTERS):
         entry["launches_by_path"] = {run: n[key]
                                      for run, n in by_path.items()}
@@ -6208,7 +6532,7 @@ def main() -> int:
                       "cli_reid": reid_cli, "engines": engines,
                       "baseline": baseline, "pose": pose,
                       "posetrack": posetrack, "zoo": zoo,
-                      "reid_zoo": reid_zoo,
+                      "reid_zoo": reid_zoo, "train": train,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,

@@ -4,9 +4,11 @@ JAX package and the numpy/scipy oracle on the CPU.
 Single-video ByteTrack must match the JAX ``bytetrack_scan`` and
 ``ByteTrackOracle`` frame for frame on the streams of test_bytetrack.py (the
 cond-free ``batched`` mode on two of them; test_torch_batched.py holds it
-over a video axis). The JAX references are computed once per module.
+over a video axis). The JAX references are computed once per module, with
+one compile per configuration (the three 60-frame streams share one).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -15,11 +17,13 @@ import pytest
 import torch
 
 from oracles.bytetrack_oracle import ByteTrackOracle
-from test_bytetrack import KW, run_jax
+from test_bytetrack import KW
 from test_ocsort import assert_frames_equal, synth_stream
 from tracklab_tpu.ops import boxes as JB
 from tracklab_tpu.ops.kalman import XYAHFilter as JKF
+from tracklab_tpu.trackers import common as JC
 from tracklab_tpu.trackers.bytetrack import ByteTrackConfig as JConfig
+from tracklab_tpu.trackers.bytetrack import bytetrack_scan as jbytetrack_scan
 from tracklab_torch.ops import boxes as TB
 from tracklab_torch.ops.kalman import XYAHFilter as TKF
 from tracklab_torch.trackers import common as TC
@@ -96,6 +100,27 @@ def _frames(name):
 
 def _cap(name):
     return (16, 8) if name == "empty_low_conf" else (64, 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_scan(cfg):
+    return jax.jit(lambda d: jbytetrack_scan(cfg, d))
+
+
+def run_jax(frames, cfg):
+    """test_bytetrack.py's ``run_jax`` through one jitted scan per
+    configuration."""
+    dets = [JC.pad_detections(f[:, :4], f[:, 4], f[:, 5], f[:, 6].astype(int),
+                              capacity=cfg.max_dets, dtype=np.float64)
+            for f in frames]
+    stacked = JC.Detections(*[jnp.stack([getattr(d, n) for d in dets])
+                              for n in JC.Detections._fields])
+    _, out = _jax_scan(cfg)(stacked)
+    valid = np.asarray(out.valid)
+    return [[(np.asarray(out.ltrb[f, t]), int(out.track_id[f, t]),
+              float(out.cls[f, t]), float(out.conf[f, t]),
+              int(out.ref[f, t])) for t in np.nonzero(valid[f])[0]]
+            for f in range(len(frames))]
 
 
 @pytest.fixture(scope="module")

@@ -79,7 +79,10 @@ def test_port_imports_in_a_clean_interpreter():
 # prompt masks), and the KPR and PoseTrack modules (the KPR wrappers, the
 # pandas accessors, the PoseTrack datasets and metrics), and the detector
 # zoo and DeepLabV3 (RTMDet, both RT-DETR families, their converters and
-# wrappers), and the ReID backbone zoo, which the checks above must cover
+# wrappers), the ReID backbone zoo, and the training, checkpoint and host
+# utility modules (YOLOX training, its engine, the checkpoint formats and
+# manifests, the SoccerNet baseline, wandb and download), which the checks
+# above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
@@ -170,7 +173,14 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/wrappers/bbox_detector/rtdetr_api.py",
                  "tracklab_torch/wrappers/bbox_detector/__init__.py",
                  "tracklab_torch/models/reid_backbones.py",
-                 "tracklab_torch/models/nasnet_reid.py")
+                 "tracklab_torch/models/nasnet_reid.py",
+                 "tracklab_torch/models/train.py",
+                 "tracklab_torch/models/detector_train_engine.py",
+                 "tracklab_torch/models/onnx_weights.py",
+                 "tracklab_torch/models/manifest.py",
+                 "tracklab_torch/calibration/sn_baseline.py",
+                 "tracklab_torch/utils/wandb.py",
+                 "tracklab_torch/utils/download.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

@@ -151,6 +151,29 @@ def test_rect_plain_edge_cases_identical_to_lax(case):
     np.testing.assert_allclose(obj, c[rr, cc].sum(), atol=1e-5)
 
 
+@pytest.mark.parametrize("case", list(_RECT_EDGES) + ["random_f64",
+                                                     "square_ties"])
+def test_plain_numpy_steps_equal_torch_steps(case):
+    """On a CPU tensor the plain solvers take their steps in numpy; the
+    same loop on a torch tensor (the form that runs on a CUDA tensor) gives
+    the same col2row and step count, on the edge cases, a float64 draw and
+    a tie-heavy square (K1's plain version is the rectangular one at
+    R = C)."""
+    from tracklab_torch.kernels import jv, jv_rect
+    rng = np.random.default_rng(25)
+    c = {"random_f64": lambda: rng.normal(size=(12, 40)),
+         "square_ties": lambda: rng.integers(0, 3, (17, 17)).astype(
+             np.float32)}.get(case, _RECT_EDGES.get(case))()
+    want, steps = jv_rect._rect_steps(torch.from_numpy(c))
+    stats = {}
+    got = jv_rect._solve_rect_plain(torch.from_numpy(c), stats)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.int32))
+    assert stats["steps"] == steps > 0
+    if c.shape[0] == c.shape[1]:
+        np.testing.assert_array_equal(
+            jv._solve_square_plain(torch.from_numpy(c)).numpy(), got.numpy())
+
+
 def _warp_argmin(reach, used):
     """The warp kernels' argmin rule (csrc/jv_rect.cu, csrc/jv.cu) in numpy:
     lane l holds the columns [l*W, l*W + W), W = ceil(C/32); a column's

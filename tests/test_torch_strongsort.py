@@ -9,6 +9,7 @@ videos over the video axis in both ``batched`` modes against ``jax.vmap``
 of the cond-free JAX scan.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,10 +51,16 @@ def _padded(frames, embs):
     return ltrb, conf, cls, ref, valid, emb
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_scan(cfg):
+    """JAX's jitted scan for ``cfg``, one per configuration: streams of
+    the same shapes share its compile."""
+    return jax.jit(lambda dd, e: JS.strongsort_scan(cfg, JDet(*dd), e)[1])
+
+
 def _jax_out(arrays, cfg):
     *d, emb = map(jnp.asarray, arrays)
-    scan = jax.jit(lambda dd, e: JS.strongsort_scan(cfg, JDet(*dd), e)[1])
-    return type_np(scan(tuple(d), emb))
+    return type_np(_jax_scan(cfg)(tuple(d), emb))
 
 
 def type_np(out):
@@ -177,20 +184,28 @@ def test_nsa_filter_matches_jax():
                                atol=1e-9)
 
 
-@pytest.mark.parametrize("batched", [False, True])
-def test_modes_part_as_in_jax(batched):
-    """A crowded stream (14 objects in 16 slots) where the two modes give
-    different tracks in the JAX package: NaN gating costs of free slots
-    and padded rows empty the default mode's appearance stage (the one-hot
-    column permutation, a reference fault kept for parity), not the
-    rectangular batched mode's. The port gives JAX's tracks in each mode,
-    id for id."""
+@pytest.fixture(scope="module")
+def crowded():
+    """A crowded stream (14 objects in 16 slots) and JAX's tracks on it in
+    each mode, computed once for the cases that read them."""
     frames, embs = synth_stream_with_emb(2, n_frames=30, n_obj=14, drop=0.1,
                                          fp_rate=0.3)
     arrays = _padded(frames, embs)
     kw = dict(max_tracks=T, max_dets=D, embed_dim=E_DIM, **KW)
     want = {b: _jax_out(arrays, JS.StrongSortConfig(batched=b, **kw))
             for b in (False, True)}
+    return arrays, kw, want
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_modes_part_as_in_jax(crowded, batched):
+    """A crowded stream (14 objects in 16 slots) where the two modes give
+    different tracks in the JAX package: NaN gating costs of free slots
+    and padded rows empty the default mode's appearance stage (the one-hot
+    column permutation, a reference fault kept for parity), not the
+    rectangular batched mode's. The port gives JAX's tracks in each mode,
+    id for id."""
+    arrays, kw, want = crowded
     assert not np.array_equal(want[False].valid, want[True].valid)
     _, out = TS.strongsort_scan(TS.StrongSortConfig(batched=batched, **kw),
                                 *_torch_dets(arrays))

@@ -6,9 +6,9 @@ zip of pickles ({video_id}.pkl, {video_id}_image.pkl and a summary.json
 column manifest), the same file layout as the JAX package's, so a state
 file written by one package loads in the other. Supports column-level
 resume (loaded columns = stored columns minus the pipeline's outputs, plus
-its inputs) and bootstrapping from the ground truth or from a dataset's
-public detections. The JAX package's JSON bootstrap waits for a dataset
-that provides it.
+its inputs) and bootstrapping from the ground truth, from a dataset's
+public detections or from a COCO-style JSON file of detections
+(``json_file``).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import zipfile
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import pandas as pd
 
 from tracklab_torch.pipeline.module import Pipeline
@@ -33,12 +34,13 @@ _BASE_IMG_COLUMNS = ["video_id", "frame", "file_path"]
 
 class TrackerState:
     def __init__(self, tracking_set, pipeline: Optional[Pipeline] = None,
-                 save_file=None, load_file=None,
+                 save_file=None, load_file=None, json_file=None,
                  load_from_groundtruth: bool = False,
                  load_from_public_dets: bool = False, **kwargs):
         self.pipeline = pipeline if pipeline is not None else Pipeline([])
         self.save_file = Path(save_file) if save_file else None
         self.load_file = Path(load_file) if load_file else None
+        self.json_file = json_file
         self.load_from_groundtruth = load_from_groundtruth
         self.load_from_public_dets = load_from_public_dets
         self.after_saved_state = True  # callback ordering flag
@@ -52,6 +54,10 @@ class TrackerState:
         self.image_pred: Optional[pd.DataFrame] = None
         self.video_id = None
         self.zf = {}
+
+        if json_file is not None:
+            self.json_detections_pred = self._load_json_detections(
+                json_file)
 
         # the ground truth acts as an upstream module, so trackers run
         # without a detector; a dict value keeps only the listed columns
@@ -90,10 +96,46 @@ class TrackerState:
             cols |= self.input_columns[level] | set(base)
             if load_from_groundtruth and level == "detection":
                 cols |= set(self.detections_pred_gt.columns)
+            if json_file is not None and level == "detection":
+                cols |= set(self.json_detections_pred.columns)
             self.load_columns[level] = cols
         self.pipeline.validate(self.load_columns)
 
     # ------------------------------------------------------------------
+    def _load_json_detections(self, json_file):
+        """External detections from a COCO-style JSON file: a list of
+        records, or a dict holding one under ``annotations`` or
+        ``detections``, each with image_id, bbox (ltwh), score and
+        optionally keypoints and category_id. Records of images the set
+        does not hold are dropped."""
+        with open(json_file) as fp:
+            data = json.load(fp)
+        records = data if isinstance(data, list) else \
+            data.get("annotations", data.get("detections", []))
+        rows = []
+        img_video = self.image_metadatas["video_id"]
+        for rec in records:
+            image_id = rec.get("image_id")
+            if image_id not in img_video.index:
+                continue
+            row = {
+                "image_id": image_id,
+                "video_id": img_video.loc[image_id],
+                "bbox_ltwh": np.asarray(rec.get("bbox",
+                                                rec.get("bbox_ltwh")),
+                                        np.float32),
+                "bbox_conf": float(rec.get("score",
+                                           rec.get("bbox_conf", 1.0))),
+                "category_id": int(rec.get("category_id", 1)),
+            }
+            if "keypoints" in rec:
+                row["keypoints_xyc"] = np.asarray(
+                    rec["keypoints"], np.float32).reshape(-1, 3)
+            rows.append(row)
+        df = pd.DataFrame(rows)
+        df.index.name = "id"
+        return df
+
     def _stored_columns(self):
         if self.load_file is None or not self.load_file.exists():
             return {}
@@ -138,6 +180,11 @@ class TrackerState:
             "load() must be called inside the per-video context manager"
         video_images = self.image_metadatas[
             self.image_metadatas.video_id == self.video_id]
+        if self.json_file is not None:
+            video_detections = self.json_detections_pred[
+                self.json_detections_pred.video_id == self.video_id]
+            self.update(video_detections, video_images)
+            return video_detections, video_images
         video_detections = pd.DataFrame()
         if self.load_from_groundtruth:
             video_detections = self.detections_pred_gt[

@@ -4,11 +4,13 @@ tracklab_tpu.datastruct.tracking_dataset).
 A ``TrackingSet`` is four DataFrames (video_metadatas, image_metadatas,
 detections_gt, image_gt), and a ``detections_public`` DataFrame where the
 dataset has public detections; a ``TrackingDataset`` maps a split name to
-a set, with nvid/nframes/vids_dict subsampling and MOT-format export. The JAX
-package's person-disjoint set splits (for ReID training) wait for training.
+a set, with nvid/nframes/vids_dict subsampling, person-disjoint set splits
+(``set_split_idxs``, :meth:`TrackingDataset.split_set`) and MOT-format
+export.
 """
 from __future__ import annotations
 
+import copy
 import logging
 from pathlib import Path
 from typing import Optional
@@ -60,13 +62,50 @@ class SetsDict(dict):
 class TrackingDataset:
     def __init__(self, dataset_path: str, sets: dict,
                  nvid: int = -1, nframes: int = -1,
-                 vids_dict: Optional[dict] = None, *args, **kwargs):
+                 vids_dict: Optional[dict] = None,
+                 set_split_idxs: Optional[dict] = None, *args, **kwargs):
         self.dataset_path = Path(dataset_path)
         self.sets = SetsDict(sets)
         vids_dict = vids_dict or {}
         for split, s in self.sets.items():
             self.sets[split] = self._subsample(
                 s, nvid, nframes, vids_dict.get(split))
+        # person-disjoint set selection: {"train": 0} replaces the train
+        # set by half 0 of its two-way person-disjoint split
+        self.set_splits: dict = {}
+        self.set_split_idxs = set_split_idxs or {}
+        for set_name, split_idx in self.set_split_idxs.items():
+            self.set_splits[set_name] = self.split_set(set_name)
+            self.sets[set_name] = self.set_splits[set_name][split_idx]
+
+    def split_set(self, set_name: str, num_splits: int = 2,
+                  person_column: str = "person_id"):
+        """Partition a split's videos into ``num_splits`` person-disjoint
+        groups: videos that share an identity land in the same group, any
+        other goes to the smallest group, the videos taken by their count
+        of identities, largest first (pandas' ``sort_values(ascending=
+        False)``, so ties keep the JAX package's order). ``track_id``
+        stands in where there is no ``person_column``."""
+        src = self.sets[set_name]
+        gt = src.detections_gt
+        if person_column not in gt.columns:
+            person_column = "track_id"
+        order = (gt.groupby("video_id")[person_column].nunique()
+                 .sort_values(ascending=False).index)
+        groups = [[] for _ in range(num_splits)]
+        people = [set() for _ in range(num_splits)]
+        for video_id in order:
+            vid_people = set(gt.loc[gt.video_id == video_id,
+                                    person_column].dropna())
+            for g in range(num_splits):
+                if people[g] & vid_people:
+                    target = g
+                    break
+            else:
+                target = int(np.argmin([len(g) for g in groups]))
+            groups[target].append(video_id)
+            people[target].update(vid_people)
+        return [copy.deepcopy(src).filter_videos(vids) for vids in groups]
 
     def _subsample(self, tracking_set: Optional[TrackingSet], nvid, nframes,
                    vids_names):

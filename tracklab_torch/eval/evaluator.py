@@ -121,4 +121,12 @@ class TrackEvalEvaluator(Evaluator):
         for k in _PRINT_KEYS:
             if k in combined:
                 log.info("  %-8s %10.3f", k, combined[k])
+        # W&B logging, as the JAX evaluator's: nothing without wandb
+        from tracklab_torch.utils import wandb as wb
+        wb.log_metrics({k: v for k, v in combined.items()
+                        if isinstance(v, (int, float))}, prefix="eval")
+        for name, res in per_seq.items():
+            wb.log_metrics({k: v for k, v in res.items()
+                            if isinstance(v, (int, float))},
+                           prefix=f"eval/{name}")
         return {"COMBINED_SEQ": combined, "per_seq": per_seq}

@@ -19,6 +19,8 @@ import functools
 
 import torch
 
+from tracklab_torch.kernels.jv_rect import _solve_rect_plain
+
 __all__ = ["solve_square_batched", "solve_square_batched_plain",
            "_solve_square_plain"]
 
@@ -26,50 +28,15 @@ __all__ = ["solve_square_batched", "solve_square_batched_plain",
 def _solve_square_plain(cost: torch.Tensor, stats: dict | None = None):
     """Exact min-cost perfect matching on a square (K, K) matrix; returns
     ``col2row`` (K,) int32. The torch form of ``_solve_square_lax``: rows in
-    order, columns vectorised, lowest-index argmin on ties. ``stats``, when
-    given, accumulates the number of shortest-path steps under "steps"."""
+    order, columns vectorised, lowest-index argmin on ties; the steps are
+    the rectangular solver's at R = C (``jv_rect._solve_rect_plain``, numpy
+    for a CPU tensor). ``stats``, when given, accumulates the number of
+    shortest-path steps under "steps"."""
     K = cost.shape[0]
-    assert cost.shape == (K, K)
-    dev, dt = cost.device, cost.dtype
-    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
-    FREE = K
-    u = torch.zeros(K + 1, dtype=dt, device=dev)
-    v = torch.zeros(K + 1, dtype=dt, device=dev)
-    p = [FREE] * (K + 1)           # col -> row, slot K is the virtual column
-    steps = 0
-    for i in range(K):
-        p[K] = i
-        minv = torch.full((K,), float("inf"), dtype=dt, device=dev)
-        way = torch.full((K,), K, dtype=torch.int64, device=dev)
-        used = torch.zeros(K + 1, dtype=torch.bool, device=dev)
-        used_l = [False] * (K + 1)
-        j0 = K
-        while p[j0] != FREE:
-            used[j0] = True
-            used_l[j0] = True
-            i0 = p[j0]
-            cur = cost[i0] - u[i0] - v[:K]
-            better = (cur < minv) & ~used[:K]
-            minv = torch.where(better, cur, minv)
-            way = torch.where(better, j0, way)
-            reach = torch.where(used[:K], inf, minv)
-            j1 = int(torch.argmin(reach))
-            delta = reach[j1]
-            rows = [p[j] for j in range(K + 1) if used_l[j]]
-            idx = torch.tensor(rows, dtype=torch.int64, device=dev)
-            u[idx] = u[idx] + delta
-            v = torch.where(used, v - delta, v)
-            minv = torch.where(used[:K], minv, minv - delta)
-            j0 = j1
-            steps += 1
-        way_l = way.tolist()
-        while j0 != K:
-            j1 = way_l[j0]
-            p[j0] = p[j1]
-            j0 = j1
-    if stats is not None:
-        stats["steps"] = stats.get("steps", 0) + steps
-    return torch.tensor(p[:K], dtype=torch.int32, device=dev)
+    if cost.shape != (K, K):
+        raise ValueError(f"_solve_square_plain needs a square matrix, got "
+                         f"{tuple(cost.shape)}")
+    return _solve_rect_plain(cost, stats)
 
 
 def solve_square_batched_plain(cost, k_eff, active):

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 __all__ = ["solve_rect_batched", "solve_rect_batched_plain",
@@ -32,22 +33,49 @@ def _solve_rect_plain(cost: torch.Tensor, stats: dict | None = None):
     means the column is unassigned. The torch form of ``_solve_rect_lax``:
     rows in order, columns vectorised, lowest-index argmin on ties.
     ``stats``, when given, accumulates the shortest-path steps under
-    "steps"."""
+    "steps".
+
+    The steps are :func:`_rect_steps`'s, on the tensor's device; a CPU
+    tensor takes them in numpy, which gives the same steps at a fraction of
+    torch's per-operation dispatch cost."""
     R, C = cost.shape
     if R > C:
         raise ValueError(f"_solve_rect_plain needs R <= C, got {R} x {C}")
-    dev, dt = cost.device, cost.dtype
-    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    p, steps = _rect_steps(cost.numpy() if cost.device.type == "cpu"
+                           else cost)
+    if stats is not None:
+        stats["steps"] = stats.get("steps", 0) + steps
+    return torch.tensor(p, dtype=torch.int32, device=cost.device)
+
+
+def _rect_steps(cost):
+    """The shortest-augmenting-path steps on ``cost``, a numpy array or a
+    torch tensor (on its own device): (col2row list, path steps). Each step
+    is an IEEE elementwise operation or a first-index argmin in both
+    libraries, so the two take the same steps bit for bit."""
+    R, C = cost.shape
+    if isinstance(cost, torch.Tensor):
+        xp, ints, bools = torch, torch.int64, torch.bool
+
+        def full(n, value, dtype):
+            return torch.full((n,), value, dtype=dtype, device=cost.device)
+    else:
+        xp, ints, bools = np, np.int64, np.bool_
+
+        def full(n, value, dtype):
+            return np.full(n, value, dtype)
+    dt = cost.dtype
+    inf = full(1, float("inf"), dt)[0]
     FREE = R
-    u = torch.zeros(R + 1, dtype=dt, device=dev)
-    v = torch.zeros(C + 1, dtype=dt, device=dev)
+    u = full(R + 1, 0, dt)
+    v = full(C + 1, 0, dt)
     p = [FREE] * (C + 1)           # col -> row, slot C is the virtual column
     steps = 0
     for i in range(R):
         p[C] = i
-        minv = torch.full((C,), float("inf"), dtype=dt, device=dev)
-        way = torch.full((C,), C, dtype=torch.int64, device=dev)
-        used = torch.zeros(C + 1, dtype=torch.bool, device=dev)
+        minv = full(C, float("inf"), dt)
+        way = full(C, C, ints)
+        used = full(C + 1, False, bools)
         used_cols = []
         j0 = C
         while p[j0] != FREE:
@@ -56,16 +84,15 @@ def _solve_rect_plain(cost: torch.Tensor, stats: dict | None = None):
             i0 = p[j0]
             cur = cost[i0] - u[i0] - v[:C]
             better = (cur < minv) & ~used[:C]
-            minv = torch.where(better, cur, minv)
-            way = torch.where(better, j0, way)
-            reach = torch.where(used[:C], inf, minv)
-            j1 = int(torch.argmin(reach))
+            minv = xp.where(better, cur, minv)
+            way = xp.where(better, j0, way)
+            reach = xp.where(used[:C], inf, minv)
+            j1 = int(xp.argmin(reach))
             delta = reach[j1]
-            idx = torch.tensor([p[j] for j in used_cols], dtype=torch.int64,
-                               device=dev)
+            idx = [p[j] for j in used_cols]
             u[idx] = u[idx] + delta
-            v = torch.where(used, v - delta, v)
-            minv = torch.where(used[:C], minv, minv - delta)
+            v = xp.where(used, v - delta, v)
+            minv = xp.where(used[:C], minv, minv - delta)
             j0 = j1
             steps += 1
         way_l = way.tolist()
@@ -73,9 +100,7 @@ def _solve_rect_plain(cost: torch.Tensor, stats: dict | None = None):
             j1 = way_l[j0]
             p[j0] = p[j1]
             j0 = j1
-    if stats is not None:
-        stats["steps"] = stats.get("steps", 0) + steps
-    return torch.tensor(p[:C], dtype=torch.int32, device=dev)
+    return p[:C], steps
 
 
 def solve_rect_batched_plain(cost, active=None, stats: dict | None = None):

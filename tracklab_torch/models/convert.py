@@ -30,10 +30,17 @@ The ReID backbone zoo: ``reid_backbone_from_flax`` builds a zoo model from
 the JAX package's tree (its ``_generic_torch_key`` names, and
 ``_inception_torch_key``'s for the Inception families and NASNet), and
 ``convert_reid_backbone_torch`` loads a torchreid checkpoint.
+
+Checkpoint files (the JAX package's ``load_checkpoint``): ``load_checkpoint``
+reads a torch file, a training checkpoint included (``unwrap_state_dict``),
+a TorchScript archive or an .onnx file (``convert_onnx``) into a port
+model through its family's converter; ``convert_yolox_torch`` reads
+Megvii's YOLOX files.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -51,7 +58,9 @@ __all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
            "rtmdet_from_flax", "convert_rtmdet_torch", "rtdetr_from_flax",
            "rtdetr_hf_from_flax", "convert_rtdetr_hf_torch",
            "deeplabv3_from_flax", "convert_deeplabv3_torch",
-           "reid_backbone_from_flax", "convert_reid_backbone_torch"]
+           "reid_backbone_from_flax", "convert_reid_backbone_torch",
+           "checkpoint_kind", "unwrap_state_dict", "convert_yolox_torch",
+           "convert_onnx", "load_checkpoint"]
 
 _LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var"}
@@ -629,11 +638,8 @@ def convert_deeplabv3_torch(state_dict, model):
     and return it: a ``module.`` prefix is dropped; without ``model.aux``
     the aux classifier's tensors are not read. Raises on any other missing
     or unused tensor, or a shape mismatch."""
-    if isinstance(state_dict.get("model"), Mapping):
-        state_dict = state_dict["model"]
-    sd = {(k[len("module."):] if k.startswith("module.") else k): v
-          for k, v in state_dict.items()}
-    return _load_checked(sd, model, "torchvision DeepLabV3",
+    return _load_checked(unwrap_state_dict(state_dict), model,
+                         "torchvision DeepLabV3",
                          unused_ok=() if model.aux else ("aux_classifier.",))
 
 
@@ -716,12 +722,167 @@ def convert_reid_backbone_torch(state_dict, model):
     the classifier heads and PCB's ``conv5`` are not read where the model
     has no such tensor, nor is ``num_batches_tracked``. Raises on any other
     missing or unused tensor, or a shape mismatch."""
-    if isinstance(state_dict.get("state_dict"), Mapping):
-        state_dict = state_dict["state_dict"]
     own = model.state_dict()
-    sd = {}
-    for k, v in state_dict.items():
-        k = k[len("module."):] if k.startswith("module.") else k
-        if k in own or not k.startswith(_ZOO_UNUSED):
-            sd[k] = v
+    sd = {k: v for k, v in unwrap_state_dict(state_dict).items()
+          if k in own or not k.startswith(_ZOO_UNUSED)}
     return _load_checked(_fit_raw(sd, model), model, "torchreid backbone")
+
+
+# ------------------------------------------------------- checkpoint files
+
+_RUNTIME_FORMATS = {
+    ".engine": "TensorRT", ".trt": "TensorRT",
+    ".tflite": "TFLite", ".mlmodel": "CoreML",
+}
+# the tensors of a training checkpoint sit under one of these keys (Megvii:
+# "model"; mmdet, torchreid: "state_dict"; EMA trainers: "ema")
+_WRAPPER_KEYS = ("model", "state_dict", "ema")
+# Megvii YOLOX training files: the head's decode grids and strides and the
+# prediction convs' training copies
+_YOLOX_UNUSED = ("head.cls_preds_", "head.obj_preds_",
+                 "backbone.backbone.stem.conv.conv.weight_",
+                 "head.grids", "head.strides")
+
+
+def checkpoint_kind(path) -> str:
+    """Classify a checkpoint by its suffix, as the JAX package does:
+    'torch' (.pth/.pt/.bin), 'onnx', 'torchscript', or 'orbax' (anything
+    else: the JAX package's checkpoint directory). The runtime-only exports
+    (TensorRT, TFLite, CoreML) raise ValueError."""
+    suffix = Path(path).suffix.lower()
+    if suffix in (".pth", ".pt", ".bin"):
+        return "torch"
+    if suffix == ".onnx":
+        return "onnx"
+    if suffix == ".torchscript":
+        return "torchscript"
+    if suffix in _RUNTIME_FORMATS:
+        raise ValueError(
+            f"{path}: {_RUNTIME_FORMATS[suffix]} checkpoints are "
+            "runtime-specific exports and cannot be loaded; supply the "
+            "original torch .pth/.pt weights (converted by name mapping), "
+            "a .torchscript or an .onnx file")
+    return "orbax"
+
+
+def unwrap_state_dict(ckpt) -> dict:
+    """A checkpoint's tensors: the mapping under ``model``, ``state_dict``
+    or ``ema`` where there is one (the first of them), with a ``module.``
+    prefix (DataParallel) dropped from each key."""
+    if isinstance(ckpt, Mapping):
+        for key in _WRAPPER_KEYS:
+            if isinstance(ckpt.get(key), Mapping):
+                ckpt = ckpt[key]
+                break
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in ckpt.items()}
+
+
+def _torch_state_dict(path, allow_pickle=False) -> dict:
+    """A torch checkpoint's tensors (:func:`unwrap_state_dict`). Loads with
+    ``weights_only=True``; full unpickling, which can run code from the
+    file, only with the explicit ``allow_pickle=True``."""
+    import pickle
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except (pickle.UnpicklingError, RuntimeError) as e:
+        # only an unpickling-safety failure suggests the unsafe load;
+        # missing files and IO errors propagate as themselves
+        if not allow_pickle:
+            raise ValueError(
+                f"{path} is not loadable with weights_only=True ({e}); "
+                "pass allow_pickle=True only for checkpoints you trust"
+            ) from e
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return unwrap_state_dict(ckpt)
+
+
+def _torchscript_state_dict(path) -> dict:
+    """The tensors of a TorchScript archive: a scripted or traced module
+    keeps its source module's state-dict keys, and loading it runs no
+    pickle."""
+    mod = torch.jit.load(str(path), map_location="cpu")
+    return {k: v.detach().clone() for k, v in mod.state_dict().items()}
+
+
+def convert_yolox_torch(state_dict, model):
+    """Load a Megvii YOLOX state dict (the port's keys are its keys;
+    tensors or numpy arrays) into ``model`` and return it. A ``module.``
+    prefix is dropped, as are the leftovers of Megvii training files
+    (``head.grids``, ``head.strides``, the ``*_`` copies) and BN's
+    ``num_batches_tracked``. Raises on any other missing or unused
+    tensor, or a shape mismatch."""
+    return _load_checked(unwrap_state_dict(state_dict), model,
+                         "Megvii YOLOX", unused_ok=_YOLOX_UNUSED)
+
+
+def _convert_port_layout(state_dict, model):
+    """The families whose checkpoints the port reads in its own layout
+    (YOLOXPose, TopDownPose, SimCCPose, PitchSegNet, the lightweight
+    RT-DETR): loaded strict."""
+    return _load_checked(unwrap_state_dict(state_dict), model,
+                         type(model).__name__)
+
+
+def _torch_converter_for(model):
+    """The converter of ``model``'s family (each mirrors another upstream
+    state-dict layout)."""
+    from tracklab_torch.models.osnet import ReidBackbone
+    if isinstance(model, ReidBackbone):
+        return convert_reid_backbone_torch
+    return {
+        "YOLOX": convert_yolox_torch,
+        "YOLOv8": convert_yolov8_torch,
+        "YOLO11": convert_yolov8_torch,
+        "YOLO11Pose": convert_yolov8_torch,
+        "ViTPose": convert_vitpose_torch,
+        "RTMDet": convert_rtmdet_torch,
+        "RTDetrHF": convert_rtdetr_hf_torch,
+        "OSNet": convert_osnet_torch,
+        "KPR": convert_kpr_torch,
+        "DeepLabV3": convert_deeplabv3_torch,
+    }.get(type(model).__name__, _convert_port_layout)
+
+
+_ONNX_EPS = {"YOLOX": 1e-3, "YOLOv8": 1e-3, "YOLO11": 1e-3, "RTMDet": 1e-5}
+
+
+def convert_onnx(path, model):
+    """Load an .onnx file's weights into ``model`` (YOLOX, RTMDet, YOLOv8
+    or YOLO11, the families the JAX package's map names) and return it.
+    Its initializers carry the torch names; a folded-BN export (no BN
+    tensors, a bias on each conv) loads as a BN pass-through
+    (``onnx_weights.convert_onnx_folded_bn``)."""
+    from tracklab_torch.models.onnx_weights import (
+        convert_onnx_folded_bn, parse_onnx_initializers,
+    )
+    name = type(model).__name__
+    if name not in _ONNX_EPS:
+        raise ValueError(
+            f"No onnx weight map for model family {name!r}; supply the "
+            f"original torch .pth weights instead ({sorted(_ONNX_EPS)} "
+            "support onnx)")
+    sd = convert_onnx_folded_bn(parse_onnx_initializers(path), model,
+                                bn_eps=_ONNX_EPS[name])
+    return _torch_converter_for(model)(sd, model)
+
+
+def load_checkpoint(path, model, allow_pickle=False):
+    """Load the checkpoint at ``path`` into ``model`` (a port model on any
+    device) and return it, dispatching by suffix as the JAX package's
+    ``load_checkpoint`` does: a torch file (its tensors under ``model``,
+    ``state_dict`` or ``ema`` where it is a training checkpoint), a
+    TorchScript archive or an .onnx file, through the family's converter.
+    The JAX package's orbax directories are not read here: they raise
+    ValueError, as the runtime-only exports do."""
+    kind = checkpoint_kind(path)
+    if kind == "onnx":
+        return convert_onnx(path, model)
+    if kind == "orbax":
+        raise ValueError(
+            f"{path}: an orbax checkpoint (the JAX package's format) is not "
+            "read by tracklab_torch; it reads torch .pth/.pt/.bin files, "
+            ".torchscript archives and .onnx files")
+    sd = (_torch_state_dict(path, allow_pickle) if kind == "torch"
+          else _torchscript_state_dict(path))
+    return _torch_converter_for(model)(sd, model)

@@ -12,7 +12,13 @@ in the model dtype. Parameters stay f32 like the flax params tree; each conv
 casts its weight to the model dtype.
 
 On CUDA, dense ``CSPLayer``s at <= 80x80 run as kernel K3
-(``kernels/csp.py``); everything else is plain torch.
+(``kernels/csp.py``) in inference; everything else is plain torch.
+
+Training (``models/train.py``): in ``train()`` mode ``BatchNorm`` normalises
+with the batch's statistics and updates its running ones as flax's
+``nn.BatchNorm(momentum=0.97)`` does, and no ``CSPLayer`` takes K3 (the JAX
+package's ``csp_pallas_supported(..., train)`` rule: the kernel folds BN
+from running statistics and has no backward).
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import torch.nn.functional as F
 from tracklab_torch.device import resolve_device
 
 __all__ = ["YOLOX", "YOLOX_VARIANTS", "decode_outputs", "ConvBnAct",
-           "CSPLayer", "BN_EPS"]
+           "CSPLayer", "BN_EPS", "BN_MOMENTUM"]
 
 YOLOX_VARIANTS = {
     "nano": dict(depth_mult=0.33, width_mult=0.25, depthwise=True),
@@ -36,6 +42,7 @@ YOLOX_VARIANTS = {
     "x": dict(depth_mult=1.33, width_mult=1.25, depthwise=False),
 }
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.97   # flax's convention: running = m * running + (1 - m) * batch
 CSP_MAX_PIXELS = 80 * 80   # K3's shape rule (csp_pallas_supported)
 
 
@@ -48,25 +55,43 @@ def _round_depth(d, mult):
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm in f32 with the flax formula
-    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. Holds exactly
-    weight/bias/running_mean/running_var (no num_batches_tracked), the keys
-    of the converted checkpoints. ``eps`` is the detectors' 1e-3 unless
-    given (flax's default BatchNorm uses 1e-5)."""
+    """Batch norm in f32 with the flax formula ``(x - mean) * (rsqrt(var +
+    eps) * weight) + bias``. Holds exactly weight/bias/running_mean/
+    running_var (no num_batches_tracked), the keys of the converted
+    checkpoints. ``eps`` is the detectors' 1e-3 unless given (flax's default
+    BatchNorm uses 1e-5).
 
-    def __init__(self, c, eps=BN_EPS):
+    In ``train()`` mode it is flax's ``nn.BatchNorm(use_running_average=
+    False, momentum=BN_MOMENTUM)``: the batch mean and the biased batch
+    variance, computed as E[x^2] - E[x]^2 clipped at 0 (flax's fast
+    variance), and ``running = m * running + (1 - m) * batch`` for both
+    statistics. (``F.batch_norm`` updates ``running_var`` with the unbiased
+    variance, so it does not match.)"""
+
+    def __init__(self, c, eps=BN_EPS, momentum=BN_MOMENTUM):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.eps = eps
+        self.momentum = momentum
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        x = x.float()
+        if self.training:
+            mean = x.mean((0, 2, 3))
+            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
         sh = (1, -1, 1, 1)
-        return ((x.float() - self.running_mean.view(sh)) * mul.view(sh)
-                + self.bias.view(sh))
+        return (x - mean.view(sh)) * mul.view(sh) + self.bias.view(sh)
 
 
 class ConvBnAct(nn.Module):
@@ -117,9 +142,10 @@ class CSPLayer(nn.Module):
     """conv1 -> n bottlenecks (main), conv2 (short), concat, conv3.
 
     ``forward`` launches kernel K3 for a CUDA tensor when the layer is dense
-    and H*W <= 80*80 (the JAX kernel's shape rules); otherwise it runs
-    :meth:`forward_plain`, the unfused modules, which are also K3's plain
-    version."""
+    and H*W <= 80*80 (the JAX kernel's shape rules), in inference only: not
+    in ``train()`` mode and not when autograd needs a gradient through the
+    layer. Otherwise it runs :meth:`forward_plain`, the unfused modules,
+    which are also K3's plain version."""
 
     def __init__(self, cin, cout, n=1, shortcut=True, depthwise=False,
                  dtype=torch.float32):
@@ -139,9 +165,15 @@ class CSPLayer(nn.Module):
         b = self.conv2(x)
         return self.conv3(torch.cat([a, b], dim=1))
 
+    def _needs_grad(self, x):
+        return torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad
+                                   for p in self.parameters()))
+
     def forward(self, x):
         if (x.is_cuda and not self.depthwise
-                and x.shape[2] * x.shape[3] <= CSP_MAX_PIXELS):
+                and x.shape[2] * x.shape[3] <= CSP_MAX_PIXELS
+                and not self.training and not self._needs_grad(x)):
             from tracklab_torch.kernels.csp import fused_csplayer
             return fused_csplayer(self, x)
         return self.forward_plain(x)
@@ -305,9 +337,11 @@ class YOLOXHead(nn.Module):
         return outs
 
 
-def decode_outputs(outputs):
+def decode_outputs(outputs, apply_sigmoid: bool = True):
     """Per-level (B, H, W, 5+C) maps at strides 8, 16, 32 -> (B, A, 5+C)
-    f32 predictions: xywh in input pixels, sigmoided obj/cls scores."""
+    f32 predictions: xywh in input pixels, then the obj/cls scores,
+    sigmoided unless ``apply_sigmoid`` is false (the training loss takes
+    the logits)."""
     decoded = []
     for out, stride in zip(outputs, (8, 16, 32)):
         b, h, w, ch = out.shape
@@ -318,7 +352,8 @@ def decode_outputs(outputs):
         out = out.float()
         xy = (out[..., 0:2] + torch.stack([gx, gy], dim=-1)) * stride
         wh = torch.exp(torch.clamp(out[..., 2:4], -10.0, 8.0)) * stride
-        dec = torch.cat([xy, wh, torch.sigmoid(out[..., 4:])], dim=-1)
+        rest = torch.sigmoid(out[..., 4:]) if apply_sigmoid else out[..., 4:]
+        dec = torch.cat([xy, wh, rest], dim=-1)
         decoded.append(dec.reshape(b, h * w, ch))
     return torch.cat(decoded, dim=1)
 
@@ -336,6 +371,7 @@ class YOLOX(nn.Module):
                                   v["depthwise"], dtype=dtype)
         self.head = YOLOXHead(num_classes, v["width_mult"], v["depthwise"],
                               dtype=dtype)
+        self.num_classes = num_classes
         self.dtype = dtype
         self.eval()
         self.to(resolve_device(device))

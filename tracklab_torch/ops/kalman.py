@@ -25,38 +25,39 @@ CHI2INV95_2D = 5.9915
 
 def _inv4(m):
     """Closed-form 4x4 inverse (adjugate / det) over leading batch dims."""
-    a = lambda i, j: m[..., i, j]  # noqa: E731
-    s0 = a(0, 0) * a(1, 1) - a(1, 0) * a(0, 1)
-    s1 = a(0, 0) * a(1, 2) - a(1, 0) * a(0, 2)
-    s2 = a(0, 0) * a(1, 3) - a(1, 0) * a(0, 3)
-    s3 = a(0, 1) * a(1, 2) - a(1, 1) * a(0, 2)
-    s4 = a(0, 1) * a(1, 3) - a(1, 1) * a(0, 3)
-    s5 = a(0, 2) * a(1, 3) - a(1, 2) * a(0, 3)
-    c5 = a(2, 2) * a(3, 3) - a(3, 2) * a(2, 3)
-    c4 = a(2, 1) * a(3, 3) - a(3, 1) * a(2, 3)
-    c3 = a(2, 1) * a(3, 2) - a(3, 1) * a(2, 2)
-    c2 = a(2, 0) * a(3, 3) - a(3, 0) * a(2, 3)
-    c1 = a(2, 0) * a(3, 2) - a(3, 0) * a(2, 2)
-    c0 = a(2, 0) * a(3, 1) - a(3, 0) * a(2, 1)
+    # the 16 entries as views, indexed once (the formula reads each ~6x)
+    a = [[m[..., i, j] for j in range(4)] for i in range(4)]
+    s0 = a[0][0] * a[1][1] - a[1][0] * a[0][1]
+    s1 = a[0][0] * a[1][2] - a[1][0] * a[0][2]
+    s2 = a[0][0] * a[1][3] - a[1][0] * a[0][3]
+    s3 = a[0][1] * a[1][2] - a[1][1] * a[0][2]
+    s4 = a[0][1] * a[1][3] - a[1][1] * a[0][3]
+    s5 = a[0][2] * a[1][3] - a[1][2] * a[0][3]
+    c5 = a[2][2] * a[3][3] - a[3][2] * a[2][3]
+    c4 = a[2][1] * a[3][3] - a[3][1] * a[2][3]
+    c3 = a[2][1] * a[3][2] - a[3][1] * a[2][2]
+    c2 = a[2][0] * a[3][3] - a[3][0] * a[2][3]
+    c1 = a[2][0] * a[3][2] - a[3][0] * a[2][2]
+    c0 = a[2][0] * a[3][1] - a[3][0] * a[2][1]
     det = s0 * c5 - s1 * c4 + s2 * c3 + s3 * c2 - s4 * c1 + s5 * c0
     inv_det = 1.0 / det
     b = [
-        [a(1, 1) * c5 - a(1, 2) * c4 + a(1, 3) * c3,
-         -a(0, 1) * c5 + a(0, 2) * c4 - a(0, 3) * c3,
-         a(3, 1) * s5 - a(3, 2) * s4 + a(3, 3) * s3,
-         -a(2, 1) * s5 + a(2, 2) * s4 - a(2, 3) * s3],
-        [-a(1, 0) * c5 + a(1, 2) * c2 - a(1, 3) * c1,
-         a(0, 0) * c5 - a(0, 2) * c2 + a(0, 3) * c1,
-         -a(3, 0) * s5 + a(3, 2) * s2 - a(3, 3) * s1,
-         a(2, 0) * s5 - a(2, 2) * s2 + a(2, 3) * s1],
-        [a(1, 0) * c4 - a(1, 1) * c2 + a(1, 3) * c0,
-         -a(0, 0) * c4 + a(0, 1) * c2 - a(0, 3) * c0,
-         a(3, 0) * s4 - a(3, 1) * s2 + a(3, 3) * s0,
-         -a(2, 0) * s4 + a(2, 1) * s2 - a(2, 3) * s0],
-        [-a(1, 0) * c3 + a(1, 1) * c1 - a(1, 2) * c0,
-         a(0, 0) * c3 - a(0, 1) * c1 + a(0, 2) * c0,
-         -a(3, 0) * s3 + a(3, 1) * s1 - a(3, 2) * s0,
-         a(2, 0) * s3 - a(2, 1) * s1 + a(2, 2) * s0],
+        [a[1][1] * c5 - a[1][2] * c4 + a[1][3] * c3,
+         -a[0][1] * c5 + a[0][2] * c4 - a[0][3] * c3,
+         a[3][1] * s5 - a[3][2] * s4 + a[3][3] * s3,
+         -a[2][1] * s5 + a[2][2] * s4 - a[2][3] * s3],
+        [-a[1][0] * c5 + a[1][2] * c2 - a[1][3] * c1,
+         a[0][0] * c5 - a[0][2] * c2 + a[0][3] * c1,
+         -a[3][0] * s5 + a[3][2] * s2 - a[3][3] * s1,
+         a[2][0] * s5 - a[2][2] * s2 + a[2][3] * s1],
+        [a[1][0] * c4 - a[1][1] * c2 + a[1][3] * c0,
+         -a[0][0] * c4 + a[0][1] * c2 - a[0][3] * c0,
+         a[3][0] * s4 - a[3][1] * s2 + a[3][3] * s0,
+         -a[2][0] * s4 + a[2][1] * s2 - a[2][3] * s0],
+        [-a[1][0] * c3 + a[1][1] * c1 - a[1][2] * c0,
+         a[0][0] * c3 - a[0][1] * c1 + a[0][2] * c0,
+         -a[3][0] * s3 + a[3][1] * s1 - a[3][2] * s0,
+         a[2][0] * s3 - a[2][1] * s1 + a[2][2] * s0],
     ]
     rows = [torch.stack(rw, dim=-1) for rw in b]
     return torch.stack(rows, dim=-2) * inv_det[..., None, None]

@@ -58,13 +58,6 @@ class RTDETRDetector(YOLOXDetector):
                       num_queries=self.num_queries, variant=self.variant,
                       input_size=self.input_size, device=self.device)
 
-    def _load_state(self, model, state):
-        if self._hf_mode:
-            from tracklab_torch.models.convert import convert_rtdetr_hf_torch
-            convert_rtdetr_hf_torch(state, model)
-        else:
-            model.load_state_dict(state, strict=True)
-
     def _staged_detect_fn(self):
         if self._hf_mode:
             return self.device_detect_fn()
@@ -134,3 +127,9 @@ class RTDETRDetector(YOLOXDetector):
     def detection_loss_fn(self, *args, **kwargs):
         raise NotImplementedError(_NOT_PORTED.format(
             "RTDETRDetector.detection_loss_fn"))
+
+    # its training is not ported (ROADMAP item 6): main.py does not call it
+    training_enabled = False
+
+    def train(self, *args, **kwargs):
+        raise NotImplementedError(_NOT_PORTED.format("RTDETRDetector.train"))

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from tracklab_torch.wrappers.bbox_detector.yolox_api import YOLOXDetector
+from tracklab_torch.wrappers.bbox_detector.yolox_api import (_NOT_PORTED,
+                                                             YOLOXDetector)
 
 __all__ = ["RTMDetDetector"]
 
@@ -32,6 +33,12 @@ _STD = (58.395, 57.12, 57.375)
 class RTMDetDetector(YOLOXDetector):
     """RTMDet-{nano..x}; rtmlib's default is nano at 320 x 320, persons."""
 
+    # its training is not ported (ROADMAP item 6): main.py does not call it
+    training_enabled = False
+
+    def train(self, *args, **kwargs):
+        raise NotImplementedError(_NOT_PORTED.format("RTMDetDetector.train"))
+
     def __init__(self, variant: str = "nano", input_size=(320, 320),
                  **kwargs):
         kwargs.setdefault("min_confidence", 0.45)
@@ -41,10 +48,6 @@ class RTMDetDetector(YOLOXDetector):
         from tracklab_torch.models.rtmdet import RTMDet
         return RTMDet(num_classes=self.num_classes, variant=self.variant,
                       device=self.device)
-
-    def _load_state(self, model, state):
-        from tracklab_torch.models.convert import convert_rtmdet_torch
-        convert_rtmdet_torch(state, model)
 
     @property
     def _preproc(self):

@@ -35,10 +35,6 @@ class YOLOv8Detector(YOLOXDetector):
         return YOLOv8(num_classes=self.num_classes, variant=self.variant,
                       device=self.device)
 
-    def _load_state(self, model, state):
-        from tracklab_torch.models.convert import convert_yolov8_torch
-        convert_yolov8_torch(state, model)
-
     @staticmethod
     def _preproc(images):
         return images / 255.0
@@ -46,3 +42,9 @@ class YOLOv8Detector(YOLOXDetector):
     def detection_loss_fn(self, *args, **kwargs):
         raise NotImplementedError(_NOT_PORTED.format(
             "YOLOv8Detector.detection_loss_fn"))
+
+    # its training is not ported (ROADMAP item 6): main.py does not call it
+    training_enabled = False
+
+    def train(self, *args, **kwargs):
+        raise NotImplementedError(_NOT_PORTED.format("YOLOv8Detector.train"))

@@ -7,10 +7,17 @@ on the CPU: no OpenCV); the card runs the f32 detector and NMS on a batch
 kernel K3); the fixed-shape outputs come back as detection rows (image_id,
 video_id, category_id, bbox_ltwh, bbox_conf) with global row ids.
 
-Weights: ``checkpoint_path`` names a ``torch.save``d state dict of the
-port's YOLOX (``models/convert.py:yolox_from_flax`` writes one from the JAX
-package's tree), loaded with ``strict=True``; without one, the weights are
-seeded random (``YOLOX.randomize_(0)``, an explicit torch.Generator).
+Weights: ``checkpoint_path`` names a checkpoint that
+``models/convert.py:load_checkpoint`` reads: the port's (Megvii's) state
+dict (``models/convert.py:yolox_from_flax`` writes one from the JAX
+package's tree), a Megvii training file, a TorchScript archive or an .onnx
+file; without one, the weights are seeded random (``YOLOX.randomize_(0)``,
+an explicit torch.Generator).
+
+Training: ``train`` fine-tunes the model on a tracking set's ground truth
+(``models/detector_train_engine.py:train_detector``); ``main.py`` calls it
+under ``train_tracking=true`` (``training_enabled``), and the next
+``process`` detects with the trained weights.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ log = logging.getLogger(__name__)
 __all__ = ["YOLOXDetector", "letterbox"]
 
 _NOT_PORTED = ("{} is not ported to tracklab_torch yet (ROADMAP item 6: "
-               "training, quantization and checkpoints)")
+               "training and quantization)")
 
 
 def _resize_bilinear(image: np.ndarray, nh: int, nw: int) -> np.ndarray:
@@ -71,6 +78,8 @@ class YOLOXDetector(ImageLevelModule):
     # the engine's fused path can run this detector, NMS and a tracker as
     # one device program (engine/fused.py:run_fused_video)
     supports_fused_detect = True
+    # main.py trains it under train_tracking=true (train_detector)
+    training_enabled = True
 
     def __init__(self, variant: str = "s", num_classes: int = 1,
                  input_size=(640, 640), min_confidence: float = 0.4,
@@ -99,9 +108,6 @@ class YOLOXDetector(ImageLevelModule):
         return YOLOX(num_classes=self.num_classes, variant=self.variant,
                      device=self.device)
 
-    def _load_state(self, model, state):
-        model.load_state_dict(state, strict=True)
-
     # the family's input scale, applied on the card after the cast to f32:
     # YOLOX reads raw 0-255 pixels
     _preproc = None
@@ -109,15 +115,23 @@ class YOLOXDetector(ImageLevelModule):
     def _build(self):
         model = self._make_model()
         if self.checkpoint_path:
-            state = torch.load(self.checkpoint_path, map_location="cpu",
-                               weights_only=True)
-            self._load_state(model, state)
+            from tracklab_torch.models.convert import load_checkpoint
+            load_checkpoint(self.checkpoint_path, model)
         else:
             log.warning("%s: no checkpoint_path given — running with "
                         "random weights", type(self).__name__)
             model.randomize_(0)
         self._model = model
         self._detect = self._staged_detect_fn()
+
+    def _detect_fn(self):
+        """The staged closure, (re)built where the model is new or was
+        trained since."""
+        if self._model is None:
+            self._build()
+        elif self._detect is None:
+            self._detect = self._staged_detect_fn()
+        return self._detect
 
     def _staged_detect_fn(self):
         """The closure ``process`` runs on a batch (boxes in input pixels):
@@ -150,8 +164,6 @@ class YOLOXDetector(ImageLevelModule):
         return letterbox(image, self.input_size)
 
     def process(self, batch, detections, metadatas: pd.DataFrame):
-        if self._model is None:
-            self._build()
         # a short last batch is padded with zero frames to batch_size, as
         # the fused path pads its last chunk: every frame then goes through
         # the same batch shape on both paths (convolution algorithms, and
@@ -161,7 +173,7 @@ class YOLOXDetector(ImageLevelModule):
         if n < self.batch_size:
             images = np.concatenate([images, np.zeros(
                 (self.batch_size - n,) + images.shape[1:], images.dtype)])
-        det = self._detect(torch.from_numpy(images).to(self.device))
+        det = self._detect_fn()(torch.from_numpy(images).to(self.device))
         ltrb, score, cls, valid = (x[:n].cpu().numpy() for x in
                                    (det.ltrb, det.conf, det.cls, det.valid))
         lo, hi = self._to_frame(batch, ltrb)
@@ -198,5 +210,11 @@ class YOLOXDetector(ImageLevelModule):
             "bbox_conf": score.astype(np.float64),
         }, index=ids)
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format("YOLOXDetector.train"))
+    def train(self, tracking_dataset, pipeline=None, evaluator=None,
+              dataset_cfg=None, **kwargs):
+        """Fine-tune on the dataset's ground-truth boxes (the JAX wrapper's
+        ``train``): ``train_detector``, ``kwargs`` its arguments."""
+        from tracklab_torch.models.detector_train_engine import (
+            train_detector,
+        )
+        return train_detector(self, tracking_dataset, **kwargs)

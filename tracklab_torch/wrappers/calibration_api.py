@@ -65,11 +65,9 @@ class PitchLineDetector(ImageLevelModule):
 
     def _build(self):
         if self.variant == "deeplabv3":
-            from tracklab_torch.models.convert import convert_deeplabv3_torch
             from tracklab_torch.models.deeplabv3 import (DeepLabV3,
                                                          segment_class_lut)
             model = DeepLabV3(device=self.device)
-            load = convert_deeplabv3_torch
             lut = segment_class_lut(self.segment_names, self.device)
             mean = torch.tensor([0.485, 0.456, 0.406],
                                 device=self.device) * 255.0
@@ -81,13 +79,10 @@ class PitchLineDetector(ImageLevelModule):
             from tracklab_torch.models.segmentation import PitchSegNet
             model = PitchSegNet(self.num_classes, self.variant,
                                 device=self.device)
-
-            def load(state, model):
-                model.load_state_dict(state, strict=True)
             self._class_map = model.predict
         if self.checkpoint_path:
-            load(torch.load(self.checkpoint_path, map_location="cpu",
-                            weights_only=True), model)
+            from tracklab_torch.models.convert import load_checkpoint
+            load_checkpoint(self.checkpoint_path, model)
         else:
             log.warning("PitchLineDetector: no checkpoint_path given — "
                         "running with random weights")

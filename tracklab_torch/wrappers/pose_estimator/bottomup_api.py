@@ -84,14 +84,8 @@ class BottomUpPoseEstimator(ImageLevelModule):
                               num_keypoints=self.num_keypoints,
                               variant=self.variant, device=self.device)
         if self.checkpoint_path:
-            state = torch.load(self.checkpoint_path, map_location="cpu",
-                               weights_only=True)
-            if self._yolo11:
-                from tracklab_torch.models.convert import \
-                    convert_yolov8_torch
-                convert_yolov8_torch(state, model)
-            else:
-                model.load_state_dict(state, strict=True)
+            from tracklab_torch.models.convert import load_checkpoint
+            load_checkpoint(self.checkpoint_path, model)
         else:
             log.warning("BottomUpPoseEstimator: no checkpoint_path given — "
                         "running with random weights")

@@ -36,7 +36,8 @@ def build_topdown_model(owner: str, backbone: str, variant: str,
                         num_keypoints: int, crop_size, checkpoint_path,
                         device):
     """The top-down pose model of ``backbone`` on ``device`` with the
-    weights of ``checkpoint_path`` (strict), else seeded random weights."""
+    weights of ``checkpoint_path`` (``models/convert.py:load_checkpoint``),
+    else seeded random weights."""
     if backbone == "vit":
         from tracklab_torch.models.vitpose import ViTPose
         model = ViTPose(num_keypoints=num_keypoints, variant=variant,
@@ -53,13 +54,8 @@ def build_topdown_model(owner: str, backbone: str, variant: str,
     else:
         raise ValueError(f"unknown top-down pose backbone {backbone!r}")
     if checkpoint_path:
-        state = torch.load(checkpoint_path, map_location="cpu",
-                           weights_only=True)
-        if backbone == "vit":
-            from tracklab_torch.models.convert import convert_vitpose_torch
-            convert_vitpose_torch(state, model)
-        else:
-            model.load_state_dict(state, strict=True)
+        from tracklab_torch.models.convert import load_checkpoint
+        load_checkpoint(checkpoint_path, model)
     else:
         log.warning("%s: no checkpoint_path given — running with random "
                     "weights", owner)

@@ -64,19 +64,13 @@ def build_kpr(owner: str, arch: dict, n_prompt_ch: int, checkpoint_path,
     ``checkpoint_path`` (the port's state dict, loaded strict, or a
     reference KPR state dict through ``convert_kpr_torch``), else seeded
     random weights."""
-    from tracklab_torch.models.convert import convert_kpr_torch
+    from tracklab_torch.models.convert import load_checkpoint
     from tracklab_torch.models.kpr import KPR
 
     model = KPR(n_prompt_ch=n_prompt_ch, device="cpu", **arch)
     model.randomize_(0)
     if checkpoint_path:
-        state = torch.load(checkpoint_path, map_location="cpu",
-                           weights_only=True)
-        state = state.get("state_dict", state)
-        if set(state) == set(model.state_dict()):
-            model.load_state_dict(state, strict=True)
-        else:
-            convert_kpr_torch(state, model)
+        load_checkpoint(checkpoint_path, model)
     else:
         log.warning("%s: no checkpoint_path given — running with random "
                     "weights", owner)

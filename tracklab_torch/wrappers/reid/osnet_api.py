@@ -54,20 +54,14 @@ def build_osnet(owner: str, variant: str, feat_dim: int, n_parts: int,
     """An ``OSNet`` on ``device`` with the weights of ``checkpoint_path``
     (the port's state dict, loaded strict, or a torchreid state dict, whose
     part head keeps seeded weights), else seeded random weights."""
-    from tracklab_torch.models.convert import convert_osnet_torch
+    from tracklab_torch.models.convert import load_checkpoint
     from tracklab_torch.models.osnet import OSNet
 
     model = OSNet(variant, feat_dim, n_parts, ibn=ibn,
                   in_channels=in_channels, device="cpu")
     model.randomize_(0)
     if checkpoint_path:
-        state = torch.load(checkpoint_path, map_location="cpu",
-                           weights_only=True)
-        state = state.get("state_dict", state)
-        if set(state) == set(model.state_dict()):
-            model.load_state_dict(state, strict=True)
-        else:
-            convert_osnet_torch(state, model)
+        load_checkpoint(checkpoint_path, model)
     else:
         log.warning("%s: no checkpoint_path given — running with random "
                     "weights", owner)
@@ -102,14 +96,12 @@ def build_backbone(owner: str, backbone: str, feat_dim: int, crop_size,
     weights of ``checkpoint_path`` (the port's state dict or a torchreid
     one, both through ``convert_reid_backbone_torch``), else seeded random
     weights."""
-    from tracklab_torch.models.convert import convert_reid_backbone_torch
+    from tracklab_torch.models.convert import load_checkpoint
 
     model = select_backbone_model(backbone, feat_dim=feat_dim,
                                   crop_size=crop_size, device="cpu")
     if checkpoint_path:
-        convert_reid_backbone_torch(
-            torch.load(checkpoint_path, map_location="cpu",
-                       weights_only=True), model)
+        load_checkpoint(checkpoint_path, model)
     else:
         log.warning("%s: no checkpoint_path given — running with random "
                     "weights", owner)
