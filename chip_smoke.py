@@ -20,9 +20,12 @@ Phases (any failure exits non-zero):
      over (4, 9), (8, 16), (16, 16), (13, 40), on tie-heavy costs, on a
      batch with mixed active flags, at C = 33 (ragged lane runs), at
      C = 256 in shared memory (128 rows) and from device memory (256
-     rows), on -0.0 beside +0.0 and on rows all equal; then timed on random
-     (8, 64, 128) costs, with ns per step of the longest problem (phase 8
-     times it on the path's own problems);
+     rows), at C = 300 (RT-DETR HF's transposed set matching, 64 rows) in
+     shared memory and from device memory (256 rows), at C = 512 (16
+     columns a lane), on -0.0 beside +0.0 and on rows all equal; then
+     timed on random (8, 64, 128) costs, with ns per step of the longest
+     problem (phase 8 times it on the path's own problems), and on random
+     (8, 64, 300) costs;
   4. K3 (fused CSPLayer) against the plain layer at the seven YOLOX-s 640
      shapes and at two YOLOX-tiny 416 layers whose sizes do not divide into
      whole tiles (dark3 52x52, dark5 13x13), batch 8: f32 rel <= 1e-4 (TF32
@@ -292,18 +295,43 @@ Then K3's f32 route per layer and the command line:
      torch.profiler (the card's busy share, launches), the loss falling,
      0 K3 launches in training, 7 in the inference after it; (b)
      ``train_tracking=true +experiment=mot17_ocsort
-     modules/bbox_detector=yolox`` (1 epoch, asked of ``train_detector``
-     by the phase's spy around ``YOLOXDetector.train``) on a
-     MOT17-layout tree of 2 x 20 1080p PNG frames: the detector trains
-     (weights move, 0 K3 launches), then detects through K3 and tracks
-     through K1; seconds in training, frames/s after. Phase baseline (c)
+     modules/bbox_detector=yolox +modules/reid=osnet
+     modules/track=strong_sort`` (1 epoch, asked of ``train_reid`` by the
+     phase's spy around ``OSNetReId.train``) on a MOT17-layout tree of
+     2 x 20 1080p PNG frames: OSNet x1_0 trains (weights move, 0 K3
+     launches), the detector does not (as in the JAX package), then the
+     run detects through K3 and tracks through K1; seconds in training,
+     frames/s after. Phase baseline (c)
      also runs the SoccerNet baseline's cameras as TVCalib's start on the
      chain's 16 frames against the default start.
+
+  28. phase train_zoo, the other families' training, f32 with TF32 off, on
+     seeded weights and one fixed synthetic batch each: (a) OSNet x1_0
+     256 x 128, batch 32, 8 identities (cross-entropy + batch-hard
+     triplet, Adam); (b) KPR ViT-B/16 384 x 128 (kpr.yaml), batch 16 (K4
+     forward under autograd, 12 launches a forward; K4's dq, dk, dv
+     through its Function against autograd through the plain attention
+     at the same shape); (c) YOLOv8n 640, batch 8 (TAL + CIoU + DFL,
+     AdamW); (d) RT-DETR-s 640, 100 queries, batch 8 (set matching: one
+     K2 launch a step, the matching of one step's cost stack equal to
+     K2's plain version); (e) RTMDet-nano 320, batch 8: ``train`` raises
+     as the JAX wrapper's does, the train-mode forward against the CPU's;
+     (f) TopDownPose-s 256 x 192, batch 16 (heatmap MSE, Adam). Each
+     family's first step against the same step on the CPU (loss 1e-4
+     relative, BN statistics 1e-3, gradients 5e-3 of their scale and the
+     median leaf 1e-3 or, where the family's loss makes the CPU's own
+     gradients part by more when the batch is permuted (and, but for
+     OSNet, whose depthwise layers crawl without it, oneDNN is off:
+     batch-hard triplet mining, BN backward's cancellations), twice that
+     spread; where the card's set matching of the first step differs from
+     the CPU's, a near-tie, only the median's bound), then
+     steps timed with CUDA events (ms per step, images/s, peak memory),
+     the loss falling, 0 K3 launches in training.
 
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
 launches on its own path, and per run of phases cli_reid, engines,
-baseline, pose, posetrack, zoo, reid_zoo and train under
+baseline, pose, posetrack, zoo, reid_zoo, train and train_zoo under
 ``launches_by_path``; K4's
 f32 figures
 at the KPR command line's shape under ``f32_kpr_cli``), and {"ok": true,
@@ -318,6 +346,7 @@ import sys
 import time
 import warnings
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 
@@ -545,6 +574,12 @@ def phase_k2(torch, dev):
                torch.randn(2, 128, 256, generator=g), None),
               ("C=256 from device memory (2, 256, 256)",
                torch.randn(2, 256, 256, generator=g), None),
+              ("C=300 in shared memory (2, 64, 300)",
+               torch.randn(2, 64, 300, generator=g), None),
+              ("C=300 from device memory (2, 256, 300)",
+               torch.randn(2, 256, 300, generator=g), None),
+              ("C=512, 16 columns a lane (2, 40, 512)",
+               torch.randn(2, 40, 512, generator=g), None),
               ("signed zeros (3, 17, 33)",
                torch.stack([_signed_zeros(torch, g, 17, 33)
                             for _ in range(3)]), None),
@@ -570,13 +605,28 @@ def phase_k2(torch, dev):
         f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}), {sum(per)} path "
         f"steps, {max(per)} in the longest problem: "
         f"{ms * 1e6 / max(per):.1f} ns per step")
+    # C = 300: RT-DETR HF's set matching, (64 ground-truth slots, 300
+    # queries) after the transposition, 10 columns a lane
+    c3 = torch.randn(8, 64, 300, generator=g).to(dev)
+    per3 = _steps_per_problem(torch, c3)
+    ms3 = cuda_ms(lambda: solve_rect_batched(c3), 100)
+    plain3 = cuda_ms(lambda: solve_rect_batched_plain(c3), 1, warmup=1)
+    b3, b3_by = bound_ms(8 * 64 * 300 * 4 + 8 * 300 * 4,
+                         sum(per3) * 6 * 300, PEAK["f32"])
+    log(f"K2 timing at (8, 64, 300): kernel {ms3:.4f} ms, plain "
+        f"{plain3:.3f} ms, bound {b3:.6f} ms ({b3_by}), {max(per3)} steps "
+        f"in the longest problem: {ms3 * 1e6 / max(per3):.1f} ns per step")
     return dict(name="K2 jv_rect_solve_batched", route="cuda",
                 source="tracklab_torch/csrc/jv_rect.cu",
                 replaces="tracklab_tpu/ops/assignment_pallas.py:302",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
                 steps=sum(per), longest_problem_steps=max(per),
-                ns_per_step=ms * 1e6 / max(per))
+                ns_per_step=ms * 1e6 / max(per),
+                c300=dict(shape=[8, 64, 300], ms=ms3, plain_ms=plain3,
+                          bound_ms=b3, bound_by=b3_by,
+                          longest_problem_steps=max(per3),
+                          ns_per_step=ms3 * 1e6 / max(per3)))
 
 
 def _steps_per_problem(torch, cost, active=None):
@@ -6191,14 +6241,17 @@ def phase_train(torch, dev, card, batch=8, size=640, steps=20,
     and lower at the end than at the start, 0 K3 launches in the steps
     (no CSPLayer takes the kernel in training); then the trained model's
     inference under no_grad launches K3 once per dense CSPLayer (7).
-    (b) ``train_tracking=true`` on the command line:
-    ``+experiment=mot17_ocsort modules/bbox_detector=yolox`` (YOLOX-s 640)
-    on a MOT17-layout tree of ``cli_videos`` x ``cli_frames`` 1080p PNG
-    frames written here, 1 epoch (the spy around ``YOLOXDetector.train``
-    that times it asks ``train_detector`` for one): the detector trains
-    (its weights move, 0 K3 launches while it does), then the run detects through
-    K3 and tracks through K1 (0 host syncs in the scans); seconds in
-    training and frames/s of the tracking after it.
+    (b) ``train_tracking=true`` on the command line, as the JAX package
+    runs it: ``+experiment=mot17_ocsort modules/bbox_detector=yolox``
+    (YOLOX-s 640) -> ``+modules/reid=osnet`` (OSNet x1_0, 256 x 128, host
+    crops) -> ``modules/track=strong_sort`` on a MOT17-layout tree of
+    ``cli_videos`` x ``cli_frames`` 1080p PNG frames written here, 1 epoch
+    (the spy around ``OSNetReId.train`` that times it asks ``train_reid``
+    for one): the ReID trains (its weights move, 0 K3 launches while it
+    does), the detector does not (``training_enabled`` is False, as in
+    JAX: its ``train`` is never called), then the run detects through K3
+    and tracks through K1 (0 host syncs in the scans); seconds in training
+    and frames/s of the tracking after it.
 
     Returns the stats; (a)'s launches under "steps" and "inference", (b)'s
     under "cli"."""
@@ -6210,6 +6263,7 @@ def phase_train(torch, dev, card, batch=8, size=640, steps=20,
     from tracklab_torch.models.train import create_train_state, make_train_step
     from tracklab_torch.models.yolox import YOLOX
     from tracklab_torch.wrappers.bbox_detector.yolox_api import YOLOXDetector
+    from tracklab_torch.wrappers.reid.osnet_api import OSNetReId
 
     stats = {}
     counters = _launch_counters()
@@ -6316,7 +6370,9 @@ def phase_train(torch, dev, card, batch=8, size=640, steps=20,
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     trained = {}
-    real_train = YOLOXDetector.train
+    real_train = OSNetReId.train
+    real_det_train = YOLOXDetector.train
+    det_trained = []
 
     def timed_train(self, *a, **kw):
         self._build()
@@ -6330,35 +6386,41 @@ def phase_train(torch, dev, card, batch=8, size=640, steps=20,
             seconds=time.perf_counter() - t0, loss=out.get("loss"),
             k3_in_training=counters["K3"].launches - k3,
             moved=any(not torch.equal(before[k], v)
-                      for k, v in self._model.state_dict().items()))
+                      for k, v in self._trained.state_dict().items()))
         return out
 
     try:
         _mot17_tree(torch, dev, tmp, cli_videos, cli_frames, n_objects)
-        YOLOXDetector.train = timed_train
+        OSNetReId.train = timed_train
+        YOLOXDetector.train = lambda self, *a, **kw: det_trained.append(1)
         args = ["use_rich=false", "+experiment=mot17_ocsort",
                 f"data_dir={tmp}", "modules/bbox_detector=yolox",
+                "pipeline=[bbox_detector,reid,track]",
+                "+modules/reid=osnet", "modules/track=strong_sort",
                 "train_tracking=true",
                 "modules.bbox_detector.min_confidence=0.01",
-                "modules.track.min_confidence=0.01",
-                "modules.track.det_thresh=0.05", "engine.fused=false",
+                "modules.track.min_confidence=0.01", "engine.fused=false",
                 f"device={dev.type}"]
         parts, res, launches, split = _cli_run(
-            torch, args, ("loader", "detect", "scan", "eval"))
+            torch, args, ("loader", "detect", "reid", "scan", "eval"))
     finally:
-        YOLOXDetector.train = real_train
+        OSNetReId.train = real_train
+        YOLOXDetector.train = real_det_train
         shutil.rmtree(tmp, ignore_errors=True)
     pred = parts["tracker_state"].detections_pred
     tracked = int(pred["track_id"].notna().sum()) if len(pred) else 0
-    log(f"train (b) train_tracking=true on {card}: training "
+    log(f"train (b) train_tracking=true on {card}: OSNet x1_0 training "
         f"{trained.get('seconds', float('nan')):.2f} s (losses "
         f"{trained.get('loss')}, K3 launches in it "
-        f"{trained.get('k3_in_training')}), then {_split_line(split)}; "
+        f"{trained.get('k3_in_training')}), detector trained "
+        f"{len(det_trained)} times, then {_split_line(split)}; "
         f"{len(pred)} rows, {tracked} tracked; launches {launches}; host "
         f"syncs in the scans {split['host_syncs_in_scans']}")
     check(trained.get("moved") and trained.get("loss")
           and all(math.isfinite(x) for x in trained["loss"]),
-          f"train (b): the command line did not train: {trained}")
+          f"train (b): the command line did not train the ReID: {trained}")
+    check(not det_trained, "train (b): the detector trained under "
+          "train_tracking=true (the JAX package never trains it)")
     check(trained["k3_in_training"] == 0, "train (b): K3 launched in "
           "training")
     check(tracked > 0, "train (b): nothing tracked after training")
@@ -6372,6 +6434,409 @@ def phase_train(torch, dev, card, batch=8, size=640, steps=20,
                         training_losses=trained["loss"],
                         k3_in_training=trained["k3_in_training"],
                         HOTA=res["COMBINED_SEQ"]["HOTA"] if res else None)
+    return stats
+
+
+# a key projection's bias shifts every logit of a query's row alike, so
+# softmax cancels it: its gradient is zero but for rounding
+_ROUNDING_ONLY = ("attn.key.bias", "self_attn.k_proj.bias")
+
+
+def _zoo_grads_apart(card, cpu):
+    """Per parameter with a gradient, the largest gap between the card's
+    and the CPU's over the CPU's largest magnitude; a gradient that is zero
+    but for rounding (below 1e-5 of the largest, or a key bias) is held to
+    that floor instead. Returns (worst, median, worst parameter)."""
+    cpu_named = dict(cpu.named_parameters())
+    grads = {k: p.grad for k, p in cpu_named.items() if p.grad is not None}
+    floor = 1e-5 * max(float(g.abs().max()) for g in grads.values())
+    rel, worst_k = {}, None
+    for k, p in card.named_parameters():
+        want = grads.get(k)
+        if want is None:
+            check(p.grad is None or float(p.grad.abs().max()) == 0,
+                  f"train_zoo: {k} has a gradient on the card only")
+            continue
+        got = p.grad.cpu()
+        scale = float(want.abs().max())
+        if scale <= floor or k.endswith(_ROUNDING_ONLY):
+            check(float((got - want).abs().max()) <= max(floor, 1e-3 * scale)
+                  or k.endswith(_ROUNDING_ONLY),
+                  f"train_zoo: {k}'s rounding-level gradient parts")
+            continue
+        rel[k] = float((got - want).abs().max()) / scale
+    worst_k = max(rel, key=rel.get)
+    return rel[worst_k], float(np.median(list(rel.values()))), worst_k
+
+
+def _loss_step(loss_of):
+    """``train_step(state, batch) -> (state, loss)`` around ``loss_of(model,
+    batch)``: the ReID trainers' step (``models/reid_train.py:fit``)."""
+
+    def step(state, batch):
+        model, opt = state.model, state.optimizer
+        model.train()
+        loss = loss_of(model, batch)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return state._replace(step=state.step + 1), loss.detach()
+
+    return step
+
+
+def _permuted(batch, seed=5):
+    """The same batch with its images (and their labels, boxes or
+    keypoints) in another order: every loss here is invariant to it, so
+    the gradients part only by rounding."""
+    n = len(next(iter(batch.values())))
+    order = np.random.default_rng(seed).permutation(n)
+    return {k: v[order] for k, v in batch.items()}
+
+
+def _zoo_part(torch, dev, card, name, model, tx, step, batch, n_images,
+              steps, counters, record=None, onednn_off=True):
+    """One family: ``model`` (seeded, on the CPU) and two copies go to the
+    card and stay on the CPU; the first ``step`` on the card and on the CPU
+    (loss, gradients, BN statistics compared), and, where the gradients
+    miss the fixed bounds below, once more on the CPU with the batch
+    permuted and, with ``onednn_off``, oneDNN off (another summation order
+    in every reduction and convolution: the CPU's own rounding spread);
+    then
+    ``steps - 1`` more on the card timed with CUDA events. The gradients
+    must lie within 5e-3 of each leaf's largest magnitude (1e-3 for the
+    median leaf), or, where the family's loss makes that spread larger,
+    within twice it. ``record``, when given, is a dict whose "card" and
+    "cpu" entries the first steps fill (``_matching_recorder``). Returns
+    the stats, the model and its state."""
+    import copy
+
+    from tracklab_torch.models.train import create_train_state
+
+    cpu_model = copy.deepcopy(model)
+    perm_model = copy.deepcopy(model)
+    model = model.to(dev)
+    data = {k: v.to(dev) for k, v in batch.items()}
+    for c in counters.values():
+        c.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    if record is not None:
+        record["now"] = "card"
+    state, loss0 = step(create_train_state(model, tx), data)
+    first = {k: c.launches for k, c in counters.items()}
+    if record is not None:
+        record["now"] = "cpu"
+    t0 = time.perf_counter()
+    _, cpu_loss = step(create_train_state(cpu_model, tx), batch)
+    cpu_s = time.perf_counter() - t0
+    if record is not None:
+        record["now"] = None
+    loss_rel = abs(float(loss0) / float(cpu_loss) - 1)
+    g_max, g_median, g_key = _zoo_grads_apart(model, cpu_model)
+    s_max = s_median = 0.0
+    s_key = None
+    if g_max > 5e-3 or g_median > 1e-3:
+        # only where the fixed bounds are missed: the spread run
+        with torch.backends.mkldnn.flags(enabled=not onednn_off):
+            step(create_train_state(perm_model, tx), _permuted(batch))
+        s_max, s_median, s_key = _zoo_grads_apart(perm_model, cpu_model)
+    g_bound = max(5e-3, 2 * s_max)
+    m_bound = max(1e-3, 2 * s_median)
+    own, cpu_own = model.state_dict(), cpu_model.state_dict()
+    bn = max([float((own[k].cpu() - v).abs().max() / v.abs().max())
+              for k, v in cpu_own.items() if "running" in k] or [0.0])
+    del cpu_model, perm_model
+    losses = [loss0]
+    if dev.type == "cuda":
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        state, loss = step(state, data)
+        losses.append(loss)
+    if dev.type == "cuda":
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / (steps - 1)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    else:
+        ms, peak = (time.perf_counter() - t0) * 1e3 / (steps - 1), 0.0
+    losses = [float(x) for x in losses]
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"train_zoo ({name}) on {card}: first step against the CPU "
+        f"({cpu_s:.1f} s there): loss {losses[0]:.6f} vs "
+        f"{float(cpu_loss):.6f} ({loss_rel:.2e} relative), gradients "
+        f"{g_max:.2e} of their scale at worst ({g_key}), median "
+        f"{g_median:.2e} (the CPU against itself, batch permuted"
+        f"{', oneDNN off' if onednn_off else ''}: "
+        f"{s_max:.2e} ({s_key}), median {s_median:.2e}), BN statistics "
+        f"{bn:.2e}; {steps} steps: {ms:.2f} ms per step, "
+        f"{n_images * 1e3 / ms:.1f} images/s, peak memory {peak:.2f} GiB; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches in the first "
+        f"step {first}, in all {launches}")
+    check(loss_rel <= 1e-4, f"train_zoo ({name}): first loss {loss_rel:.2e} "
+          "from the CPU's")
+    flipped = record is not None and not all(
+        torch.equal(a.cpu(), b) for a, b in zip(record["card"],
+                                                record["cpu"]))
+    if flipped:
+        log(f"train_zoo ({name}): the card's first-step matching differs "
+            "from the CPU's (a near-tie of the costs): the worst-leaf bound "
+            "is not applied, the median's is")
+    check((g_max <= g_bound or flipped) and g_median <= m_bound,
+          f"train_zoo ({name}): gradients {g_max:.2e} (median "
+          f"{g_median:.2e}) of their scale from the CPU's ({g_key}), bound "
+          f"{g_bound:.2e} ({m_bound:.2e})")
+    check(bn <= 1e-3, f"train_zoo ({name}): BN statistics {bn:.2e} from "
+          "the CPU's")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train_zoo ({name}): the loss does not fall: {losses}")
+    check(launches["K3"] == 0, f"train_zoo ({name}): K3 launched "
+          f"{launches['K3']} times in training")
+    return dict(ms_per_step=ms, images_per_s=n_images * 1e3 / ms,
+                peak_memory_gib=peak, losses=losses, steps=steps,
+                first_step_vs_cpu=dict(
+                    loss_rel=loss_rel, grad_rel_max=g_max,
+                    grad_rel_median=g_median, grad_worst_param=g_key,
+                    cpu_spread_max=s_max, cpu_spread_median=s_median,
+                    cpu_spread_param=s_key, grad_bound=g_bound,
+                    grad_median_bound=m_bound, bn_rel=bn, cpu_s=cpu_s,
+                    matching_differs=flipped if record is not None
+                    else None),
+                launches_first_step=first, launches=launches), model, state
+
+
+def _identity_crops(n, hw, n_ids, seed=31):
+    """``n`` uint8 RGB crops of ``hw``, identity ``i % n_ids``: each identity
+    a colour block pattern of its own under per-crop noise."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    looks = rng.integers(30, 226, (n_ids, 4, 2, 3))
+    labels = np.arange(n) % n_ids
+    crops = np.repeat(np.repeat(looks[labels], h // 4, 1), w // 2, 2)
+    crops = crops + rng.integers(-30, 31, crops.shape)
+    return np.clip(crops, 0, 255).astype(np.uint8), labels
+
+
+def _k4_backward_vs_plain(torch, dev, shape, softmax):
+    """dq, dk, dv of K4's autograd Function (the kernel forward) against
+    autograd through the plain attention of the same softmax mode, on the
+    card, at ``shape``: the largest gap over each gradient's scale."""
+    from tracklab_torch.kernels.vit_attention import (
+        vit_attention, vit_attention_compute_plain, vit_attention_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(41)
+    q, k, v, d_out = (torch.randn(shape, generator=g).to(dev)
+                      for _ in range(4))
+    plain = (vit_attention_compute_plain if softmax == "compute"
+             else vit_attention_plain)
+    grads = []
+    for fn in (partial(vit_attention, softmax=softmax), plain):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad((fn(*leaves) * d_out).sum(),
+                                         leaves))
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(*grads))
+
+
+def _matching_recorder(record):
+    """A stand-in for ``models/rtdetr_train.py``'s ``matching_forced`` that
+    keeps its result under ``record[record["now"]]`` while "now" is set."""
+    from tracklab_torch.models import rtdetr_train
+
+    real = rtdetr_train.matching_forced
+
+    def recording(*a, **kw):
+        out = real(*a, **kw)
+        if record.get("now"):
+            record.setdefault(record["now"], []).append(out)
+        return out
+
+    return recording
+
+
+# phase train_zoo's sizes: the full widths, and the cut ones its CPU
+# rehearsal takes (tiny=True)
+_ZOO_FULL = dict(osnet=("x1_0", (256, 128), 32), kpr=(768, 12, 12, 16),
+                 kpr_crop=(384, 128), det=(640, 8), rtmdet=320,
+                 pose=("s", (256, 192), 16))
+_ZOO_TINY = dict(osnet=("x0_25", (64, 32), 8), kpr=(64, 2, 2, 4),
+                 kpr_crop=(64, 32), det=(128, 2), rtmdet=64,
+                 pose=("nano", (64, 48), 4))
+
+
+def phase_train_zoo(torch, dev, card, steps=10, n_objects=24, tiny=False):
+    """The training of every family the JAX package trains besides YOLOX
+    (phase ``train``), f32 with TF32 off, seeded weights, one fixed
+    synthetic batch each, ``steps`` steps (see the module note, phase 28;
+    ``tiny`` cuts every size for a rehearsal on the CPU). Returns the
+    stats; each part's launches over its steps under "launches"."""
+    from types import SimpleNamespace
+
+    from tracklab_torch.models import kpr_train, pose_train, reid_train
+    from tracklab_torch.models.pose import TopDownPose
+    from tracklab_torch.models.rtdetr import RTDETR
+    from tracklab_torch.models.rtdetr_train import matching_costs
+    from tracklab_torch.models.rtmdet import RTMDet
+    from tracklab_torch.models.train import make_train_step
+    from tracklab_torch.models.yolov8 import YOLOv8
+    from tracklab_torch.ops.assignment import matching_forced
+    from tracklab_torch.wrappers.bbox_detector import (RTDETRDetector,
+                                                       RTMDetDetector,
+                                                       YOLOv8Detector)
+
+    counters = _launch_counters()
+    stats = {}
+    sz = _ZOO_TINY if tiny else _ZOO_FULL
+    adam = partial(torch.optim.Adam, lr=3e-4)
+
+    # (a) OSNet x1_0, train_reid's model and loss
+    variant, hw, b = sz["osnet"]
+    crops, labels = _identity_crops(b, hw, 8)
+    osnet = reid_train.initial_model(SimpleNamespace(
+        variant=variant, feat_dim=512, n_parts=6), 8, seed=0)
+    stats["osnet"], _, _ = _zoo_part(
+        torch, dev, card, f"a: OSNet {variant} {hw} b{b}", osnet, adam,
+        _loss_step(lambda m, b: reid_train.reid_loss(m, b["x"], b["y"])),
+        {"x": torch.from_numpy(crops), "y": torch.from_numpy(labels)}, b,
+        steps, counters, onednn_off=False)
+
+    # (b) KPR ViT-B/16 at kpr.yaml's 384 x 128, train_kpr's model and loss
+    dim, depth, heads, b = sz["kpr"]
+    hw = sz["kpr_crop"]
+    arch = dict(num_parts=5, dim_reduce_output=512, img_size=hw,
+                patch_size=16, stride=16, embed_dim=dim, depth=depth,
+                num_heads=heads)
+    kpr = kpr_train.initial_model(SimpleNamespace(
+        _model=None, _trained=None, n_prompt_ch=7, arch=arch, device="cpu"),
+        8, seed=0)
+    crops, labels = _identity_crops(b, hw, 8)
+    stats["kpr"], _, _ = _zoo_part(
+        torch, dev, card, f"b: KPR ViT {dim}x{depth} {hw} b{b}", kpr,
+        partial(torch.optim.Adam, lr=1e-4),
+        _loss_step(lambda m, b: kpr_train.kpr_loss(m, b["x"], b["y"], 7)),
+        {"x": torch.from_numpy(crops), "y": torch.from_numpy(labels)}, b,
+        steps, counters)
+    k4_per = stats["kpr"]["launches_first_step"]["K4"]
+    check(k4_per == depth or dev.type == "cpu", f"train_zoo (b): {k4_per} "
+          f"K4 launches in a step's forward ({depth} attention layers)")
+    shape = (b, 1 + (hw[0] // 16) * (hw[1] // 16), heads, dim // heads)
+    bw = {m: _k4_backward_vs_plain(torch, dev, shape, m)
+          for m in ("compute", "f32")}
+    log(f"train_zoo (b): K4's dq, dk, dv through its Function against "
+        f"autograd through the plain attention at {shape} f32: {bw}")
+    check(max(bw.values()) <= 1e-5, f"train_zoo (b): K4's backward parts "
+          f"from the plain version's: {bw}")
+    stats["kpr"]["k4_backward_vs_plain"] = bw
+
+    # (c) YOLOv8n 640 and (d) RT-DETR-s 640, through the wrappers' hooks
+    size, b = sz["det"]
+    imgs, boxes, valid = _train_batch(b, size, n_objects)
+    det_batch = {"images": torch.from_numpy(imgs),
+                 "gt_boxes": torch.from_numpy(boxes),
+                 "gt_valid": torch.from_numpy(valid)}
+    adamw = partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)
+    v8 = YOLOv8Detector(variant="n", num_classes=1, device=dev)
+    v8._model = YOLOv8(num_classes=1, variant="n",
+                       device="cpu").randomize_(0)
+    stats["yolov8n"], _, _ = _zoo_part(
+        torch, dev, card, f"c: YOLOv8n {size} b{b}", v8._model, adamw,
+        make_train_step((size, size), v8.detection_loss_fn, v8._preproc),
+        det_batch, b, steps, counters)
+    detr = RTDETRDetector(variant="s", num_classes=1, num_queries=100,
+                          device=dev)
+    model = RTDETR(num_classes=1, num_queries=100, variant="s",
+                   input_size=(size, size), device="cpu").randomize_(0)
+    from tracklab_torch.models import rtdetr_train
+    record = {}
+    real_matching = rtdetr_train.matching_forced
+    rtdetr_train.matching_forced = _matching_recorder(record)
+    try:
+        stats["rtdetr_s"], model, _ = _zoo_part(
+            torch, dev, card, f"d: RT-DETR-s {size} Q100 b{b}", model, adamw,
+            make_train_step((size, size), detr.detection_loss_fn,
+                            detr._preproc),
+            det_batch, b, steps, counters, record=record)
+    finally:
+        rtdetr_train.matching_forced = real_matching
+    k2 = stats["rtdetr_s"]["launches"]["K2"]
+    check(k2 == steps or dev.type == "cpu", f"train_zoo (d): {k2} K2 "
+          f"launches in {steps} steps (one set matching a step)")
+    model.eval()
+    with torch.no_grad():
+        logits, pred = model(det_batch["images"].to(dev).float() / 255.0)
+    cost = matching_costs(logits, pred, det_batch["gt_boxes"].to(dev),
+                          (size, size))
+    rows = torch.ones(cost.shape[:2], dtype=torch.bool)
+    got = matching_forced(cost, rows.to(dev), det_batch["gt_valid"].to(dev),
+                          batched=True)
+    want = matching_forced(cost.cpu(), rows, det_batch["gt_valid"],
+                           batched=True)
+    same = bool(torch.equal(got.cpu(), want))
+    log(f"train_zoo (d): a step's set matching on K2 (the problem "
+        f"transposed to ({b}, 64, 100)) equals K2's plain version: {same}; "
+        f"{int((want >= 0).sum())} queries matched")
+    check(same, "train_zoo (d): K2's set matching differs from the plain "
+          "version's")
+    stats["rtdetr_s"]["matching_equals_plain"] = same
+    del model, cost
+
+    # (e) RTMDet-nano 320: train raises as JAX's; the train-mode forward
+    det = RTMDetDetector(device=dev)
+    try:
+        det.train(None)
+        raised = None
+    except TypeError as e:
+        raised = str(e)
+    check(raised is not None, "train_zoo (e): RTMDetDetector.train did not "
+          "raise (the JAX wrapper's fails)")
+    import copy
+    rtm = RTMDet(num_classes=1, variant="nano", device="cpu").randomize_(0)
+    cpu_rtm = copy.deepcopy(rtm).train()
+    rtm = rtm.to(dev).train()
+    r = sz["rtmdet"]
+    x = torch.from_numpy(imgs[:, :r, :r]).float()
+    for c in counters.values():
+        c.launches = 0
+    with torch.no_grad():
+        maps = rtm(x.to(dev))
+        ms = cuda_ms(lambda: rtm(x.to(dev)), 5) if dev.type == "cuda" else 0
+        cpu_maps = cpu_rtm(x)
+    rtm_launches = {k: c.launches for k, c in counters.items()}
+    gap = max(float((a.cpu() - b).abs().max() / b.abs().max())
+              for pair, cpu_pair in zip(maps, cpu_maps)
+              for a, b in zip(pair, cpu_pair))
+    log(f"train_zoo (e) RTMDet-nano {r} b{b} on {card}: train raises "
+        f"({raised}); the train-mode forward {ms:.2f} ms, maps {gap:.2e} of "
+        f"their scale from the CPU's; launches {rtm_launches}")
+    check(gap <= 1e-3, f"train_zoo (e): train-mode maps {gap:.2e} from the "
+          "CPU's")
+    stats["rtmdet_nano"] = dict(train_raises=raised, forward_ms=ms,
+                                maps_rel=gap, launches=rtm_launches)
+    del rtm, cpu_rtm
+
+    # (f) TopDownPose-s 256 x 192, make_pose_train_step
+    variant, hw, b = sz["pose"]
+    rng = np.random.default_rng(43)
+    pose_crops = rng.uniform(0, 1, (b,) + hw + (3,)).astype(np.float32)
+    kps = np.concatenate([rng.uniform(8, hw[1] - 8, (b, 17, 1)),
+                          rng.uniform(8, hw[0] - 8, (b, 17, 1)),
+                          (rng.uniform(0, 1, (b, 17, 1)) > 0.2)], -1)
+    pose = TopDownPose(num_keypoints=17, variant=variant,
+                       device="cpu").randomize_(0)
+    stats["topdown_s"], _, _ = _zoo_part(
+        torch, dev, card, f"f: TopDownPose-{variant} {hw} b{b}", pose,
+        partial(torch.optim.Adam, lr=1e-3),
+        pose_train.make_pose_train_step(hw),
+        {"crops": torch.from_numpy(pose_crops),
+         "keypoints": torch.from_numpy(kps.astype(np.float32))}, b, steps,
+        counters)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    stats["launches"] = {k: sum(v["launches"][k] for v in stats.values()
+                                if isinstance(v, dict) and "launches" in v)
+                         for k in _CLI_COUNTERS}
     return stats
 
 
@@ -6390,6 +6855,22 @@ def _host_packages():
     return out
 
 
+class _Tee:
+    """A text stream that writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6397,6 +6878,11 @@ def main() -> int:
         return 2
     from tracklab_torch.kernels import _build
 
+    # a copy of the whole output, its long stats line included, in the
+    # checkout's chiprun_out/ (listed in .gitignore)
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    sys.stdout = _Tee(sys.__stdout__, open(out_dir / "chip_smoke.log", "w"))
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6446,8 +6932,10 @@ def main() -> int:
     # reruns and the K2 checks of phases 8, 15 and 17)
     # for the room of phase zoo: cli (b) 150 -> 100 frames a video,
     # cli_reid (a) 80 -> 60, its (b) and (c) tree 64 -> 48
-    cli_stats = phase_cli(torch, dev, smi, n_frames=100, keep=keep)
-    reid_cli = phase_cli_reid(torch, dev, smi, n_frames=60, tree_frames=48,
+    # for the room of phase train_zoo: cli (b) 100 -> 60 frames a video,
+    # cli_reid (a) 60 -> 40, its (b) and (c) tree 48 -> 32
+    cli_stats = phase_cli(torch, dev, smi, n_frames=60, keep=keep)
+    reid_cli = phase_cli_reid(torch, dev, smi, n_frames=40, tree_frames=32,
                               prefix_frames=8, keep=keep)
     # depth cut for the room of phase pose: engines (a)'s detector runs
     # and (b)'s clips 60 -> 40 frames, K1's plain check 4 -> 2 solving
@@ -6469,8 +6957,12 @@ def main() -> int:
                                          k1_keep=2, cfg5_frames=40)
     baseline = phase_baseline(torch, dev, smi, gs_frames=40)
     pose = phase_pose(torch, dev, smi, n_frames=40, topdown_frames=40)
+    # for the room of phase train_zoo: posetrack (a)'s 1280 x 720 tree
+    # 40 -> 30 frames a video. (Zoo's tree at 24 frames instead of 40 put
+    # one RT-DETR r50vd detection at IoU 0.9986 from the CPU's, below its
+    # 0.999 check: the trees keep their 40 frames.)
     posetrack, k4["f32_kpr_cli"] = phase_posetrack(torch, dev, smi,
-                                                   hd_frames=40)
+                                                   hd_frames=30)
     zoo = phase_zoo(torch, dev, smi)
     t0 = time.perf_counter()
     reid_zoo = phase_reid_zoo(torch, dev, smi)
@@ -6478,6 +6970,10 @@ def main() -> int:
     t0 = time.perf_counter()
     train = phase_train(torch, dev, smi)
     log(f"phase train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_zoo = phase_train_zoo(torch, dev, smi)
+    log(f"phase train_zoo: {time.perf_counter() - t0:.1f} s")
+    k4["train_backward_vs_plain"] = train_zoo["kpr"]["k4_backward_vs_plain"]
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -6491,6 +6987,8 @@ def main() -> int:
         k: k2_random[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "steps", "longest_problem_steps",
                                   "ns_per_step")}
+    # RT-DETR HF's set matching width (C = 300), in the kernels line
+    k2["c300"] = k2_random["c300"]
     main_stats["k1_s64"] = k1_steps
     # the command line's ReID runs (phase cli_reid) and the engines' runs
     # (phase engines), each counted apart
@@ -6517,6 +7015,9 @@ def main() -> int:
     zoo_runs["zoo_reid_staged"] = reid_zoo["staged"]["launches"]
     train_runs = {f"train_{k}": train[k]["launches"]
                   for k in ("steps", "inference", "cli")}
+    train_runs.update({f"train_zoo_{k}": train_zoo[k]["launches"]
+                       for k in ("osnet", "kpr", "yolov8n", "rtdetr_s",
+                                 "rtmdet_nano", "topdown_s")})
     by_path = dict(cli_reid_runs, **engine_runs, **baseline_runs,
                    **pose_runs, **posetrack_runs, **zoo_runs, **train_runs)
     for entry, key in zip((k1, k2, k3, k4, oru, oru_nkf), _CLI_COUNTERS):
@@ -6533,6 +7034,7 @@ def main() -> int:
                       "baseline": baseline, "pose": pose,
                       "posetrack": posetrack, "zoo": zoo,
                       "reid_zoo": reid_zoo, "train": train,
+                      "train_zoo": train_zoo,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,

@@ -15,6 +15,8 @@ to the port through ``yolox_from_flax``/``osnet_from_flax`` and
 runs start from that state file, which is the staged pipeline's input to
 its tracker by construction.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -362,13 +364,19 @@ def test_osnet_checkpoint_forms(tmp_path):
 
 def test_osnet_reid_raises_for_what_waits():
     """The zoo backbones build (test_torch_reid_zoo*.py hold them against
-    JAX); training waits for ROADMAP item 6."""
+    JAX); ``train`` is ported (tests/test_torch_reid_train.py holds it
+    against JAX): on a set without ground-truth crops it trains nothing and
+    returns no metrics, as JAX's does, and the module rebuilds its model."""
     reid = OSNetReId(backbone="resnet50", device="cpu")
     reid._build()
     assert type(reid._model).__name__ == "ReidResNet"
     assert not reid.use_parts and not reid.use_keypoints
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        OSNetReId(device="cpu").train()
+    empty = types.SimpleNamespace(sets={"train": types.SimpleNamespace(
+        detections_gt=pd.DataFrame(), image_metadatas=pd.DataFrame())})
+    osnet = OSNetReId(device="cpu")
+    osnet._build()
+    assert osnet.train(empty) == {}
+    assert osnet._model is None and osnet._trained is None
 
 
 def test_osnet_reid_keypoint_path_builds():

@@ -180,7 +180,14 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/manifest.py",
                  "tracklab_torch/calibration/sn_baseline.py",
                  "tracklab_torch/utils/wandb.py",
-                 "tracklab_torch/utils/download.py")
+                 "tracklab_torch/utils/download.py",
+                 "tracklab_torch/models/reid_train.py",
+                 "tracklab_torch/models/kpr_train.py",
+                 "tracklab_torch/models/yolov8_train.py",
+                 "tracklab_torch/models/rtdetr_train.py",
+                 "tracklab_torch/models/pose_train.py",
+                 "tracklab_torch/kernels/vit_attention.py",
+                 "tracklab_torch/kernels/jv_rect.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

@@ -21,6 +21,8 @@ embeddings). The port reads them through ``*_from_flax`` and
 ``checkpoint_path``.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -255,8 +257,15 @@ def test_convert_kpr_torch_loads_reference_names(weights):
 
 
 def test_kpreid_train_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        KPReId(device="cpu").train(None)
+    """``train`` is ported (tests/test_torch_reid_train.py holds it against
+    JAX): on a set without ground-truth crops it trains nothing and returns
+    no metrics, as JAX's ``train_kpr`` does."""
+    empty = types.SimpleNamespace(sets={"train": types.SimpleNamespace(
+        detections_gt=pd.DataFrame(), image_metadatas=pd.DataFrame())})
+    for cls in (KPReId, KPReIdBatched):
+        mod = cls(device="cpu")
+        assert mod.train(empty) == {}
+        assert mod._model is None and mod._trained is None
 
 
 # --------------------------------------------------- the command lines

@@ -295,14 +295,20 @@ def test_fused_closure_matches_staged_process(tiny_hf, tiny_variant,
 
 
 def test_stubs_name_their_roadmap_item():
+    """The lightweight variant has no fused closure, as in JAX; its training
+    is ported (tests/test_torch_detector_train.py holds it against JAX) and,
+    as there, not run by ``train_tracking=true``."""
     det = RTDETRDetector(variant="s", device="cpu")
     assert not det.supports_fused_detect
     with pytest.raises(NotImplementedError, match="HF RT-DETR variants"):
         det.device_detect_fn()
-    for call in (lambda: det.detection_loss_fn(None, None, None, None, 1),
-                 det.train):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-            call()
+    assert not det.training_enabled
+    logits = torch.zeros((1, 4, 1), requires_grad=True)
+    boxes = torch.full((1, 4, 4), 0.25, requires_grad=True)
+    loss = det.detection_loss_fn((logits, boxes), torch.tensor(
+        [[[16.0, 16.0, 8.0, 8.0, 0.0]]]), torch.tensor([[True]]), (64, 64), 1)
+    loss.backward()
+    assert torch.isfinite(loss) and float(boxes.grad.abs().max()) > 0
 
 
 # ----------------------------------------------------- the command line

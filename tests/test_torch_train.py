@@ -5,7 +5,8 @@ gradient with respect to the head's maps within 1e-4 of its scale), one
 (every gradient and the parameters after one AdamW step), ``train_detector``
 through both packages' YOLOX wrappers on a four-image tree (the loss per
 epoch, the BN running statistics), and ``train_tracking=true`` on the
-port's command line.
+port's command line, which trains the ReID and not the detector, as the
+JAX package's does.
 
 JAX compiles one training step here (``train_detector``'s, which is
 ``make_train_step``'s apply, loss and AdamW), and the loss twice (with and
@@ -312,7 +313,9 @@ def test_train_detector_matches_jax(trained):
     assert len(tres["loss"]) == len(jres["loss"]) == EPOCHS
     np.testing.assert_allclose(tres["loss"], jres["loss"], rtol=1e-4)
     assert len(set(tres["loss"])) == EPOCHS
-    assert tmod.training_enabled
+    # train_tracking=true trains the detector in neither package
+    assert tmod.training_enabled == trained["jmod"].training_enabled
+    assert not tmod.training_enabled
     assert tmod._detect is None and not tmod._model.training
     own = tmod._model.state_dict()
     for k, v in _port_view(trained["jmod"]._variables["batch_stats"],
@@ -336,43 +339,59 @@ def test_train_detector_matches_jax(trained):
 
 
 def test_cli_train_tracking_trains_then_tracks(tmp_path):
-    """``train_tracking=true`` with the YOLOX detector on the port's command
-    line: the detector trains on the synthetic set's ground truth (one
-    epoch: the spy around ``YOLOXDetector.train`` asks ``train_detector``
-    for it; its weights move), then the run tracks with it and is
-    evaluated."""
-    trained = {}
-    real = YOLOXDetector.train
+    """``train_tracking=true`` on the port's command line with YOLOX-nano ->
+    OSNet x0_25 -> StrongSORT, as the JAX package's ``main.py`` runs it: the
+    ReID trains on the synthetic set's ground truth (one epoch: the spy
+    around ``OSNetReId.train`` asks ``train_reid`` for it; its weights move,
+    the loss is finite), the detector does not (``training_enabled`` is
+    False, as in JAX: its weights stay as they were), then the run tracks
+    with the trained OSNet and is evaluated."""
+    from tracklab_torch.wrappers.reid import OSNetReId
+
+    seen = {}
+    real = OSNetReId.train
 
     def spy(self, *a, **kw):
         self._build()
-        before = {k: v.clone() for k, v in self._model.state_dict().items()}
+        seen["before"] = {k: v.clone()
+                          for k, v in self._model.state_dict().items()}
         out = real(self, *a, **dict(kw, epochs=1))
-        trained["moved"] = any(
-            not torch.equal(before[k], v)
-            for k, v in self._model.state_dict().items())
-        trained["loss"] = out["loss"]
+        seen["loss"], seen["reid"] = out["loss"], self
         return out
 
-    YOLOXDetector.train = spy
-    try:
+    det_train = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(OSNetReId, "train", spy)
+        mp.setattr(YOLOXDetector, "train",
+                   lambda self, *a, **kw: det_train.append(self))
         parts, results = TM.main([
             "device=cpu", "train_tracking=true", "use_rich=false",
-            "pipeline=[bbox_detector,track]",
+            "pipeline=[bbox_detector,reid,track]",
             "+modules/bbox_detector=yolox",
             "modules.bbox_detector.variant=nano",
             "modules.bbox_detector.input_size=[64,64]",
             "modules.bbox_detector.min_confidence=0.2",
             "modules.bbox_detector.max_dets=16",
             "modules.bbox_detector.batch_size=4",
-            "modules/track=oc_sort", "modules.track.min_confidence=0",
-            "modules.track.det_thresh=0.2", "modules.track.max_dets=16",
+            "+modules/reid=osnet", "modules.reid.variant=x0_25",
+            "modules.reid.feat_dim=32", "modules.reid.crop_size=[64,32]",
+            "modules.reid.use_parts=false", "modules.reid.batch_size=8",
+            "modules/track=strong_sort", "modules.track.embed_dim=32",
+            "modules.track.min_confidence=0", "modules.track.max_dets=16",
             "modules.track.max_tracks=32", "dataset.n_videos=1",
             "dataset.n_frames=8", "dataset.n_objects=3",
             "dataset.img_w=64", "dataset.img_h=64"])
-    finally:
-        YOLOXDetector.train = real
-    assert trained["moved"] and len(trained["loss"]) == 1
-    assert np.isfinite(trained["loss"]).all()
-    assert parts["tracker_state"].detections_pred is not None
+    detector = next(m for m in parts["modules"]
+                    if isinstance(m, YOLOXDetector))
+    fresh = YOLOXDetector(device="cpu", **KW)
+    fresh._build()
+    own = detector._model.state_dict()
+    assert not det_train and all(torch.equal(own[k], v) for k, v in
+                                 fresh._model.state_dict().items())
+    reid = seen["reid"]
+    assert len(seen["loss"]) == 1 and np.isfinite(seen["loss"]).all()
+    assert reid._model is reid._trained
+    assert any(not torch.equal(seen["before"][k], v)
+               for k, v in reid._model.state_dict().items())
+    assert parts["tracker_state"].detections_pred["track_id"].notna().any()
     assert results is not None

@@ -118,13 +118,22 @@ def test_convert_yolov8_torch_round_trips():
 
 
 def test_stubs_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    """``quant=`` still waits for ROADMAP item 6 (quantization); the
+    training hooks are ported (tests/test_torch_detector_train.py holds them
+    against JAX): ``detection_loss_fn`` reads the model's reg_max, and
+    ``train_tracking=true`` does not train the detector, as in JAX."""
+    with pytest.raises(NotImplementedError, match="item 6: quantization"):
         YOLOv8Detector(quant="int8", device="cpu")
-    det = YOLOv8Detector(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        det.detection_loss_fn(None, None, None, None, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        det.train()
+    det = YOLOv8Detector(variant="n", num_classes=1, device="cpu")
+    det._model = YOLOv8(num_classes=1, variant="n", device="cpu")
+    maps = [torch.zeros((1, 64 // s, 64 // s, 65), requires_grad=True)
+            for s in (8, 16, 32)]
+    loss = det.detection_loss_fn(maps, torch.tensor(
+        [[[20.0, 20.0, 16.0, 16.0, 0.0]]]), torch.tensor([[True]]), (64, 64),
+        1)
+    loss.backward()
+    assert torch.isfinite(loss) and float(maps[0].grad.abs().max()) > 0
+    assert not det.training_enabled
 
 
 # ----------------------------------------------------- the command line

@@ -23,7 +23,7 @@
 // next step reads. So a step keeps to one warp and never waits on a block
 // barrier:
 //   - lane l owns the contiguous, ascending run of columns [l*W, l*W + W),
-//     W = ceil(C/32) <= 8, and keeps each column's minv, v, way, row p and
+//     W = ceil(C/32) <= 16 (a template parameter), and keeps each column's minv, v, way, row p and
 //     that row's dual u[p] in registers (the used flags are a bitmask);
 //   - the row of the cost block sits in shared memory (staged once with
 //     cp.async; rows padded so a lane's run is one or two vector loads), or
@@ -42,7 +42,7 @@
 // Hopper features that matter are redux.sync and warp-synchronous
 // execution. The kernel has no __syncthreads at all.
 //
-// Entry (V, R, C), R <= C <= 256: problem b writes col2row[b, c] = the row
+// Entry (V, R, C), R <= C <= 512: problem b writes col2row[b, c] = the row
 // assigned to column c, or R when the column is unassigned. A problem whose
 // active[b] is 0 writes R everywhere at once, so callers can discard a
 // result on the device without a host sync.
@@ -52,7 +52,7 @@
 
 namespace {
 
-constexpr int kMaxC = 256;
+constexpr int kMaxC = 512;
 constexpr int kMaxW = kMaxC / 32;    // columns per lane
 constexpr int kWarps = 4;            // problems per CTA
 // shared memory a CTA may take (sm_90); a problem whose slice with the cost
@@ -330,7 +330,15 @@ Kernel kernel_for(int W, bool in_smem) {
     case 5: return pick<5>(in_smem);
     case 6: return pick<6>(in_smem);
     case 7: return pick<7>(in_smem);
-    default: return pick<8>(in_smem);
+    case 8: return pick<8>(in_smem);
+    case 9: return pick<9>(in_smem);
+    case 10: return pick<10>(in_smem);
+    case 11: return pick<11>(in_smem);
+    case 12: return pick<12>(in_smem);
+    case 13: return pick<13>(in_smem);
+    case 14: return pick<14>(in_smem);
+    case 15: return pick<15>(in_smem);
+    default: return pick<16>(in_smem);
   }
 }
 

@@ -24,7 +24,9 @@ import numpy as np
 import torch
 
 __all__ = ["solve_rect_batched", "solve_rect_batched_plain",
-           "_solve_rect_plain"]
+           "_solve_rect_plain", "MAX_COLS"]
+
+MAX_COLS = 512   # the columns a problem may have on the card (16 per lane)
 
 
 def _solve_rect_plain(cost: torch.Tensor, stats: dict | None = None):
@@ -138,7 +140,8 @@ def solve_rect_batched(cost: torch.Tensor,
     column, and every column of an inactive problem.
 
     CPU tensors run :func:`solve_rect_batched_plain`. CUDA tensors launch
-    the kernel, which takes f32 and C <= 256, with no host sync."""
+    the kernel, which takes f32 and C <= ``MAX_COLS``, with no host
+    sync."""
     if cost.dim() != 3:
         raise ValueError(f"cost must be (V, R, C), got {tuple(cost.shape)}")
     V, R, C = cost.shape
@@ -154,10 +157,12 @@ def solve_rect_batched(cost: torch.Tensor,
         raise TypeError("K2 takes f32 cost and bool active")
     if active.device != cost.device:
         raise ValueError("cost and active must share one device")
+    if C > MAX_COLS:
+        raise ValueError(f"K2 supports C <= {MAX_COLS}, got {C}")
     lib = _lib()
-    if C > lib.tl_jv_rect_max_cols():
-        raise ValueError(f"K2 supports C <= {lib.tl_jv_rect_max_cols()}, "
-                         f"got {C}")
+    if lib.tl_jv_rect_max_cols() != MAX_COLS:
+        raise RuntimeError(f"K2's library takes C <= "
+                           f"{lib.tl_jv_rect_max_cols()}, not {MAX_COLS}")
     cost, active = cost.contiguous(), active.contiguous()
     out = torch.empty((V, C), dtype=torch.int32, device=cost.device)
     stream = torch.cuda.current_stream(cost.device).cuda_stream

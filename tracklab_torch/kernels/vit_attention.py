@@ -15,6 +15,15 @@ cores; see the source note in ``csrc/vit_attention.cu``.
 :func:`route` names (or raises). Its ``launches`` attribute counts kernel
 launches.
 
+Under autograd (grad mode on and q, k or v requiring a gradient) the
+wrapper runs through :class:`VitAttentionFn`: the same forward (the kernel,
+or the plain version on the CPU), and a backward in torch ops that
+recomputes the probabilities P of the forward's softmax mode (keys past
+``n_valid`` at 0) and takes dV = P^T dO, dS = P * (dO V^T - rowsum(dO * O)),
+dQ = dS K Dh^-1/2, dK = dS^T Q Dh^-1/2. The JAX package trains KPR through
+autodiff of its plain attention, outside any Pallas kernel, so there is no
+backward kernel to port; a hand-written one is later work.
+
 A second mode, the compute-dtype softmax (``softmax="compute"``), is the
 JAX model's ``naive``, ``einsum`` and ``einsumT`` lowerings: logits and
 softmax rounded to the input dtype at every step, masked keys at
@@ -30,8 +39,8 @@ import functools
 import torch
 
 __all__ = ["vit_attention", "vit_attention_plain",
-           "vit_attention_compute_plain", "route", "MAX_TOKENS",
-           "MAX_HEAD_DIM", "SOFTMAX_MODES"]
+           "vit_attention_compute_plain", "attention_probs", "VitAttentionFn",
+           "route", "MAX_TOKENS", "MAX_HEAD_DIM", "SOFTMAX_MODES"]
 
 MAX_TOKENS = 256      # keys and queries one CTA takes
 MAX_HEAD_DIM = 128
@@ -120,6 +129,59 @@ def _aligned(a: torch.Tensor) -> bool:
         a.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in a.stride()[:3]))
 
 
+def attention_probs(q, k, n_valid=None, softmax="f32"):
+    """The probabilities (B, H, N, N) that the forward of ``softmax`` mode
+    multiplies with v, as a tensor of the backward's dtype (f32, or f64 for
+    f64 inputs): "f32" rounds the f32 softmax to the input dtype, "compute"
+    takes every step in the input dtype. Masked keys get 0."""
+    B, N, H, Dh = q.shape
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qt, kt = (a.permute(0, 2, 1, 3) for a in (q, k))
+    if softmax == "compute":
+        s = torch.matmul(qt, kt.transpose(-1, -2)) * Dh ** -0.5
+        lo = torch.finfo(s.dtype).min
+    else:
+        s = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) \
+            * Dh ** -0.5
+        lo = torch.finfo(torch.float32).min
+    if n_valid is not None and n_valid < N:
+        col = torch.arange(N, device=q.device)
+        s = torch.where(col < n_valid, s, lo)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    return p.to(q.dtype).to(acc)
+
+
+class VitAttentionFn(torch.autograd.Function):
+    """K4 (or its plain version on the CPU) forward, torch-op backward from
+    the recomputed probabilities (see the module note). Inputs (B, N, H, Dh);
+    gradients in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_valid, softmax):
+        out = _attention(q, k, v, n_valid, softmax)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.n_valid, ctx.softmax = n_valid, softmax
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out = ctx.saved_tensors
+        acc = torch.promote_types(q.dtype, torch.float32)
+        scale = q.shape[3] ** -0.5
+        p = attention_probs(q, k, ctx.n_valid, ctx.softmax)  # (B, H, N, N)
+        qt, kt, vt, ot, dot = (a.permute(0, 2, 1, 3).to(acc)
+                               for a in (q, k, v, out, d_out))
+        dv = torch.matmul(p.transpose(-1, -2), dot)
+        dp = torch.matmul(dot, vt.transpose(-1, -2))
+        ds = p * (dp - (dot * ot).sum(dim=-1, keepdim=True))
+        dq = torch.matmul(ds, kt) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), qt) * scale
+        return (dq.permute(0, 2, 1, 3).to(q.dtype),
+                dk.permute(0, 2, 1, 3).to(k.dtype),
+                dv.permute(0, 2, 1, 3).to(v.dtype), None, None)
+
+
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   n_valid: int | None = None,
                   softmax: str = "f32") -> torch.Tensor:
@@ -131,17 +193,26 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`vit_attention_compute_plain`. CUDA tensors launch the kernel
     :func:`route` names: f32 or bf16, N <= 256, Dh <= 128 and, in
     bf16, Dh % 16 == 0. Views whose rows start on 16 bytes (the q, k and v
-    slices of one packed qkv tensor) are read in place."""
+    slices of one packed qkv tensor) are read in place. Where a gradient is
+    wanted, the call goes through :class:`VitAttentionFn`."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("q, k, v must share one (B, N, H, Dh) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    B, N, H, Dh = q.shape
     if n_valid is not None and not 1 <= n_valid:
         raise ValueError(f"n_valid must be >= 1, got {n_valid}")
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got "
                          f"{softmax!r}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return VitAttentionFn.apply(q, k, v, n_valid, softmax)
+    return _attention(q, k, v, n_valid, softmax)
+
+
+def _attention(q, k, v, n_valid, softmax):
+    """The forward: the plain version on the CPU, else the kernel."""
+    B, N, H, Dh = q.shape
     if not q.is_cuda:
         plain = (vit_attention_compute_plain if softmax == "compute"
                  else vit_attention_plain)

@@ -1,10 +1,15 @@
 """Detector fine-tuning on a tracking set's ground truth (counterpart of
 tracklab_tpu.models.detector_train_engine).
 
-``YOLOXDetector.train()`` runs this loop on the wrapper's device: ground
-truth boxes of a split, each image letterboxed on the host (cv2, centred,
-114 fill), the SimOTA detection loss of ``models/train.py`` and AdamW steps
-on ``module._model``, which then stays the trained model.
+The detector wrappers' ``train()`` runs this loop on the wrapper's device:
+ground truth boxes of a split, each image letterboxed on the host (cv2,
+centred, 114 fill), the family's loss and AdamW steps on ``module._model``,
+which then stays the trained model. As in the JAX package the family comes
+from the module: its ``detection_loss_fn`` where it has one (YOLOv8/YOLO11:
+``models/yolov8_train.py``, RT-DETR: ``models/rtdetr_train.py``), else
+YOLOX's SimOTA ``detection_loss`` (``models/train.py``); its ``_preproc``
+(the input scale); the class count from the model's ``num_classes`` or
+``num_labels``.
 """
 from __future__ import annotations
 
@@ -93,7 +98,9 @@ def train_detector(module, tracking_dataset, epochs: int = 3,
 
     state = create_train_state(module._model, functools.partial(
         torch.optim.AdamW, lr=lr, weight_decay=1e-4))
-    step = make_train_step((h, w))
+    step = make_train_step((h, w),
+                           getattr(module, "detection_loss_fn", None),
+                           getattr(module, "_preproc", None))
     rng = np.random.default_rng(seed)
     bsz = min(batch_size, n)
     losses = []

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from tracklab_torch.device import resolve_device
 from tracklab_torch.kernels.vit_attention import vit_attention
+from tracklab_torch.models.yolox import batch_statistics
 
 __all__ = ["KPR", "PromptableViT", "extract_test_embeddings",
            "gaussian_prompt_maps", "PROMPT_GROUPS_CCK6", "ATTN_IMPLS"]
@@ -113,22 +114,27 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm(nn.Module):
-    """Inference flax ``nn.BatchNorm(epsilon=1e-5, dtype=...)`` over the last
-    axis, any leading axes: ``(x - mean) * (rsqrt(var + eps) * weight) +
-    bias`` in f32, returned in ``dtype``."""
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=...)`` over the
+    last axis, any leading axes: ``(x - mean) * (rsqrt(var + eps) * weight)
+    + bias`` in f32, returned in ``dtype``. In ``train()`` mode mean and var
+    are the batch's over every leading axis (the biased variance as E[x^2] -
+    E[x]^2 at least 0) and the running statistics move by the momentum
+    (flax's convention)."""
 
-    def __init__(self, c, dtype=torch.float32):
+    def __init__(self, c, dtype=torch.float32, momentum=0.9):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.dtype = dtype
+        self.momentum = momentum
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + 1e-5) * self.weight
-        return ((x.float() - self.running_mean) * mul
-                + self.bias).to(self.dtype)
+        x = x.float()
+        mean, var = batch_statistics(self, x, tuple(range(x.dim() - 1)))
+        mul = torch.rsqrt(var + 1e-5) * self.weight
+        return ((x - mean) * mul + self.bias).to(self.dtype)
 
 
 class _Attention(nn.Module):
@@ -246,7 +252,11 @@ class KPR(nn.Module):
     unless told otherwise). ``forward(images, prompt_masks=None,
     cam_id=None)`` on NHWC inputs returns the embedding-branch dict of the
     JAX model (inference: BatchNorms use their running statistics); feed
-    it to :func:`extract_test_embeddings`."""
+    it to :func:`extract_test_embeddings`. In ``train()`` mode (KPR
+    training, ``models/kpr_train.py``) the BatchNorms take the batch's
+    statistics and the forward builds the autograd graph, K4 included
+    through ``VitAttentionFn``; in ``eval()`` mode it computes no
+    gradient."""
 
     def __init__(self, num_parts=5, dim_reduce_output=512,
                  img_size=(384, 128), patch_size=16, stride=16,
@@ -273,8 +283,11 @@ class KPR(nn.Module):
         self.eval()
         self.to(resolve_device(device))
 
-    @torch.no_grad()
     def forward(self, images, prompt_masks=None, cam_id=None):
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+            return self._forward(images, prompt_masks, cam_id)
+
+    def _forward(self, images, prompt_masks, cam_id):
         K = self.num_parts
         cls_feat, spat = self.backbone(images, prompt_masks, cam_id)
         B = spat.shape[0]

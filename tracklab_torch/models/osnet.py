@@ -18,6 +18,12 @@ dense layers compute in the model dtype, BatchNorm and InstanceNorm in f32.
 The JAX package computes OSNet with XLA convolutions and no Pallas kernel;
 here it is cuDNN's, through ``torch.nn.functional``.
 
+Training (``models/reid_train.py``): in ``train()`` mode the BatchNorms
+normalise with the batch's mean and biased variance and move their running
+statistics as flax's default ``nn.BatchNorm`` (momentum 0.99) does; the
+InstanceNorms keep none. In ``eval()`` mode ``OSNet.forward`` computes no
+gradient.
+
 Beside it: ``ReidBackbone``, the base of the ReID backbone zoo's
 global-feature models (``models/reid_backbones.py``, ``nasnet_reid.py``),
 and ``OSNetAIN`` (torchreid's osnet_ain_x*: per-stream lite-conv stacks, one
@@ -32,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tracklab_torch.device import resolve_device
+from tracklab_torch.models.yolox import batch_statistics
 
 __all__ = ["OSNet", "OSNET_VARIANTS", "OSNetAIN", "OSNET_AIN_VARIANTS",
            "ReidBackbone"]
@@ -44,6 +51,7 @@ OSNET_VARIANTS = {
     "x0_25": dict(channels=(16, 64, 96, 128), blocks=(2, 2, 2)),
 }
 _EPS = 1e-5
+_MOMENTUM = 0.99   # flax's default: running = m * running + (1 - m) * batch
 
 
 class _Conv(nn.Conv2d):
@@ -76,22 +84,28 @@ class _Linear(nn.Linear):
 
 
 class _BatchNorm(nn.Module):
-    """Inference flax ``nn.BatchNorm(epsilon=eps)`` over dim 1 (NCHW or
-    (B, C)) in f32: ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
+    """flax ``nn.BatchNorm(epsilon=eps)`` over dim 1 (NCHW or (B, C)) in
+    f32: ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. In
+    ``train()`` mode mean and var are the batch's (the biased variance as
+    E[x^2] - E[x]^2 at least 0, flax's fast variance) and the running
+    statistics move by ``momentum`` (flax's convention)."""
 
-    def __init__(self, c, eps=_EPS):
+    def __init__(self, c, eps=_EPS, momentum=_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.train(False)   # inference until a trainer asks for train()
 
     def forward(self, x):
+        x = x.float()
         sh = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean.view(sh)) * mul.view(sh)
-                + self.bias.view(sh))
+        mean, var = batch_statistics(self, x, (0,) + tuple(range(2, x.dim())))
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(sh)) * mul.view(sh) + self.bias.view(sh)
 
 
 class _InstanceNorm(nn.Module):
@@ -239,10 +253,14 @@ class OSNet(nn.Module):
         self.fc = nn.Sequential(_Linear(chans[-1], feat_dim, dtype),
                                 _BatchNorm(feat_dim))
         self.part_fc = _Linear(chans[-1], feat_dim, dtype)
+        self.eval()
         self.to(resolve_device(device))
 
-    @torch.no_grad()
     def forward(self, images):
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+            return self._forward(images)
+
+    def _forward(self, images):
         x = images.permute(0, 3, 1, 2)
         x = F.max_pool2d(self.conv1(x), 3, 2, 1)
         x = self.conv5(self.conv4(self.conv3(self.conv2(x))))

@@ -42,6 +42,7 @@ __all__ = ["TopDownPose", "SimCCPose", "YOLOXPose", "decode_heatmaps",
            "decode_simcc", "randomize_"]
 
 FLAX_BN_EPS = 1e-5   # flax nn.BatchNorm's default (the heads' BN)
+FLAX_BN_MOMENTUM = 0.99   # and its default momentum (train mode)
 
 
 def decode_heatmaps(heatmaps):
@@ -122,12 +123,12 @@ class _Model(nn.Module):
 
 class _Deconv(nn.Module):
     """ConvTranspose2d(k=4, s=2, p=1, no bias) in the model dtype + flax BN
-    (eps 1e-5, f32) + ReLU; the weight is (in, out, 4, 4)."""
+    (eps 1e-5, momentum 0.99, f32) + ReLU; the weight is (in, out, 4, 4)."""
 
     def __init__(self, cin, cout, dtype):
         super().__init__()
         self.deconv = nn.ConvTranspose2d(cin, cout, 4, 2, 1, bias=False)
-        self.bn = BatchNorm(cout, eps=FLAX_BN_EPS)
+        self.bn = BatchNorm(cout, eps=FLAX_BN_EPS, momentum=FLAX_BN_MOMENTUM)
         self.dtype = dtype
 
     def forward(self, x):

@@ -120,6 +120,7 @@ class RTDETR(nn.Module):
                                      for _ in range(dec_layers))
         self.cls_head = nn.Linear(dim, num_classes)
         self.box_head = nn.Linear(dim, 4)
+        self.num_classes = num_classes
         self.eval()
         self.to(resolve_device(device))
 

@@ -624,8 +624,19 @@ class RTDetrHF(nn.Module):
                                         for _ in range(cfg.decoder_layers))
         self.class_embed = nn.ModuleList(nn.Linear(d, cfg.num_labels)
                                          for _ in range(cfg.decoder_layers))
+        self.num_labels = cfg.num_labels
         self.eval()
         self.to(resolve_device(device))
+
+    def train(self, mode: bool = True):
+        """``train()`` leaves every BatchNorm on its running statistics:
+        the JAX model's BatchNorms use them whether or not it trains (HF's
+        frozen BatchNorm)."""
+        super().train(mode)
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.training = False
+        return self
 
     def forward(self, images, return_topk: bool = False):
         return self.model(images, self.bbox_embed, self.class_embed,

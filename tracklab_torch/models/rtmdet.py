@@ -43,9 +43,10 @@ RTMDET_VARIANTS = {
 # mmdet cspnext.py arch_settings['P5']
 _ARCH = [(128, 3, True, False), (256, 6, True, False),
          (512, 6, True, False), (1024, 3, False, True)]
-# flax nn.BatchNorm as the JAX model sets it (momentum 0.9 only matters to
-# training, which waits for ROADMAP item 6)
+# flax nn.BatchNorm as the JAX model sets it (the momentum moves the running
+# statistics in train() mode)
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.9
 
 
 def _widen(c, widen):
@@ -63,7 +64,7 @@ class ConvModule(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
                               groups=groups, bias=False)
-        self.bn = BatchNorm(cout, eps=_BN_EPS)
+        self.bn = BatchNorm(cout, eps=_BN_EPS, momentum=_BN_MOMENTUM)
 
     def forward(self, x):
         return F.silu(self.bn(self.conv(x)))

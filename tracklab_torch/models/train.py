@@ -160,21 +160,30 @@ def detection_loss(outputs, gt_boxes, gt_valid, input_hw, num_classes: int,
     return (obj_loss + 5.0 * box_loss + cls_loss).mean()
 
 
-def make_train_step(input_hw):
+def make_train_step(input_hw, loss_fn=None, preproc=None):
     """Returns ``train_step(state, batch) -> (state, loss)``: one forward
     in ``train()`` mode (BN on the batch's statistics, which also updates
     the running ones), the loss, its backward and one optimizer step.
-    ``batch``: ``images`` (B, H, W, 3) on the model's device (YOLOX's raw
-    0-255 pixels, any dtype), ``gt_boxes`` (B, G, 5) and ``gt_valid``
-    (B, G). The gradients stay in each parameter's ``.grad`` until the
-    next step."""
+    ``batch``: ``images`` (B, H, W, 3) on the model's device (0-255 pixels,
+    any dtype), ``gt_boxes`` (B, G, 5) and ``gt_valid`` (B, G). The images
+    are cast to f32 and given to ``preproc`` when there is one (the family's
+    input scale; YOLOX reads the raw pixels); ``loss_fn(outputs, gt_boxes,
+    gt_valid, input_hw, num_classes)`` is the family's loss, SimOTA's
+    ``detection_loss`` unless given, and ``num_classes`` the model's
+    ``num_classes`` or ``num_labels``. The gradients stay in each
+    parameter's ``.grad`` until the next step."""
+    loss_fn = detection_loss if loss_fn is None else loss_fn
 
     def train_step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
         model.train()
-        loss = detection_loss(model(batch["images"].float()),
-                              batch["gt_boxes"], batch["gt_valid"], input_hw,
-                              model.num_classes)
+        x = batch["images"].float()
+        if preproc is not None:
+            x = preproc(x)
+        n_cls = getattr(model, "num_classes", getattr(model, "num_labels",
+                                                      None))
+        loss = loss_fn(model(x), batch["gt_boxes"], batch["gt_valid"],
+                       input_hw, n_cls)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()

@@ -54,6 +54,23 @@ def _round_depth(d, mult):
     return max(int(round(d * mult)), 1)
 
 
+def batch_statistics(bn, x, dims):
+    """The statistics a BatchNorm module ``bn`` normalises f32 ``x`` with:
+    in ``eval()`` mode its running ones; in ``train()`` mode flax's, the
+    batch mean and the biased batch variance over ``dims`` (E[x^2] - E[x]^2
+    clipped at 0, flax's fast variance), after moving the running ones by
+    ``bn.momentum`` (``running = m * running + (1 - m) * batch``)."""
+    if not bn.training:
+        return bn.running_mean, bn.running_var
+    mean = x.mean(dims)
+    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+    return mean, var
+
+
 class BatchNorm(nn.Module):
     """Batch norm in f32 with the flax formula ``(x - mean) * (rsqrt(var +
     eps) * weight) + bias``. Holds exactly weight/bias/running_mean/
@@ -79,16 +96,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         x = x.float()
-        if self.training:
-            mean = x.mean((0, 2, 3))
-            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
+        mean, var = batch_statistics(self, x, (0, 2, 3))
         mul = torch.rsqrt(var + self.eps) * self.weight
         sh = (1, -1, 1, 1)
         return (x - mean.view(sh)) * mul.view(sh) + self.bias.view(sh)

@@ -18,6 +18,10 @@ variants the port's own (``rtdetr_hf_from_flax``) or an HF one, both
 through ``convert_rtdetr_hf_torch``; for the lightweight one the port's own
 (``rtdetr_from_flax``), loaded with ``strict=True``. Without one the
 weights are seeded random, with a warning.
+
+Training: ``train`` fine-tunes either family with the set-matching loss
+(``detection_loss_fn``, ``models/rtdetr_train.py``) when a caller invokes
+it; ``training_enabled`` stays False, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch
 
 from tracklab_torch.trackers.common import Detections
 from tracklab_torch.wrappers.bbox_detector.yolox_api import (
-    _NOT_PORTED, YOLOXDetector, _resize_bilinear)
+    YOLOXDetector, _resize_bilinear)
 
 __all__ = ["RTDETRDetector"]
 
@@ -124,12 +128,40 @@ class RTDETRDetector(YOLOXDetector):
         return (np.clip(ltrb[..., 0:2] * sxy, 0, wh0),
                 np.clip(ltrb[..., 2:4] * sxy, 0, wh0))
 
-    def detection_loss_fn(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(
-            "RTDETRDetector.detection_loss_fn"))
+    @staticmethod
+    def _preproc(images):
+        # RTDetrImageProcessor: pixels / 255, no normalisation (the training
+        # step's input; the detect closures divide on their own)
+        return images / 255.0
 
-    # its training is not ported (ROADMAP item 6): main.py does not call it
-    training_enabled = False
+    def detection_loss_fn(self, outputs, gt_boxes, gt_valid, input_hw,
+                          num_classes):
+        """Set matching and the VFL, L1 and GIoU losses
+        (``models/rtdetr_train.py``), which ``train`` (``train_detector``)
+        takes in place of YOLOX's SimOTA."""
+        from tracklab_torch.models.rtdetr_train import rtdetr_detection_loss
+        return rtdetr_detection_loss(outputs, gt_boxes, gt_valid, input_hw,
+                                     num_classes)
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format("RTDETRDetector.train"))
+    def train(self, tracking_dataset, pipeline=None, evaluator=None,
+              dataset_cfg=None, **kwargs):
+        """Fine-tune on the dataset's ground-truth boxes (the JAX wrapper's
+        ``train``: ``train_detector`` with ``detection_loss_fn``), the
+        lightweight and the HF variants alike. The set matching runs on
+        kernel K2, which takes problems of up to ``jv_rect.MAX_COLS``
+        columns: a ``num_queries`` or ``max_gt`` beyond it raises a
+        ValueError before the first step."""
+        from tracklab_torch.kernels.jv_rect import MAX_COLS
+        from tracklab_torch.models.detector_train_engine import (
+            train_detector)
+        if self._model is None:
+            self._build()
+        queries = (self._model.cfg.num_queries if self._hf_mode
+                   else self.num_queries)
+        max_gt = kwargs.get("max_gt", 64)
+        if max(queries, max_gt) > MAX_COLS:
+            raise ValueError(
+                f"RT-DETR training matches {queries} queries to {max_gt} "
+                f"ground-truth slots on K2, which takes at most {MAX_COLS} "
+                "of either")
+        return train_detector(self, tracking_dataset, **kwargs)

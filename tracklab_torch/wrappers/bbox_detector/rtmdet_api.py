@@ -20,8 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from tracklab_torch.wrappers.bbox_detector.yolox_api import (_NOT_PORTED,
-                                                             YOLOXDetector)
+from tracklab_torch.wrappers.bbox_detector.yolox_api import YOLOXDetector
 
 __all__ = ["RTMDetDetector"]
 
@@ -33,11 +32,17 @@ _STD = (58.395, 57.12, 57.375)
 class RTMDetDetector(YOLOXDetector):
     """RTMDet-{nano..x}; rtmlib's default is nano at 320 x 320, persons."""
 
-    # its training is not ported (ROADMAP item 6): main.py does not call it
-    training_enabled = False
-
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format("RTMDetDetector.train"))
+    def train(self, tracking_dataset, pipeline=None, evaluator=None,
+              dataset_cfg=None, **kwargs):
+        """Raises TypeError, as the JAX wrapper's inherited ``train`` fails:
+        it runs YOLOX's SimOTA ``detection_loss``, which reads per-level
+        (B, H, W, 5 + C) maps, on RTMDet's per-level (cls, reg) pairs (JAX:
+        AttributeError at the first step's trace). The port raises before
+        the first step, so nothing of the model moves."""
+        raise TypeError(
+            "RTMDetDetector.train: YOLOX's SimOTA loss reads per-level "
+            "(B, H, W, 5 + C) maps and RTMDet's head gives (cls, reg) "
+            "pairs; the JAX package's train fails there too")
 
     def __init__(self, variant: str = "nano", input_size=(320, 320),
                  **kwargs):

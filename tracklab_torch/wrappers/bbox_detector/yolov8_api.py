@@ -13,11 +13,13 @@ port's own (``models/convert.py:yolov8_from_flax`` or
 ultralytics one, both loaded through ``convert_yolov8_torch``, which takes
 the port's keys as they are and holds every tensor to the model. Without
 one the weights are seeded random, with a warning.
+
+Training: ``train`` (inherited) fine-tunes with ``detection_loss_fn`` when a
+caller invokes it; ``training_enabled`` stays False, as in the JAX package.
 """
 from __future__ import annotations
 
-from tracklab_torch.wrappers.bbox_detector.yolox_api import (_NOT_PORTED,
-                                                             YOLOXDetector)
+from tracklab_torch.wrappers.bbox_detector.yolox_api import YOLOXDetector
 
 __all__ = ["YOLOv8Detector"]
 
@@ -39,12 +41,10 @@ class YOLOv8Detector(YOLOXDetector):
     def _preproc(images):
         return images / 255.0
 
-    def detection_loss_fn(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(
-            "YOLOv8Detector.detection_loss_fn"))
-
-    # its training is not ported (ROADMAP item 6): main.py does not call it
-    training_enabled = False
-
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format("YOLOv8Detector.train"))
+    def detection_loss_fn(self, outputs, gt_boxes, gt_valid, input_hw,
+                          num_classes):
+        """The TAL + CIoU + DFL loss (``models/yolov8_train.py``), which
+        ``train`` (``train_detector``) takes in place of YOLOX's SimOTA."""
+        from tracklab_torch.models.yolov8_train import v8_detection_loss
+        return v8_detection_loss(outputs, gt_boxes, gt_valid, input_hw,
+                                 num_classes, reg_max=self._model.reg_max)

@@ -15,9 +15,10 @@ file; without one, the weights are seeded random (``YOLOX.randomize_(0)``,
 an explicit torch.Generator).
 
 Training: ``train`` fine-tunes the model on a tracking set's ground truth
-(``models/detector_train_engine.py:train_detector``); ``main.py`` calls it
-under ``train_tracking=true`` (``training_enabled``), and the next
-``process`` detects with the trained weights.
+(``models/detector_train_engine.py:train_detector``) when a caller invokes
+it, and the next ``process`` detects with the trained weights. As in the JAX
+package, ``training_enabled`` stays False, so ``train_tracking=true`` does
+not train the detector (``main.py`` trains the ReID modules only).
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ log = logging.getLogger(__name__)
 __all__ = ["YOLOXDetector", "letterbox"]
 
 _NOT_PORTED = ("{} is not ported to tracklab_torch yet (ROADMAP item 6: "
-               "training and quantization)")
+               "quantization)")
 
 
 def _resize_bilinear(image: np.ndarray, nh: int, nw: int) -> np.ndarray:
@@ -78,8 +79,6 @@ class YOLOXDetector(ImageLevelModule):
     # the engine's fused path can run this detector, NMS and a tracker as
     # one device program (engine/fused.py:run_fused_video)
     supports_fused_detect = True
-    # main.py trains it under train_tracking=true (train_detector)
-    training_enabled = True
 
     def __init__(self, variant: str = "s", num_classes: int = 1,
                  input_size=(640, 640), min_confidence: float = 0.4,

@@ -55,8 +55,6 @@ log = logging.getLogger(__name__)
 
 __all__ = ["KPReId", "KPReIdBatched", "build_kpr"]
 
-_NOT_PORTED = "{} is not ported to tracklab_torch yet (ROADMAP item {})"
-
 
 def build_kpr(owner: str, arch: dict, n_prompt_ch: int, checkpoint_path,
               device):
@@ -113,6 +111,7 @@ class _KPRModule:
         self.embed_buckets = (tuple(embed_buckets) if embed_buckets
                               else None)
         self._model = None
+        self._trained = None   # the KPR that ``train`` left
         self._consts = None
         self.input_columns = ["bbox_ltwh"] + (
             ["keypoints_xyc"] if use_keypoints else [])
@@ -137,9 +136,15 @@ class _KPRModule:
         return self.use_keypoints
 
     def _build(self):
-        self._model = build_kpr(type(self).__name__, self.arch,
-                                self.n_prompt_ch, self.checkpoint_path,
-                                self.device)
+        """The model: ``checkpoint_path``'s weights when given (as in the
+        JAX package, they take the place of what ``train`` left), else the
+        trained KPR, else seeded weights."""
+        if self._trained is not None and not self.checkpoint_path:
+            self._model = self._trained
+        else:
+            self._model = build_kpr(type(self).__name__, self.arch,
+                                    self.n_prompt_ch, self.checkpoint_path,
+                                    self.device)
         self._consts = tuple(torch.tensor(c, dtype=torch.float32,
                                           device=self.device)
                              for c in (IMAGENET_MEAN, IMAGENET_STD))
@@ -170,9 +175,19 @@ class _KPRModule:
             out["visibility"].cpu().numpy()[slots])
         return result
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"{type(self).__name__}.train", "6: training"))
+    def train(self, tracking_dataset, pipeline=None, evaluator=None,
+              dataset_cfg=None, epochs: int = 3, **kwargs):
+        """Fine-tune on the ground-truth crops of the dataset's train split
+        (``models/kpr_train.py:train_kpr``, ``kwargs`` its arguments; the
+        JAX wrapper's ``train``): the module's KPR once built, else a new
+        seeded one. The next ``process`` rebuilds the model (``_build``)."""
+        from tracklab_torch.models.kpr_train import train_kpr
+        trained, metrics = train_kpr(self, tracking_dataset, epochs=epochs,
+                                     **kwargs)
+        if trained is not None:
+            self._trained = trained
+        self._model = None
+        return metrics
 
 
 class KPReId(_KPRModule, DetectionLevelModule):

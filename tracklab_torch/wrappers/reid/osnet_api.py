@@ -28,6 +28,11 @@ port's (``models/convert.py:osnet_from_flax`` / ``reid_backbone_from_flax``
 build the model from the JAX package's tree) or a torchreid one (loaded
 through ``convert_osnet_torch`` / ``convert_reid_backbone_torch``); without
 one the weights are seeded random (``randomize_(0)``).
+
+Training: ``main.py`` calls ``train`` under ``train_tracking=true``
+(``training_enabled``, as in the JAX package); it trains an OSNet on the
+set's ground-truth crops (``models/reid_train.py``), which the next
+``process`` embeds with unless a ``checkpoint_path`` is given.
 """
 from __future__ import annotations
 
@@ -45,8 +50,6 @@ from tracklab_torch.utils.collate import default_collate
 log = logging.getLogger(__name__)
 
 __all__ = ["OSNetReId", "build_osnet", "select_backbone_model"]
-
-_NOT_PORTED = "{} is not ported to tracklab_torch yet (ROADMAP item {})"
 
 
 def build_osnet(owner: str, variant: str, feat_dim: int, n_parts: int,
@@ -141,13 +144,25 @@ class OSNetReId(DetectionLevelModule):
         self.checkpoint_path = checkpoint_path
         self.device = resolve_device(device)
         self._model = None
+        self._trained = None   # the OSNet that ``train`` left
         self._consts = None
         if use_keypoints:
             self.input_columns = ["bbox_ltwh", "keypoints_xyc"]
 
     def _build(self):
+        """The model: ``checkpoint_path``'s weights when given (as in the
+        JAX package, they take the place of what ``train`` left), else the
+        trained OSNet, else seeded weights."""
         in_channels = 3 + (len(self.KP_GROUPS) if self.use_keypoints else 0)
-        if self.backbone == "osnet":
+        if self._trained is not None and not self.checkpoint_path:
+            if self.backbone != "osnet":
+                # the JAX package stores train_reid's OSNet variables on a
+                # zoo module, whose model then cannot apply them
+                raise ValueError(
+                    f"OSNetReId(backbone={self.backbone!r}) holds the OSNet "
+                    "that train() made, which its model cannot load")
+            self._model = self._trained
+        elif self.backbone == "osnet":
             self._model = build_osnet(type(self).__name__, self.variant,
                                       self.feat_dim, self.n_parts, self.ibn,
                                       self.checkpoint_path, self.device,
@@ -218,6 +233,17 @@ class OSNetReId(DetectionLevelModule):
                 np.ones(1, np.float32)] * len(detections)
         return result
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(
-            "OSNetReId.train", "6: training"))
+    def train(self, tracking_dataset, pipeline=None, evaluator=None,
+              dataset_cfg=None, epochs: int = 5, **kwargs):
+        """Train on the ground-truth crops of the dataset's train split
+        (``models/reid_train.py:train_reid``, ``kwargs`` its arguments; the
+        JAX wrapper's ``train``): a new OSNet of this module's variant,
+        feat_dim and n_parts, whatever its weights or ``backbone=``. The
+        next ``process`` rebuilds the model (``_build``)."""
+        from tracklab_torch.models.reid_train import train_reid
+        trained, metrics = train_reid(self, tracking_dataset, epochs=epochs,
+                                      **kwargs)
+        if trained is not None:
+            self._trained = trained
+        self._model = None
+        return metrics
