@@ -328,6 +328,31 @@ Then K3's f32 route per layer and the command line:
      steps timed with CUDA events (ms per step, images/s, peak memory),
      the loss falling, 0 K3 launches in training.
 
+  29. phase int8, post-training int8 (models/quantize.py) on YOLOX-s 640
+     (seeded, scales calibrated on 8 frames): (a) every s8 x s8 -> s32
+     product of one forward at batch 8 through the device route
+     (torch._int_mm over an int8 im2col) equal to the plain version (an
+     f64 convolution of the same codes on the card), max |delta| 0; (b) ms
+     per forward, int8 against f32 and bf16 (with K3, and cuDNN alone) at
+     batch 8 and 32, peak memory, _int_mm's share of the int8 forward's
+     device time; (c) YOLOXDetector(quant="int8") calibrated on the first
+     chunk, then int8 YOLOX-s -> NMS -> OC-SORT over 4 x 32 frames: frames/s
+     beside the float path's, 0 host syncs in a warm chunk, K1 and the
+     int8 route launched and no K3, the share of int8 detections at IoU
+     >= 0.5 of a float one, and the first 2 frames against the same int8
+     model on the CPU (the stem's codes equal, the predictions within
+     int8's own error of f32: an ulp of BN or SiLU moves a code on a
+     rounding boundary, and that grows with depth); (d)
+     +modules.bbox_detector.quant=int8 (YOLOv8n) staged on the command
+     line, calibrated on its first batch, K1 launched.
+  30. phase mesh, the multi-device layer (parallel/) at world size 1 on
+     NCCL: a one-rank process group and its video mesh (one all-reduce on
+     the card), tracker_videos_sharded (8 x 60 frames), fused_videos_sharded
+     (YOLOX-s bf16 -> OC-SORT, 2 x 16 frames), gmc_warps_time_sharded (32
+     panning frames) each equal to its unsharded run, and
+     +experiment=batched_8videos with engine.use_mesh true against false
+     on the command line; the group destroyed at the end.
+
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
 launches on its own path, and per run of phases cli_reid, engines,
@@ -3811,6 +3836,7 @@ def phase_engines(torch, dev, card, keep, n_videos=8, n_frames=100,
             check(launches[k] > 0, f"engines (a) {name}: {k} never launched")
     _same_rows(preds["config5_batched"], preds["config5_offline"],
                "engines (a) config 5, batched vs offline")
+    keep["config5_batched"] = (cfg5, preds["config5_batched"])
     log("engines (a): config 5 as typed equals the offline engine")
 
     # (a) config 5 with the detector
@@ -6840,6 +6866,526 @@ def phase_train_zoo(torch, dev, card, steps=10, n_objects=24, tiny=False):
     return stats
 
 
+# ------------------------------------------------------------ phase int8
+def _iou_matched_share(torch, a, b, min_iou):
+    """Share of the valid boxes of ``a`` (Detections, one frame) that
+    match a valid box of ``b`` at IoU >= ``min_iou`` (greedy, best first),
+    and the largest score gap of the matched pairs."""
+    from tracklab_torch.ops.boxes import iou_matrix
+
+    ba, bb = (d.ltrb[d.valid].double().cpu() for d in (a, b))
+    sa, sb = (d.conf[d.valid].double().cpu().numpy() for d in (a, b))
+    if not len(ba) or not len(bb):
+        return float(len(ba) == len(bb)), 0.0
+    iou = iou_matrix(ba, bb).numpy()
+    hit, gap, free = 0, 0.0, np.ones(len(bb), bool)
+    for i in np.argsort(-iou.max(1)):
+        row = np.where(free, iou[i], -1.0)
+        j = int(row.argmax())
+        if row[j] >= min_iou:
+            free[j] = False
+            hit += 1
+            gap = max(gap, abs(float(sa[i] - sb[j])))
+    return hit / len(ba), gap
+
+
+def _int8_vs_plain(torch, model, x):
+    """One forward of an int8 model on the card with every s8 x s8 -> s32
+    product of the device route (``_int_mm_conv``, under the counting
+    wrapper) held against the plain version (an f64 convolution of the
+    same codes on the card), as it happens: (convs, max |delta| over them,
+    the largest product's (M, K, N))."""
+    from tracklab_torch.models import quantize as Q
+
+    orig = Q._int_mm_conv
+    seen = {"convs": 0, "max_abs_delta": 0, "largest_mkn": (0, 0, 0)}
+
+    def checked(xq, wq, stride, padding):
+        acc = orig(xq, wq, stride, padding)
+        want = Q.int8_conv_accumulators_plain(xq, wq, stride, padding)
+        d = int((acc.long() - want.long()).abs().max().item())
+        seen["convs"] += 1
+        seen["max_abs_delta"] = max(seen["max_abs_delta"], d)
+        B, O, Ho, Wo = acc.shape
+        mkn = (B * Ho * Wo, wq[0].numel(), O)
+        if mkn[0] * mkn[1] * mkn[2] > np.prod(seen["largest_mkn"]):
+            seen["largest_mkn"] = mkn
+        return acc
+
+    Q._int_mm_conv = checked
+    try:
+        with torch.no_grad():
+            model(x)
+        torch.cuda.synchronize()
+    finally:
+        Q._int_mm_conv = orig
+    return seen
+
+
+def _int8_codes(torch, model, x):
+    """``model.predict(x)`` on the CPU tensor it gives, and the int8 input
+    codes of each of its quantized convolutions in the order they ran (the
+    Focus stem's first), on the CPU."""
+    from tracklab_torch.models.quantize import quantize_input
+
+    codes, hooks = [], []
+    for m in model.modules():
+        conv = m.conv if type(m).__name__ == "Focus" else m
+        if type(m).__name__ == "Focus" or (
+                getattr(m, "quant", None) == "int8"
+                and hasattr(m, "ascale") and hasattr(m, "bn")):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, a, c=conv: codes.append(
+                    quantize_input(a[0], c.ascale).cpu())))
+    try:
+        with torch.no_grad():
+            pred = model.predict(x).cpu()
+    finally:
+        for h in hooks:
+            h.remove()
+    return pred, codes
+
+
+def _forward_stats(torch, model, x, reps, k3=True):
+    """ms per forward of ``model`` on ``x`` (CUDA events, ``reps`` after a
+    warm-up) and its peak device memory in GiB above the resident weights;
+    with ``k3=False`` every CSPLayer runs its plain modules (cuDNN only)."""
+    from tracklab_torch.models.yolox import CSPLayer
+
+    orig = CSPLayer.k3_admits
+    if not k3:
+        CSPLayer.k3_admits = lambda self, x: False
+    try:
+        with torch.no_grad():
+            ms = cuda_ms(lambda: model(x), reps)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            model(x)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    finally:
+        CSPLayer.k3_admits = orig
+    return dict(ms=ms, peak_gib=peak)
+
+
+def _int_mm_share(torch, model, x):
+    """Device time of one int8 forward under torch.profiler: the share of
+    the kernels launched by ``aten::_int_mm``, and the busy ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA)
+    mm = sum(e.device_time_total for e in events if e.key == "aten::_int_mm")
+    return dict(int_mm_share=mm / busy if busy else 0.0,
+                int_mm_ms=mm / 1e3, busy_ms=busy / 1e3)
+
+
+def phase_int8(torch, dev, card, batch=8, chunk=32, n_chunks=4, size=640,
+               cpu_frames=2, cli_frames=24, n_objects=24, reps=3):
+    """Int8 post-training quantization on the card (``models/
+    quantize.py``): YOLOX-s 640 (seeded, one class), its activation scales
+    calibrated on a batch of 8 quasi-static frames.
+
+    (a) Every int8 convolution of one forward at batch ``batch``: the
+    device route (``torch._int_mm`` over an int8 im2col) gives the plain
+    version's int32 accumulators (an f64 convolution of the same codes),
+    max |delta| 0.
+    (b) ms per forward, int8 against f32 and bf16 (each with K3 on its
+    CSPLayers and with cuDNN alone) at batch ``batch`` and at the fused
+    chunk ``chunk``, peak memory above the weights, and the share of the
+    int8 forward's device time in ``_int_mm``.
+    (c) The fused main path with ``YOLOXDetector(quant="int8")``:
+    ``calibrate`` on the first chunk, then int8 YOLOX-s -> NMS -> OC-SORT
+    over ``n_chunks`` x ``chunk`` frames (``fused_detect_track``): frames/s,
+    0 host syncs in a warmed chunk, K1 and the int8 route launched, no K3;
+    the detections against the port's float path on the same frames (the
+    share of int8 boxes at IoU >= 0.5 of a float box); the first
+    ``cpu_frames`` frames against the same int8 model on the CPU.
+    (d) ``+modules/bbox_detector=yolov8 +modules.bbox_detector.quant=int8``
+    (YOLOv8n) staged on one synthetic 640 x 640 video of ``cli_frames``
+    frames: the wrapper calibrates on its first batch and runs int8, K1
+    launched."""
+    from tracklab_torch.engine.fused import (fused_detect_track,
+                                             make_yolox_detect_fn)
+    from tracklab_torch.models import quantize as Q
+    from tracklab_torch.models.yolox import YOLOX
+    from tracklab_torch.trackers.common import Detections
+    from tracklab_torch.trackers.ocsort import (OCSortConfig, ocsort_init,
+                                                ocsort_step)
+    from tracklab_torch.wrappers.bbox_detector import (YOLOv8Detector,
+                                                       YOLOXDetector)
+
+    stats = {}
+    F = n_chunks * chunk
+    g = torch.Generator(device=dev).manual_seed(11)
+    base = torch.randint(0, 235, (1, size, size, 3), generator=g,
+                         device=dev, dtype=torch.uint8)
+    video = base + torch.randint(0, 20, (F, size, size, 3), generator=g,
+                                 device=dev, dtype=torch.uint8)
+    det = YOLOXDetector(variant="s", num_classes=1, max_dets=32,
+                        batch_size=chunk, quant="int8", device=dev)
+    det._build()                     # seeded: YOLOX.randomize_(0)
+    f32 = det._model
+    t0 = time.perf_counter()
+    det.calibrate(video[:batch])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    int8 = det._int8_model
+    n_q = len(Q.quant_modules(int8, "int8"))
+    log(f"int8: YOLOX-s {size} calibrated in {calib_s:.2f} s on {batch} "
+        f"frames ({n_q} int8 convolutions; ascale "
+        f"{min(v.item() for v in det._scales.values()):.4g}.."
+        f"{max(v.item() for v in det._scales.values()):.4g})")
+
+    # (a)
+    x8 = video[:batch].float()
+    t0 = time.perf_counter()
+    a = _int8_vs_plain(torch, int8, x8)
+    a["seconds"] = time.perf_counter() - t0
+    log(f"int8 (a) on {card}: {a['convs']} s8 x s8 -> s32 products of one "
+        f"forward at batch {batch} against the plain version (f64 "
+        f"convolutions on the card): max |delta| {a['max_abs_delta']}; "
+        f"largest (M, K, N) {a['largest_mkn']}; {a['seconds']:.1f} s")
+    check(a["convs"] == n_q, f"int8 (a): {a['convs']} products, {n_q} int8 "
+          "convolutions")
+    check(a["max_abs_delta"] == 0, f"int8 (a): the device route's "
+          f"accumulators part from the plain version's by "
+          f"{a['max_abs_delta']}")
+    stats["accumulators"] = a
+
+    # (b)
+    bf16 = YOLOX(num_classes=1, variant="s", dtype=torch.bfloat16,
+                 device=dev)
+    bf16.load_state_dict(f32.state_dict())
+    forwards = {}
+    for b in (batch, chunk):
+        x = video[:b].float()
+        row = {"int8": _forward_stats(torch, int8, x, reps)}
+        for name, m in (("f32", f32), ("bf16", bf16)):
+            row[name] = _forward_stats(torch, m, x, reps)
+            row[f"{name}_cudnn_only"] = _forward_stats(torch, m, x, reps,
+                                                       k3=False)
+        row["int8_profile"] = _int_mm_share(torch, int8, x)
+        forwards[f"batch_{b}"] = row
+        log(f"int8 (b) YOLOX-s {size} at batch {b} on {card}: ms per "
+            "forward (peak GiB above the weights) "
+            + ", ".join(f"{k} {v['ms']:.3f} ({v['peak_gib']:.2f})"
+                        for k, v in row.items() if "ms" in v)
+            + f"; _int_mm {row['int8_profile']['int_mm_share'] * 100:.1f} % "
+            f"of the int8 forward's {row['int8_profile']['busy_ms']:.3f} "
+            "busy ms")
+    stats["forwards"] = forwards
+
+    # (c) the fused main path, int8 detector
+    cfg = OCSortConfig(max_tracks=64, max_dets=32, min_hits=1)
+    step = partial(ocsort_step, cfg)
+    cal = make_yolox_detect_fn(f32, conf_threshold=0.3,
+                               max_dets=32)(video[:1])
+    s = cal.conf[0][cal.valid[0]].sort(descending=True).values.cpu().numpy()
+    conf = float(round((s[19] + s[20]) / 2, 6)) if s.size >= 21 else 0.3
+    det.min_confidence = conf
+    det.calibrate(video[:chunk])     # the first chunk, as process would
+    int8 = det._int8_model
+    detect = det.device_detect_fn()
+    float_detect = make_yolox_detect_fn(f32, conf_threshold=conf,
+                                        max_dets=32)
+    # one chunk to warm up (a fresh process's first tracker scans sync),
+    # then the host syncs of the next one
+    fused_detect_track(detect, step, ocsort_init(cfg, device=dev),
+                       video[:chunk], chunk, return_detections=False)
+    _, _, syncs = _timed_sync_count(
+        torch, fused_detect_track, detect, step, ocsort_init(cfg, device=dev),
+        video[chunk:2 * chunk], chunk, return_detections=False)
+    counters = _launch_counters()
+    for c in list(counters.values()) + [Q.int8_conv_accumulators]:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, dets, out = fused_detect_track(detect, step,
+                                      ocsort_init(cfg, device=dev), video,
+                                      chunk)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    launches["int8_products"] = Q.int8_conv_accumulators.launches
+    t0 = time.perf_counter()
+    _, fdets, fout = fused_detect_track(float_detect, step,
+                                        ocsort_init(cfg, device=dev), video,
+                                        chunk)
+    torch.cuda.synchronize()
+    float_dt = time.perf_counter() - t0
+    shares = [_iou_matched_share(torch, Detections(*(x[f] for x in dets)),
+                                 Detections(*(x[f] for x in fdets)), 0.5)[0]
+              for f in range(F)]
+    per_frame = dets.valid.sum(1).float().mean().item()
+    fused = dict(frames=F, chunk=chunk, conf=conf, fps=F / dt,
+                 float_fps=F / float_dt, syncs_in_warm_chunk=syncs,
+                 launches=launches, detections_per_frame=per_frame,
+                 float_detections_per_frame=fdets.valid.sum(1).float()
+                 .mean().item(),
+                 matched_share_vs_float=float(np.mean(shares)),
+                 tracks_per_frame=out.valid.sum(1).float().mean().item(),
+                 float_tracks_per_frame=fout.valid.sum(1).float().mean()
+                 .item())
+    check(syncs == 0, f"int8 (c): {syncs} host syncs in the warm chunk")
+    check(launches["K1"] > 0, "int8 (c): K1 never launched")
+    check(launches["K3"] == 0, f"int8 (c): {launches['K3']} K3 launches in "
+          "an int8 model")
+    check(launches["int8_products"] == n_q * n_chunks,
+          f"int8 (c): {launches['int8_products']} int8 products, "
+          f"{n_q} a chunk")
+    check(out.valid.any().item() and torch.isfinite(
+        out.ltrb[out.valid]).all().item(), "int8 (c): no finite tracks")
+    # seeded weights leave many boxes within a rounding of the threshold,
+    # so int8's error moves which ones pass: a sanity bound, the PTQ error
+    # itself reported beside it
+    fused["ptq_error_first_chunk"] = Q.quant_error_report(
+        f32, int8, video[:chunk].float())
+    check(fused["matched_share_vs_float"] >= 0.5,
+          f"int8 (c): only {fused['matched_share_vs_float']:.3f} of the int8 "
+          "detections lie at IoU >= 0.5 of a float detection")
+    # the first frames against the same int8 model on the CPU: the stem's
+    # codes are the same (one input, one scale, an exact division); after
+    # it, the float BN and SiLU of the two devices part by an ulp here and
+    # there, a value on a rounding boundary takes the next code, and that
+    # grows layer by layer, so the card's int8 predictions stand within
+    # int8's own error of the CPU's, not bit for bit
+    cpu8 = YOLOX(num_classes=1, variant="s", device="cpu", quant="int8")
+    cpu8.load_state_dict({k: v.cpu() for k, v in f32.state_dict().items()})
+    Q.load_quant_state_dict(cpu8, {k: v.cpu()
+                                   for k, v in det._scales.items()})
+    xc = video[:cpu_frames].float()
+    t0 = time.perf_counter()
+    want, want_codes = _int8_codes(torch, cpu8, xc.cpu())
+    cpu_s = time.perf_counter() - t0
+    got, got_codes = _int8_codes(torch, int8, xc)
+    differ = [int((a != b).sum()) for a, b in zip(got_codes, want_codes)]
+    rel = (np.abs(got.numpy() - want.numpy())
+           / np.maximum(np.abs(want.numpy()), 1e-3))
+    ptq = Q.quant_error_report(f32, int8, xc)
+    fused["vs_cpu"] = dict(
+        frames=cpu_frames, cpu_seconds=cpu_s,
+        stem_codes_differing=differ[0],
+        first_layer_differing=next((i for i, d in enumerate(differ) if d),
+                                   None),
+        codes_differing=sum(differ),
+        codes=sum(int(c.numel()) for c in want_codes),
+        median_rel=float(np.median(rel)),
+        p99_rel=float(np.quantile(rel, 0.99)),
+        ptq_error_same_frames=ptq)
+    log(f"int8 (c) the fused main path on {card}: {F} frames of {size}, "
+        f"int8 YOLOX-s (conf {conf}) -> NMS -> OC-SORT {fused['fps']:.2f} "
+        f"frames/s (float f32 {fused['float_fps']:.2f}), {syncs} host syncs "
+        f"in a warm chunk, launches {launches}; "
+        f"{per_frame:.2f} detections/frame (float "
+        f"{fused['float_detections_per_frame']:.2f}), "
+        f"{fused['matched_share_vs_float']:.4f} of them at IoU >= 0.5 of a "
+        f"float one (decoded predictions against f32 on the first chunk: "
+        f"{fused['ptq_error_first_chunk']}); the first {cpu_frames} frames "
+        f"against the CPU's int8: {fused['vs_cpu']}")
+    check(differ[0] == 0, f"int8 (c): {differ[0]} stem codes differ "
+          "between the card and the CPU")
+    check(fused["vs_cpu"]["median_rel"] <= ptq["median_rel"],
+          f"int8 (c): card and CPU int8 predictions part by more than int8 "
+          f"parts from f32: {fused['vs_cpu']}")
+    stats["fused_main_path"] = fused
+
+    # (d) YOLOv8n int8 on the command line, staged
+    det_thr, birth_thr = _calibrate_cli(
+        torch, dev, n_objects, img_wh=(size, size),
+        detector=YOLOv8Detector(variant="n", num_classes=1,
+                                min_confidence=0.0, device=dev))
+    args = ["use_rich=false", f"device={dev.type}",
+            "pipeline=[bbox_detector,track]",
+            "+modules/bbox_detector=yolov8",
+            "+modules.bbox_detector.quant=int8",
+            f"modules.bbox_detector.min_confidence={det_thr}",
+            f"modules.track.min_confidence={det_thr}",
+            f"modules.track.det_thresh={birth_thr}", "engine.fused=false",
+            "dataset.n_videos=1", f"dataset.n_frames={cli_frames}",
+            f"dataset.n_objects={n_objects}", f"dataset.img_w={size}",
+            f"dataset.img_h={size}"]
+    Q.int8_conv_accumulators.launches = 0
+    parts, res, launches, split = _cli_run(
+        torch, args, ("loader", "detect", "scan", "eval"))
+    launches["int8_products"] = Q.int8_conv_accumulators.launches
+    mod = parts["modules"][0]
+    pred = parts["tracker_state"].detections_pred
+    cli = dict(split, launches=launches, thresholds=[det_thr, birth_thr],
+               detections_per_frame=len(pred) / split["frames"],
+               HOTA=res["COMBINED_SEQ"]["HOTA"],
+               int8_convolutions=len(Q.quant_modules(mod._int8_model,
+                                                     "int8")))
+    log(f"int8 (d) +modules.bbox_detector.quant=int8 (YOLOv8n) staged on "
+        f"{card}: {split['frames']} frames, "
+        f"{cli['detections_per_frame']:.2f} detections/frame, "
+        f"{split['fps']:.2f} frames/s of track_dataset; HOTA "
+        f"{cli['HOTA']:.3f} with random weights; launches {launches}")
+    check(mod.quant == "int8" and mod._scales is not None,
+          "int8 (d): the wrapper did not calibrate")
+    check(launches["int8_products"] > 0, "int8 (d): no int8 product ran")
+    check(launches["K1"] > 0, "int8 (d): K1 never launched")
+    check(cli["detections_per_frame"] >= 1, "int8 (d): no detections")
+    stats["cli_yolov8n"] = cli
+    return stats, launches, fused["launches"]
+
+
+# ------------------------------------------------------------ phase mesh
+def phase_mesh(torch, dev, card, n_videos=8, n_frames=60, fused_videos=2,
+               fused_frames=16, size=640, warp_frames=32, cfg5_frames=24,
+               keep=None):
+    """The multi-device layer (``parallel/``) at world size 1 on NCCL: a
+    one-rank process group made by ``make_mesh`` (an in-process store),
+    its ``video`` mesh, one all-reduce through it on the card; then, each
+    against its unsharded run on the card: ``tracker_videos_sharded`` over
+    ``ocsort_scan_videos`` (``n_videos`` synthetic streams of ``n_frames``,
+    id for id), ``fused_videos_sharded`` (YOLOX-s 640 bf16 -> NMS ->
+    OC-SORT over ``fused_videos`` x ``fused_frames`` frames, against
+    per-video ``fused_detect_track``), ``gmc_warps_time_sharded`` against
+    ``gmc_warps`` on ``warp_frames`` panning frames, and
+    ``+experiment=batched_8videos`` with ``engine.use_mesh=true`` against
+    ``false`` on the command line (8 videos of ground truth, rows and track
+    ids, HOTA 100; the ``false`` run is phase engines' config 5 run where
+    ``keep`` holds it with the same arguments); the process group
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    from tracklab_torch.engine.fused import (fused_detect_track,
+                                             make_yolox_detect_fn)
+    from tracklab_torch.models.yolox import YOLOX
+    from tracklab_torch.motion.lk import gmc_warps
+    from tracklab_torch.parallel import mesh as PM
+    from tracklab_torch.parallel.fused_mesh import fused_videos_sharded
+    from tracklab_torch.parallel.time_shard import gmc_warps_time_sharded
+    from tracklab_torch.trackers.ocsort import (OCSortConfig, ocsort_init,
+                                                ocsort_scan_videos,
+                                                ocsort_step)
+
+    stats = {}
+    vm = PM.make_mesh(1, ("video", "unused"), tp_size=1, device=dev)
+    backend, world = dist.get_backend(), dist.get_world_size()
+    t = torch.arange(4.0, device=dev)
+    dist.all_reduce(t, group=vm.get_group("video"))
+    torch.cuda.synchronize()
+    check(backend == "nccl" and world == 1, f"mesh: {backend} at world "
+          f"{world}")
+    check(torch.equal(t, torch.arange(4.0, device=dev)),
+          "mesh: the one-rank all-reduce changed its input")
+
+    # (a) the trackers
+    streams = [synth_stream(200 + v, n_frames=n_frames)
+               for v in range(n_videos)]
+    dets = _pad_videos(torch, streams, 64, dev)
+    cfg = OCSortConfig(max_tracks=128, max_dets=64, det_thresh=0.45,
+                       max_age=12, min_hits=2, iou_threshold=0.25)
+    _, want = ocsort_scan_videos(cfg, dets)
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, got = PM.tracker_videos_sharded(ocsort_scan_videos, cfg, vm,
+                                       axis="video")(dets)
+    torch.cuda.synchronize()
+    trk_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    d = _same_tracks(torch, got, want, "mesh (a) tracker_videos_sharded")
+    check(launches["K1"] > 0, "mesh (a): K1 never launched")
+    stats["trackers"] = dict(videos=n_videos, frames=n_frames,
+                             seconds=trk_s, max_box_diff=d,
+                             launches=dict(launches))
+
+    # (b) the fused program over the video axis
+    model = YOLOX(num_classes=1, variant="s", dtype=torch.bfloat16,
+                  device=dev).randomize_(0)
+    g = torch.Generator(device=dev).manual_seed(13)
+    base = torch.randint(0, 235, (fused_videos, 1, size, size, 3),
+                         generator=g, device=dev, dtype=torch.uint8)
+    videos = base + torch.randint(0, 20, (fused_videos, fused_frames, size,
+                                          size, 3), generator=g, device=dev,
+                                  dtype=torch.uint8)
+    detect = make_yolox_detect_fn(model, conf_threshold=0.5, max_dets=32,
+                                  compute_dtype=torch.bfloat16)
+    fcfg = OCSortConfig(max_tracks=64, max_dets=32, min_hits=1)
+    step, init = partial(ocsort_step, fcfg), ocsort_init(fcfg, device=dev)
+    run = fused_videos_sharded(detect, step, init, vm, chunk=8,
+                               axis="video", return_detections=True)
+    t0 = time.perf_counter()
+    _, fdets, fouts = run(videos)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    for v in range(fused_videos):
+        _, d1, o1 = fused_detect_track(detect, step, init, videos[v], 8)
+        _same_tracks(torch, type(fouts)(*(x[v] for x in fouts)), o1,
+                     f"mesh (b) fused video {v}")
+        check(all(torch.equal(a[v], b) for a, b in zip(fdets, d1)),
+              f"mesh (b) fused video {v}: detections differ")
+    stats["fused"] = dict(videos=fused_videos, frames=fused_frames,
+                          seconds=fused_s,
+                          detections_per_frame=fdets.valid.sum(-1).float()
+                          .mean().item())
+
+    # (c) the time-sharded camera warps
+    frames = panning_video(torch, dev, warp_frames, size)
+    w1 = gmc_warps_time_sharded(vm, axis="video")(frames)
+    w0 = gmc_warps(frames)
+    check(torch.equal(w1, w0), "mesh (c): time-sharded warps differ from "
+          "gmc_warps")
+    err, first_identity = _pan_error(w1.cpu().numpy(), (size, size))
+    check(first_identity and err <= 0.25, f"mesh (c): warps {err:.3f} px "
+          "from the pan at the corners")
+    stats["warps"] = dict(frames=warp_frames, pan_error_px=err)
+
+    # (d) the batched engine's use_mesh on the command line
+    base_args = ["use_rich=false", f"device={dev.type}",
+                 "+experiment=batched_8videos", "dataset.n_videos=8",
+                 f"dataset.n_frames={cfg5_frames}", GT_OVERRIDE]
+    runs = {}
+    kept = (keep or {}).get("config5_batched")
+    if kept is not None and kept[0] == base_args:
+        runs[False] = kept[1]
+    for use_mesh in (True,) if False in runs else (False, True):
+        parts, res, cl, split = _cli_run(
+            torch, base_args + [f"engine.use_mesh={str(use_mesh).lower()}"],
+            ("scan", "eval"))
+        runs[use_mesh] = parts["tracker_state"].detections_pred
+        check((parts["engine"]._mesh is not None) == use_mesh,
+              f"mesh (d): use_mesh={use_mesh} built no mesh")
+        check(res["COMBINED_SEQ"]["HOTA"] == 100.0,
+              f"mesh (d) use_mesh={use_mesh}: HOTA "
+              f"{res['COMBINED_SEQ']['HOTA']}")
+        stats[f"cli_use_mesh_{str(use_mesh).lower()}"] = dict(
+            split, launches=cl, HOTA=res["COMBINED_SEQ"]["HOTA"])
+    _same_rows(runs[True], runs[False], "mesh (d) use_mesh true vs false")
+    PM.release_process_group()
+    check(not dist.is_initialized(), "mesh: the process group outlived the "
+          "phase")
+    off = stats.get("cli_use_mesh_false", {}).get(
+        "fps", "phase engines' run")
+    log(f"mesh on {card}: world {world} on {backend}; (a) "
+        f"tracker_videos_sharded over {n_videos} x {n_frames} frames equals "
+        f"ocsort_scan_videos id for id ({trk_s:.2f} s, K1 "
+        f"{launches['K1']}); (b) fused_videos_sharded over {fused_videos} x "
+        f"{fused_frames} frames of {size} equals per-video "
+        f"fused_detect_track ({fused_s:.2f} s); (c) the time-sharded warps "
+        f"equal gmc_warps (pan error {stats['warps']['pan_error_px']:.3f} "
+        f"px); (d) batched_8videos with use_mesh true equals false, 8 x "
+        f"{cfg5_frames} frames, "
+        f"{stats['cli_use_mesh_true']['fps']:.2f} frames/s against {off}; "
+        "the process group destroyed")
+    return stats, stats["cli_use_mesh_true"]["launches"]
+
+
 def _host_packages():
     """Whether pandas, yaml, cv2, scipy, tqdm and rich import here, with
     their versions."""
@@ -6906,22 +7452,29 @@ def main() -> int:
     # for the room of phase zoo (as the cuts below): 60 -> 40 frames
     phase_batched_trackers(torch, dev, n_frames=40)
     k4 = phase_k4(torch, dev)
-    kpr_stats = phase_kpr(torch, dev)
+    # for the room of phases int8 and mesh: KPR's batch 64 -> 32 crops
+    kpr_stats = phase_kpr(torch, dev, batch=32)
     phase_bpbreid(torch, dev)
     lx_stats = phase_yolox_lx(torch, dev)
     oru_in = {"main_path": {}, "multi_video_path": {}}
-    launches, main_stats = phase_main(torch, dev, oru=oru_in["main_path"])
+    # for the room of phases int8 and mesh: 4 -> 2 chunks of 128 frames
+    launches, main_stats = phase_main(torch, dev, n_chunks=2,
+                                      oru=oru_in["main_path"])
     # for the room of phase zoo: 8 videos x 128 -> 64 frames
     v_launches, k2, videos_stats = phase_videos(
         torch, dev, n_frames=64, oru=oru_in["multi_video_path"])
-    p_launches, parts_stats = phase_parts(torch, dev)
+    # for the room of phases int8 and mesh: 8 -> 4 chunks of 16 frames
+    p_launches, parts_stats = phase_parts(torch, dev, n_chunks=4)
     oru = phase_oru(torch, oru_in)
     # depth cut for the room of phase posetrack's checks: the ReID path's
-    # plain-solver rerun 32 -> 16 frames
-    r_launches, rb_launches, reid_stats = phase_reid(torch, dev, n_plain=16)
+    # plain-solver rerun 32 -> 16 frames; for the room of phases int8 and
+    # mesh: 8 -> 4 chunks of 16 frames (the V = 4 stage 4 x 16 frames)
+    r_launches, rb_launches, reid_stats = phase_reid(torch, dev, n_chunks=4,
+                                                     n_plain=16)
     nkf_in = {}
-    # for the room of phase zoo: 8 -> 4 chunks of 16 frames
-    m_launches, motion_stats = phase_motion(torch, dev, n_chunks=4,
+    # for the room of phase zoo: 8 -> 4 chunks of 16 frames; for the room of
+    # phases int8 and mesh: 4 -> 2 (the V = 4 stage over 4 x 4 frames)
+    m_launches, motion_stats = phase_motion(torch, dev, n_chunks=2,
                                             oru=nkf_in)
     oru_nkf, motion_stats["oru_nkf"] = phase_oru_nkf(torch, dev, nkf_in)
     k3_f32 = phase_k3_routes_f32(torch, dev)
@@ -6934,9 +7487,12 @@ def main() -> int:
     # cli_reid (a) 80 -> 60, its (b) and (c) tree 64 -> 48
     # for the room of phase train_zoo: cli (b) 100 -> 60 frames a video,
     # cli_reid (a) 60 -> 40, its (b) and (c) tree 48 -> 32
-    cli_stats = phase_cli(torch, dev, smi, n_frames=60, keep=keep)
-    reid_cli = phase_cli_reid(torch, dev, smi, n_frames=40, tree_frames=32,
-                              prefix_frames=8, keep=keep)
+    # for the room of phases int8 and mesh: cli (b) 60 -> 30 frames a video,
+    # cli_reid (a) 40 -> 24, its (b) and (c) tree 32 -> 24, its (b) CPU
+    # prefix 8 -> 4
+    cli_stats = phase_cli(torch, dev, smi, n_frames=30, keep=keep)
+    reid_cli = phase_cli_reid(torch, dev, smi, n_frames=24, tree_frames=24,
+                              prefix_frames=4, keep=keep)
     # depth cut for the room of phase pose: engines (a)'s detector runs
     # and (b)'s clips 60 -> 40 frames, K1's plain check 4 -> 2 solving
     # launches; config 4 as typed 100 -> 60 frames. Config 1's tree keeps
@@ -6951,21 +7507,32 @@ def main() -> int:
     # 50 -> 25; pose (a)'s config 3 tree 60 -> 40 frames a video;
     # posetrack (a)'s 1280 x 720 tree 60 -> 40 (its 640 tree keeps 60: most
     # of its frames have a free slot, PERF.md section 7)
+    # For the room of phases int8 and mesh: config 5's videos 40 -> 16,
+    # (b)'s clips 20 -> 12, (d)'s rendered video 25 -> 16 ((a)'s detector
+    # runs keep 16: its profile reads frames 8-15); config 4 as typed 40 ->
+    # 24, config 1's CPU prefix 8 -> 4 frames; pose (a)'s and (c)'s videos
+    # 40 -> 24 frames, (a)'s CPU prefix 8 -> 4
     engines, engine_runs = phase_engines(torch, dev, smi, keep,
-                                         n_frames=16, file_frames=20,
-                                         reid_frames=20, vis_frames=25,
-                                         k1_keep=2, cfg5_frames=40)
-    baseline = phase_baseline(torch, dev, smi, gs_frames=40)
-    pose = phase_pose(torch, dev, smi, n_frames=40, topdown_frames=40)
+                                         n_frames=16, file_frames=12,
+                                         reid_frames=12, vis_frames=16,
+                                         k1_keep=2, cfg5_frames=16)
+    baseline = phase_baseline(torch, dev, smi, gs_frames=24, prefix_frames=4)
+    pose = phase_pose(torch, dev, smi, n_frames=24, topdown_frames=24,
+                      prefix_frames=4)
     # for the room of phase train_zoo: posetrack (a)'s 1280 x 720 tree
     # 40 -> 30 frames a video. (Zoo's tree at 24 frames instead of 40 put
     # one RT-DETR r50vd detection at IoU 0.9986 from the CPU's, below its
     # 0.999 check: the trees keep their 40 frames.)
+    # for the room of phases int8 and mesh: posetrack (a)'s 1280 x 720 tree
+    # 30 -> 16 frames a video (its CPU prefix keeps 4 frames: at 2 the
+    # replayed heatmap tape and the CPU's run part); the zoo's CPU prefix
+    # 4 -> 2 frames (its trees keep their 40); the ReID zoo's 2 x 40 -> 24
+    # frames and its CPU prefix 8 -> 4
     posetrack, k4["f32_kpr_cli"] = phase_posetrack(torch, dev, smi,
-                                                   hd_frames=30)
-    zoo = phase_zoo(torch, dev, smi)
+                                                   hd_frames=16)
+    zoo = phase_zoo(torch, dev, smi, prefix_frames=2)
     t0 = time.perf_counter()
-    reid_zoo = phase_reid_zoo(torch, dev, smi)
+    reid_zoo = phase_reid_zoo(torch, dev, smi, n_frames=24, prefix_frames=4)
     log(f"phase reid_zoo: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     train = phase_train(torch, dev, smi)
@@ -6974,6 +7541,12 @@ def main() -> int:
     train_zoo = phase_train_zoo(torch, dev, smi)
     log(f"phase train_zoo: {time.perf_counter() - t0:.1f} s")
     k4["train_backward_vs_plain"] = train_zoo["kpr"]["k4_backward_vs_plain"]
+    t0 = time.perf_counter()
+    int8, int8_cli, int8_fused = phase_int8(torch, dev, smi)
+    log(f"phase int8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh, mesh_cli = phase_mesh(torch, dev, smi, cfg5_frames=16, keep=keep)
+    log(f"phase mesh: {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -7018,8 +7591,12 @@ def main() -> int:
     train_runs.update({f"train_zoo_{k}": train_zoo[k]["launches"]
                        for k in ("osnet", "kpr", "yolov8n", "rtdetr_s",
                                  "rtmdet_nano", "topdown_s")})
+    int8_runs = {"int8_fused": int8_fused, "int8_cli": int8_cli,
+                 "mesh_trackers": mesh["trackers"]["launches"],
+                 "mesh_cli": mesh_cli}
     by_path = dict(cli_reid_runs, **engine_runs, **baseline_runs,
-                   **pose_runs, **posetrack_runs, **zoo_runs, **train_runs)
+                   **pose_runs, **posetrack_runs, **zoo_runs, **train_runs,
+                   **int8_runs)
     for entry, key in zip((k1, k2, k3, k4, oru, oru_nkf), _CLI_COUNTERS):
         entry["launches_by_path"] = {run: n[key]
                                      for run, n in by_path.items()}
@@ -7034,7 +7611,7 @@ def main() -> int:
                       "baseline": baseline, "pose": pose,
                       "posetrack": posetrack, "zoo": zoo,
                       "reid_zoo": reid_zoo, "train": train,
-                      "train_zoo": train_zoo,
+                      "train_zoo": train_zoo, "int8": int8, "mesh": mesh,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,

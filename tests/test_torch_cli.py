@@ -110,8 +110,15 @@ def test_device_defaults_to_cuda_and_raises_without_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             TM.init_environment(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        YOLOXDetector(quant="int8", device="cpu")
+    # int8 is ported (models/quantize.py): quant reaches the wrapper from
+    # the command line, as in the JAX package
+    over = ["pipeline=[bbox_detector,track]", "+modules/bbox_detector=yolox",
+            "+modules.bbox_detector.quant=int8"]
+    det = TM.build(tcompose(TM.CONFIG_DIR, "config", over + ["device=cpu"]),
+                   torch.device("cpu"))["modules"][0]
+    assert isinstance(det, YOLOXDetector) and det.quant == "int8"
+    assert jcompose(JM.CONFIG_DIR, "config", over)["modules"][
+        "bbox_detector"]["quant"] == "int8"
     # training is ported (models/detector_train_engine.py): a set without
     # images trains nothing
     empty = types.SimpleNamespace(sets={"train": types.SimpleNamespace(

@@ -102,12 +102,36 @@ def test_batched_engine_over_uneven_batches(offline_run):
                          "batches of 3 and 1 vs the offline engine")
 
 
-def test_batched_engine_mesh_is_not_ported():
-    cfg = tcompose(TM.CONFIG_DIR, "config", QUICK + [
-        "+experiment=batched_8videos", "engine.use_mesh=true",
-        "device=cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        TM.build(cfg, torch.device("cpu"))
+@pytest.fixture
+def process_group_released():
+    """Destroys the process group a ``use_mesh`` run made, so that nothing
+    leaks into the next test."""
+    from tracklab_torch.parallel.mesh import release_process_group
+    yield
+    release_process_group()
+
+
+def test_batched_engine_mesh_is_not_ported(offline_run,
+                                           process_group_released):
+    """(The name is from before the mesh was ported.) BASELINE config 5
+    with ``engine.use_mesh=true``: the batched engine builds a one-rank
+    ``video`` mesh on gloo and its trackers shard the 4 videos over it;
+    the tracks equal ``use_mesh=false``'s, which equal the offline
+    engine's."""
+    import torch.distributed as dist
+
+    args = QUICK + ["+experiment=batched_8videos", "device=cpu"]
+    parts, res = TM.main(args + ["engine.use_mesh=true"])
+    mesh = parts["engine"]._mesh
+    assert mesh is not None and mesh.mesh_dim_names == ("video", "unused")
+    assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+    plain, plain_res = TM.main(args + ["engine.use_mesh=false"])
+    assert plain["engine"]._mesh is None
+    assert res["COMBINED_SEQ"]["HOTA"] == plain_res["COMBINED_SEQ"][
+        "HOTA"] == 100.0
+    _assert_tracks_equal(_tracks(parts), _tracks(plain), "use_mesh")
+    _assert_tracks_equal(_tracks(parts), _tracks(offline_run[0]),
+                         "vs the offline engine")
 
 
 DETECT = ["pipeline=[bbox_detector,track]", "+modules/bbox_detector=yolox",

@@ -118,12 +118,18 @@ def test_convert_yolov8_torch_round_trips():
 
 
 def test_stubs_name_their_roadmap_items():
-    """``quant=`` still waits for ROADMAP item 6 (quantization); the
-    training hooks are ported (tests/test_torch_detector_train.py holds them
-    against JAX): ``detection_loss_fn`` reads the model's reg_max, and
+    """(The name is from before these hooks were ported.) ``quant="int8"``
+    builds each family's int8 model (tests/test_torch_quantize.py holds it
+    against JAX); the training hooks are ported
+    (tests/test_torch_detector_train.py holds them against JAX):
+    ``detection_loss_fn`` reads the model's reg_max, and
     ``train_tracking=true`` does not train the detector, as in JAX."""
-    with pytest.raises(NotImplementedError, match="item 6: quantization"):
-        YOLOv8Detector(quant="int8", device="cpu")
+    for variant, cls in (("n", YOLOv8), ("11n", YOLO11)):
+        q = YOLOv8Detector(variant=variant, quant="int8", device="cpu")
+        model = q._make_model("int8")
+        assert isinstance(model, cls) and model.quant == "int8"
+        assert sum(getattr(m, "quant", None) == "int8" and hasattr(
+            m, "ascale") for m in model.modules()) > 0
     det = YOLOv8Detector(variant="n", num_classes=1, device="cpu")
     det._model = YOLOv8(num_classes=1, variant="n", device="cpu")
     maps = [torch.zeros((1, 64 // s, 64 // s, 65), requires_grad=True)

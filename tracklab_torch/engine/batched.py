@@ -8,11 +8,21 @@ module takes the whole batch: a tracker steps the V videos together over
 a leading video axis (``process_video_batch``), a module without that mode
 runs ``process`` per video; then each video is saved and its callbacks
 fire.
+
+With ``use_mesh`` the trackers shard the batch's videos over a ``video``
+mesh of every rank of the process group (``parallel/mesh.py``: one process
+per card; on one card a one-rank group, made here when there is none),
+each rank tracking its own videos; a tracker that takes embeddings or part
+features runs its videos one by one instead, as in the JAX package.
 """
 from __future__ import annotations
 
+import logging
+
 from tracklab_torch.engine.engine import merge_dataframes
 from tracklab_torch.engine.offline import OfflineTrackingEngine
+
+log = logging.getLogger(__name__)
 
 __all__ = ["BatchedOfflineTrackingEngine"]
 
@@ -20,14 +30,14 @@ __all__ = ["BatchedOfflineTrackingEngine"]
 class BatchedOfflineTrackingEngine(OfflineTrackingEngine):
     def __init__(self, *args, video_batch_size: int = 8,
                  use_mesh: bool = False, **kwargs):
-        if use_mesh:
-            raise NotImplementedError(
-                "BatchedOfflineTrackingEngine(use_mesh=True): the multi-card "
-                "video mesh is not ported to tracklab_torch yet (ROADMAP "
-                "item 5: batched and multi-device); the port steps the "
-                "videos on one card")
         super().__init__(*args, **kwargs)
         self.video_batch_size = max(int(video_batch_size), 1)
+        self._mesh = None
+        if use_mesh:
+            from tracklab_torch.parallel.mesh import make_mesh
+            self._mesh = make_mesh(axis_names=("video", "unused"),
+                                   tp_size=1, device=self.device)
+            log.info("Batched engine: %d-rank video mesh", self._mesh.size())
 
     def track_dataset(self):
         self.fire("on_dataset_track_start")
@@ -71,7 +81,7 @@ class BatchedOfflineTrackingEngine(OfflineTrackingEngine):
                 continue
             if hasattr(model, "process_video_batch"):
                 outs = model.process_video_batch(
-                    [(d, im) for _, _, d, im in per_video])
+                    [(d, im) for _, _, d, im in per_video], mesh=self._mesh)
             else:
                 outs = [model.process(d, im) for _, _, d, im in per_video]
             for rec, out in zip(per_video, outs):

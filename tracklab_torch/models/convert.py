@@ -15,6 +15,10 @@ torchreid OSNet state dict (the name map of the JAX package's
 and ``yolo11_from_flax`` carry the JAX package's YOLOv8 / YOLO11 trees into
 ``models.yolov8.YOLOv8`` / ``models.yolo11.YOLO11``, and
 ``convert_yolov8_torch`` loads an ultralytics state dict into either.
+``quant_from_flax`` carries the JAX package's int8 ``quant`` collection
+(its calibrated ``ascale`` leaves) into the ``ascale`` state that
+``models/quantize.py:load_quant_state_dict`` loads into a ``quant="int8"``
+YOLOX, YOLOv8 or YOLO11.
 The pose models: ``yoloxpose_from_flax``, ``topdownpose_from_flax`` and
 ``simccpose_from_flax`` carry the JAX package's ``YOLOXPose``,
 ``TopDownPose`` and ``SimCCPose`` trees into ``models.pose``,
@@ -52,6 +56,7 @@ __all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
            "convert_kpr_torch",
            "osnet_from_flax", "osnet_torch_key", "convert_osnet_torch",
            "yolov8_from_flax", "yolo11_from_flax", "convert_yolov8_torch",
+           "quant_from_flax",
            "pitchsegnet_from_flax", "yoloxpose_from_flax",
            "topdownpose_from_flax", "simccpose_from_flax",
            "vitpose_from_flax", "convert_vitpose_torch",
@@ -63,7 +68,8 @@ __all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
            "convert_onnx", "load_checkpoint"]
 
 _LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias",
-             "mean": "running_mean", "var": "running_var"}
+             "mean": "running_mean", "var": "running_var",
+             "ascale": "ascale"}
 _PREFIX = {"backbone": ["backbone", "backbone"], "neck": ["backbone"],
            "head": ["head"]}
 
@@ -289,6 +295,17 @@ def yolov8_from_flax(variables) -> dict:
 
 # YOLO11's flax names follow the same ultralytics map
 yolo11_from_flax = yolov8_from_flax
+
+
+def quant_from_flax(quant, key_fn=module_torch_key) -> dict:
+    """The JAX package's ``quant`` collection (nested dicts of its
+    ``ascale`` leaves, as numpy arrays, keyed by flax path) -> the port's
+    ``{"<module>.ascale": f32 scalar}``: ``key_fn`` is the family's
+    parameter key map (``yolox_torch_key`` for YOLOX, the default for
+    YOLOv8 and YOLO11). Load it with
+    ``models/quantize.py:load_quant_state_dict``."""
+    return {key_fn(path): torch.tensor(np.asarray(leaf, np.float32))
+            for path, leaf in _flatten({"quant": quant})}
 
 
 # the DFL projection: the fixed arange(reg_max) kernel, computed as math in

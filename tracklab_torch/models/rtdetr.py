@@ -9,8 +9,8 @@ NMS-free class logits and sigmoid cxcywh boxes. The layers keep flax's
 conventions, as the JAX model has them: LayerNorm eps 1e-6, the tanh GELU,
 ``MultiHeadDotProductAttention`` (q, k, v and out projections with bias, q
 scaled by head_dim^-1/2). Weights come from the JAX package's tree through
-``models/convert.py:rtdetr_from_flax``. The set loss (``rtdetr_loss``)
-waits for training (ROADMAP item 6).
+``models/convert.py:rtdetr_from_flax``. The set loss (the JAX package's
+``rtdetr_loss``) is ``models/rtdetr_train.py:rtdetr_detection_loss``.
 """
 from __future__ import annotations
 

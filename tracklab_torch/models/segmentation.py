@@ -8,7 +8,8 @@ low-level skip, bilinear upsampling. The stride-32 stage is not computed:
 its output feeds nothing (the JAX package's compiler drops it too), though
 its weights stay in the state dict. :func:`extract_segment_points` turns a
 class map into a fixed number of pixel points per line on the device.
-``seg_loss`` waits for training (ROADMAP item 6).
+:func:`seg_loss` is the segmenter's training loss, a class-weighted softmax
+cross-entropy.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from tracklab_torch.models.yolox import (YOLOX, YOLOX_VARIANTS, BatchNorm,
                                          ConvBnAct, CSPDarknet, _PredConv,
                                          _round_width)
 
-__all__ = ["PitchSegNet", "ASPP", "extract_segment_points"]
+__all__ = ["PitchSegNet", "ASPP", "extract_segment_points", "seg_loss"]
 
 _FLAX_BN_EPS = 1e-5   # flax nn.BatchNorm's default, used by ASPP's branches
 
@@ -108,6 +109,19 @@ class PitchSegNet(nn.Module):
 
 
 _KNUTH = 2654435761
+
+
+def seg_loss(logits, labels, background_weight: float = 0.05):
+    """Class-weighted softmax cross-entropy over (B, H, W, C) logits and
+    (B, H, W) integer labels: pitch lines are ~1 % of the pixels, so the
+    background (class 0) is weighted down; the weighted sum over the
+    pixels divided by the weights' sum (at least 1)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)
+    w = torch.where(labels == 0, logits.new_tensor(background_weight),
+                    logits.new_tensor(1.0))
+    ce = -(onehot * logp).sum(-1) * w
+    return ce.sum() / torch.clamp(w.sum(), min=1.0)
 
 
 def extract_segment_points(class_map, num_classes: int, n_points: int = 32):

@@ -10,7 +10,9 @@ Submodules carry the ultralytics names (``model.0`` .. ``model.23``), so
 C2PSA's attention is plain tensor ops (matmul and softmax in f32), as in the
 JAX package, where it is not a Pallas kernel. ``YOLO11Pose`` adds the
 ultralytics Pose head's keypoint branch (``model.23.cv4``) on the same
-trunk: the bottom-up pose wrapper's ``variant: "11m"``.
+trunk: the bottom-up pose wrapper's ``variant: "11m"``. ``quant``
+(``models/quantize.py``) reaches every dense ``ConvBnAct`` but C2PSA's, as
+in the JAX package; the depthwise head convolutions stay float.
 """
 from __future__ import annotations
 
@@ -39,13 +41,15 @@ YOLO11_VARIANTS = {
 class C3k(nn.Module):
     """C3 with n kernel-3 bottlenecks (e = 1.0) at half width."""
 
-    def __init__(self, cin, cout, n=2, shortcut=True, dtype=torch.float32):
+    def __init__(self, cin, cout, n=2, shortcut=True, dtype=torch.float32,
+                 quant=None):
         super().__init__()
         c = cout // 2
-        self.cv1 = ConvBnAct(cin, c, 1, dtype=dtype)
-        self.cv2 = ConvBnAct(cin, c, 1, dtype=dtype)
-        self.cv3 = ConvBnAct(2 * c, cout, 1, dtype=dtype)
-        self.m = nn.Sequential(*[Bottleneck(c, c, shortcut, 1.0, dtype=dtype)
+        kw = dict(dtype=dtype, quant=quant)
+        self.cv1 = ConvBnAct(cin, c, 1, **kw)
+        self.cv2 = ConvBnAct(cin, c, 1, **kw)
+        self.cv3 = ConvBnAct(2 * c, cout, 1, **kw)
+        self.m = nn.Sequential(*[Bottleneck(c, c, shortcut, 1.0, **kw)
                                  for _ in range(n)])
 
     def forward(self, x):
@@ -57,13 +61,14 @@ class C3k2(C2f):
     bottlenecks."""
 
     def __init__(self, cin, cout, n=1, c3k=False, e=0.5, shortcut=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant=None):
+        kw = dict(dtype=dtype, quant=quant)
         if c3k:
-            block = lambda c: C3k(c, c, 2, shortcut, dtype=dtype)  # noqa
+            block = lambda c: C3k(c, c, 2, shortcut, **kw)  # noqa: E731
         else:
             block = lambda c: Bottleneck(c, c, shortcut, 0.5,  # noqa: E731
-                                         dtype=dtype)
-        super().__init__(cin, cout, n, shortcut, e, dtype=dtype, block=block)
+                                         **kw)
+        super().__init__(cin, cout, n, shortcut, e, block=block, **kw)
 
 
 class ConvBn(nn.Module):
@@ -153,11 +158,12 @@ class DetectV11(nn.Module):
     """The v11 Detect head (legacy=False): the regression branch as v8's,
     the class branch two depthwise + pointwise pairs, then 1x1."""
 
-    def __init__(self, chs, num_classes, reg_max=16, dtype=torch.float32):
+    def __init__(self, chs, num_classes, reg_max=16, dtype=torch.float32,
+                 quant=None):
         super().__init__()
         c2 = max(16, chs[0] // 4, reg_max * 4)
         c3 = max(chs[0], min(num_classes, 100))
-        kw = dict(dtype=dtype)
+        kw = dict(dtype=dtype, quant=quant)
         self.cv2 = nn.ModuleList(nn.Sequential(
             ConvBnAct(c, c2, 3, **kw), ConvBnAct(c2, c2, 3, **kw),
             _PredConv(c2, 4 * reg_max, dtype)) for c in chs)
@@ -177,15 +183,17 @@ class YOLO11(_YOLOBase):
     """Full detector on ``device`` (``cuda`` unless told otherwise)."""
 
     def __init__(self, num_classes: int = 80, variant: str = "n",
-                 reg_max: int = 16, dtype=torch.float32, device=None):
+                 reg_max: int = 16, dtype=torch.float32, device=None,
+                 quant=None):
         super().__init__()
         v = YOLO11_VARIANTS[variant]
         ch = lambda c: make_divisible_width(c, v["w"], v["mc"])  # noqa
         n = lambda k: _n(k, v["d"])  # noqa: E731
         fc = v["force_c3k"]
-        kw = dict(dtype=dtype)
+        kw = dict(dtype=dtype, quant=quant)
         self.num_classes, self.reg_max, self.dtype = num_classes, reg_max, \
             dtype
+        self.quant = quant
         m = {
             "0": ConvBnAct(3, ch(64), 3, 2, **kw),
             "1": ConvBnAct(ch(64), ch(128), 3, 2, **kw),
@@ -197,7 +205,7 @@ class YOLO11(_YOLOBase):
             "7": ConvBnAct(ch(512), ch(1024), 3, 2, **kw),
             "8": C3k2(ch(1024), ch(1024), n(2), True, **kw),
             "9": SPPF(ch(1024), ch(1024), **kw),
-            "10": C2PSA(ch(1024), n(2), **kw),
+            "10": C2PSA(ch(1024), n(2), dtype=dtype),
             "13": C3k2(ch(1024) + ch(512), ch(512), n(2), fc, **kw),
             "16": C3k2(ch(512) + ch(512), ch(256), n(2), fc, **kw),
             "17": ConvBnAct(ch(256), ch(256), 3, 2, **kw),

@@ -12,7 +12,9 @@ Public layout is the JAX package's: ``forward`` takes NHWC images scaled to
 [0, 1] and returns NHWC per-level maps; inside, tensors are NCHW in
 channels-last memory. BN runs in f32 with eps 1e-3 (``models/yolox.py``'s
 ``ConvBnAct``). Every convolution is plain torch (cuDNN on the card): the
-JAX package runs none of this model in a Pallas kernel.
+JAX package runs none of this model in a Pallas kernel. ``quant`` ("calib"
+or "int8", ``models/quantize.py``) reaches every dense ``ConvBnAct``; the
+1x1 prediction convolutions stay float.
 """
 from __future__ import annotations
 
@@ -51,11 +53,12 @@ class Bottleneck(nn.Module):
     """Two 3x3 convs (hidden width ``int(cout * e)``), residual when the
     widths match."""
 
-    def __init__(self, cin, cout, shortcut=True, e=1.0, dtype=torch.float32):
+    def __init__(self, cin, cout, shortcut=True, e=1.0, dtype=torch.float32,
+                 quant=None):
         super().__init__()
         hidden = int(cout * e)
-        self.cv1 = ConvBnAct(cin, hidden, 3, dtype=dtype)
-        self.cv2 = ConvBnAct(hidden, cout, 3, dtype=dtype)
+        self.cv1 = ConvBnAct(cin, hidden, 3, dtype=dtype, quant=quant)
+        self.cv2 = ConvBnAct(hidden, cout, 3, dtype=dtype, quant=quant)
         self.add = shortcut and cin == cout
 
     def forward(self, x):
@@ -69,13 +72,13 @@ class C2f(nn.Module):
     inner block (YOLO11's C3k2 passes its own)."""
 
     def __init__(self, cin, cout, n=1, shortcut=True, e=0.5,
-                 dtype=torch.float32, block=None):
+                 dtype=torch.float32, block=None, quant=None):
         super().__init__()
         self.c = c = int(cout * e)
-        self.cv1 = ConvBnAct(cin, 2 * c, 1, dtype=dtype)
-        self.cv2 = ConvBnAct((2 + n) * c, cout, 1, dtype=dtype)
+        self.cv1 = ConvBnAct(cin, 2 * c, 1, dtype=dtype, quant=quant)
+        self.cv2 = ConvBnAct((2 + n) * c, cout, 1, dtype=dtype, quant=quant)
         block = block or (lambda c_: Bottleneck(c_, c_, shortcut, 1.0,
-                                                dtype=dtype))
+                                                dtype=dtype, quant=quant))
         self.m = nn.ModuleList(block(c) for _ in range(n))
 
     def forward(self, x):
@@ -89,11 +92,11 @@ class C2f(nn.Module):
 class SPPF(nn.Module):
     """cv1 to half width, three chained 5x5 max pools, concat, cv2."""
 
-    def __init__(self, cin, cout, dtype=torch.float32):
+    def __init__(self, cin, cout, dtype=torch.float32, quant=None):
         super().__init__()
         c = cin // 2
-        self.cv1 = ConvBnAct(cin, c, 1, dtype=dtype)
-        self.cv2 = ConvBnAct(4 * c, cout, 1, dtype=dtype)
+        self.cv1 = ConvBnAct(cin, c, 1, dtype=dtype, quant=quant)
+        self.cv2 = ConvBnAct(4 * c, cout, 1, dtype=dtype, quant=quant)
 
     def forward(self, x):
         pools = [self.cv1(x)]
@@ -148,15 +151,17 @@ class YOLOv8(_YOLOBase):
     """Full detector on ``device`` (``cuda`` unless told otherwise)."""
 
     def __init__(self, num_classes: int = 80, variant: str = "n",
-                 reg_max: int = 16, dtype=torch.float32, device=None):
+                 reg_max: int = 16, dtype=torch.float32, device=None,
+                 quant=None):
         super().__init__()
         v = YOLOV8_VARIANTS[variant]
         d, w, mc = v["d"], v["w"], v["mc"]
         ch = lambda c: make_divisible_width(c, w, mc)  # noqa: E731
         n = lambda k: _n(k, d)  # noqa: E731
-        kw = dict(dtype=dtype)
+        kw = dict(dtype=dtype, quant=quant)
         self.num_classes, self.reg_max, self.dtype = num_classes, reg_max, \
             dtype
+        self.quant = quant
         m = {
             "0": ConvBnAct(3, ch(64), 3, 2, **kw),
             "1": ConvBnAct(ch(64), ch(128), 3, 2, **kw),
@@ -198,17 +203,19 @@ class DetectV8(nn.Module):
     """The decoupled DFL head. Branch widths come from the FIRST level's
     channels for every level (ultralytics Detect.__init__)."""
 
-    def __init__(self, chs, num_classes, reg_max=16, dtype=torch.float32):
+    def __init__(self, chs, num_classes, reg_max=16, dtype=torch.float32,
+                 quant=None):
         super().__init__()
         c_reg = max(16, chs[0] // 4, reg_max * 4)
         c_cls = max(chs[0], min(num_classes, 100))
+        kw = dict(dtype=dtype, quant=quant)
         self.cv2 = nn.ModuleList(nn.Sequential(
-            ConvBnAct(c, c_reg, 3, dtype=dtype),
-            ConvBnAct(c_reg, c_reg, 3, dtype=dtype),
+            ConvBnAct(c, c_reg, 3, **kw),
+            ConvBnAct(c_reg, c_reg, 3, **kw),
             _PredConv(c_reg, 4 * reg_max, dtype)) for c in chs)
         self.cv3 = nn.ModuleList(nn.Sequential(
-            ConvBnAct(c, c_cls, 3, dtype=dtype),
-            ConvBnAct(c_cls, c_cls, 3, dtype=dtype),
+            ConvBnAct(c, c_cls, 3, **kw),
+            ConvBnAct(c_cls, c_cls, 3, **kw),
             _PredConv(c_cls, num_classes, dtype)) for c in chs)
 
     def forward(self, feats):

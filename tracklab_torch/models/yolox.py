@@ -14,6 +14,13 @@ casts its weight to the model dtype.
 On CUDA, dense ``CSPLayer``s at <= 80x80 run as kernel K3
 (``kernels/csp.py``) in inference; everything else is plain torch.
 
+Int8 (``models/quantize.py``): ``quant="calib"`` records each dense
+convolution's input absmax, ``quant="int8"`` runs it as an s8 x s8 -> s32
+product on the calibrated input scale, in inference; depthwise convolutions
+and the 1x1 prediction convolutions stay float, and no CSPLayer of a calib
+or int8 model takes K3 (the JAX package's ``csp_pallas_supported``: ``quant
+is None``).
+
 Training (``models/train.py``): in ``train()`` mode ``BatchNorm`` normalises
 with the batch's statistics and updates its running ones as flax's
 ``nn.BatchNorm(momentum=0.97)`` does, and no ``CSPLayer`` takes K3 (the JAX
@@ -29,6 +36,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tracklab_torch.device import resolve_device
+from tracklab_torch.models.quantize import (check_mode, quant_conv_int8,
+                                            record_absmax)
 
 __all__ = ["YOLOX", "YOLOX_VARIANTS", "decode_outputs", "ConvBnAct",
            "CSPLayer", "BN_EPS", "BN_MOMENTUM"]
@@ -104,29 +113,51 @@ class BatchNorm(nn.Module):
 
 class ConvBnAct(nn.Module):
     """BaseConv: conv (model dtype) + BN + SiLU (f32), output in the model
-    dtype."""
+    dtype.
+
+    ``quant`` (``models/quantize.py``): None; "calib", which records the
+    input's absmax in the ``absmax`` buffer; or "int8", an s8 x s8 -> s32
+    convolution on the ``ascale`` buffer's input scale outside training. A
+    grouped convolution stays float in every mode."""
 
     def __init__(self, cin, cout, kernel=3, stride=1, groups=1,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant=None):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
                               groups=groups, bias=False)
         self.bn = BatchNorm(cout)
         self.dtype = dtype
+        self.quant = check_mode(quant) if groups == 1 else None
+        if self.quant == "calib":
+            self.register_buffer("absmax", torch.zeros(()), persistent=False)
+            self.calib_calls = 0
+        elif self.quant == "int8":
+            self.register_buffer("ascale", torch.ones(()), persistent=False)
+
+    def conv_any(self, x, weight, stride, padding):
+        """This module's convolution of ``x`` with ``weight`` in its quant
+        mode: f32 dequantized int8 outside training in "int8", else in the
+        model dtype (recording the input's absmax in "calib")."""
+        if self.quant == "int8" and not self.training:
+            return quant_conv_int8(x, weight, self.ascale, stride, padding)
+        if self.quant == "calib":
+            record_absmax(self, x)
+        return F.conv2d(x.to(self.dtype), weight.to(self.dtype), None,
+                        stride, padding, groups=self.conv.groups)
 
     def forward(self, x):
-        y = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype),
-                     None, self.conv.stride, self.conv.padding,
-                     groups=self.conv.groups)
+        y = self.conv_any(x, self.conv.weight, self.conv.stride[0],
+                          self.conv.padding[0])
         return F.silu(self.bn(y)).to(self.dtype)
 
 
 class DWConv(nn.Module):
-    def __init__(self, cin, cout, kernel=3, stride=1, dtype=torch.float32):
+    def __init__(self, cin, cout, kernel=3, stride=1, dtype=torch.float32,
+                 quant=None):
         super().__init__()
         self.dconv = ConvBnAct(cin, cin, kernel, stride, groups=cin,
-                               dtype=dtype)
-        self.pconv = ConvBnAct(cin, cout, 1, 1, dtype=dtype)
+                               dtype=dtype, quant=quant)
+        self.pconv = ConvBnAct(cin, cout, 1, 1, dtype=dtype, quant=quant)
 
     def forward(self, x):
         return self.pconv(self.dconv(x))
@@ -134,11 +165,11 @@ class DWConv(nn.Module):
 
 class Bottleneck(nn.Module):
     def __init__(self, cin, cout, shortcut=True, depthwise=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant=None):
         super().__init__()
         conv2 = DWConv if depthwise else ConvBnAct
-        self.conv1 = ConvBnAct(cin, cout, 1, dtype=dtype)
-        self.conv2 = conv2(cout, cout, 3, 1, dtype=dtype)
+        self.conv1 = ConvBnAct(cin, cout, 1, dtype=dtype, quant=quant)
+        self.conv2 = conv2(cout, cout, 3, 1, dtype=dtype, quant=quant)
         self.use_add = shortcut and cin == cout
 
     def forward(self, x):
@@ -151,22 +182,25 @@ class CSPLayer(nn.Module):
 
     ``forward`` launches kernel K3 for a CUDA tensor when the layer is dense
     and H*W <= 80*80 (the JAX kernel's shape rules), in inference only: not
-    in ``train()`` mode and not when autograd needs a gradient through the
-    layer. Otherwise it runs :meth:`forward_plain`, the unfused modules,
-    which are also K3's plain version."""
+    in ``train()`` mode, not when autograd needs a gradient through the
+    layer, and not in a calib or int8 model. Otherwise it runs
+    :meth:`forward_plain`, the unfused modules, which are also K3's plain
+    version."""
 
     def __init__(self, cin, cout, n=1, shortcut=True, depthwise=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant=None):
         super().__init__()
         hidden = cout // 2
-        self.conv1 = ConvBnAct(cin, hidden, 1, dtype=dtype)
-        self.conv2 = ConvBnAct(cin, hidden, 1, dtype=dtype)
-        self.conv3 = ConvBnAct(2 * hidden, cout, 1, dtype=dtype)
+        kw = dict(dtype=dtype, quant=quant)
+        self.conv1 = ConvBnAct(cin, hidden, 1, **kw)
+        self.conv2 = ConvBnAct(cin, hidden, 1, **kw)
+        self.conv3 = ConvBnAct(2 * hidden, cout, 1, **kw)
         self.m = nn.Sequential(*[
-            Bottleneck(hidden, hidden, shortcut, depthwise, dtype=dtype)
+            Bottleneck(hidden, hidden, shortcut, depthwise, **kw)
             for _ in range(n)])
         self.shortcut, self.depthwise = shortcut, depthwise
         self.dtype = dtype
+        self.quant = check_mode(quant)
 
     def forward_plain(self, x):
         a = self.m(self.conv1(x))
@@ -178,10 +212,16 @@ class CSPLayer(nn.Module):
             x.requires_grad or any(p.requires_grad
                                    for p in self.parameters()))
 
-    def forward(self, x):
-        if (x.is_cuda and not self.depthwise
+    def k3_admits(self, x):
+        """Whether K3 may run this layer on ``x`` (the rule of the JAX
+        package's ``csp_pallas_supported``): dense, H * W <= 80 * 80,
+        inference, no gradient wanted, and not a calib or int8 model."""
+        return (not self.depthwise and self.quant is None
                 and x.shape[2] * x.shape[3] <= CSP_MAX_PIXELS
-                and not self.training and not self._needs_grad(x)):
+                and not self.training and not self._needs_grad(x))
+
+    def forward(self, x):
+        if x.is_cuda and self.k3_admits(x):
             from tracklab_torch.kernels.csp import fused_csplayer
             return fused_csplayer(self, x)
         return self.forward_plain(x)
@@ -191,11 +231,11 @@ class SPPBottleneck(nn.Module):
     """SPP with the SPPF cascade: the 9x9 and 13x13 max pools as repeated
     5x5 pools (exact with -inf padding)."""
 
-    def __init__(self, cin, cout, dtype=torch.float32):
+    def __init__(self, cin, cout, dtype=torch.float32, quant=None):
         super().__init__()
         hidden = cin // 2
-        self.conv1 = ConvBnAct(cin, hidden, 1, dtype=dtype)
-        self.conv2 = ConvBnAct(hidden * 4, cout, 1, dtype=dtype)
+        self.conv1 = ConvBnAct(cin, hidden, 1, dtype=dtype, quant=quant)
+        self.conv2 = ConvBnAct(hidden * 4, cout, 1, dtype=dtype, quant=quant)
 
     def forward(self, x):
         x = self.conv1(x)
@@ -209,11 +249,13 @@ class Focus(nn.Module):
     """Space-to-depth stem, fused: a 3x3 conv over the s2d image is exactly
     a 6x6/stride-2 conv over the raw image with the kernel relaid as
     k6[2a+di, 2b+dj, c, o] = k3[a, b, (di + 2 dj) C + c, o] and padding
-    (2, 2). The parameter keeps the checkpoint layout (F, 4C, 3, 3)."""
+    (2, 2). The parameter keeps the checkpoint layout (F, 4C, 3, 3); in a
+    calib or int8 model the 6x6 convolution is the quantized one (its
+    weight scales are the 3x3 kernel's, the same entries)."""
 
-    def __init__(self, cin, cout, dtype=torch.float32):
+    def __init__(self, cin, cout, dtype=torch.float32, quant=None):
         super().__init__()
-        self.conv = ConvBnAct(cin * 4, cout, 3, 1, dtype=dtype)
+        self.conv = ConvBnAct(cin * 4, cout, 3, 1, dtype=dtype, quant=quant)
         self.cin = cin
 
     def forward(self, x):
@@ -221,19 +263,18 @@ class Focus(nn.Module):
         k3 = self.conv.conv.weight.permute(2, 3, 1, 0)      # HWIO
         k6 = (k3.reshape(3, 3, 2, 2, C, Fo).permute(0, 3, 1, 2, 4, 5)
               .reshape(6, 6, C, Fo).permute(3, 2, 0, 1))     # OIHW
-        dt = self.conv.dtype
-        y = F.conv2d(x.to(dt), k6.to(dt), None, 2, 2)
-        return F.silu(self.conv.bn(y)).to(dt)
+        y = self.conv.conv_any(x, k6, 2, 2)
+        return F.silu(self.conv.bn(y)).to(self.conv.dtype)
 
 
 class CSPDarknet(nn.Module):
     def __init__(self, depth_mult, width_mult, depthwise=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant=None):
         super().__init__()
         w = lambda c: _round_width(c, width_mult)  # noqa: E731
         d = lambda n: _round_depth(n, depth_mult)  # noqa: E731
         conv = DWConv if depthwise else ConvBnAct
-        kw = dict(dtype=dtype)
+        kw = dict(dtype=dtype, quant=quant)
         self.stem = Focus(3, w(64), **kw)
         self.dark2 = nn.Sequential(
             conv(w(64), w(128), 3, 2, **kw),
@@ -267,12 +308,12 @@ class YOLOPAFPN(nn.Module):
     neck layers."""
 
     def __init__(self, depth_mult, width_mult, depthwise=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant=None):
         super().__init__()
         w = lambda c: _round_width(c, width_mult)  # noqa: E731
         d = lambda n: _round_depth(n, depth_mult)  # noqa: E731
         conv = DWConv if depthwise else ConvBnAct
-        kw = dict(dtype=dtype)
+        kw = dict(dtype=dtype, quant=quant)
         self.backbone = CSPDarknet(depth_mult, width_mult, depthwise, **kw)
         self.lateral_conv0 = ConvBnAct(w(1024), w(512), 1, **kw)
         self.C3_p4 = CSPLayer(w(1024), w(512), d(3), False,
@@ -311,12 +352,16 @@ class _PredConv(nn.Conv2d):
 
 
 class YOLOXHead(nn.Module):
+    """Per level: a 1x1 stem, two 3x3 convs on each of the class and the
+    box branch, and the 1x1 prediction convs (float in every quant
+    mode)."""
+
     def __init__(self, num_classes, width_mult, depthwise=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant=None):
         super().__init__()
         hidden = _round_width(256, width_mult)
         conv = DWConv if depthwise else ConvBnAct
-        kw = dict(dtype=dtype)
+        kw = dict(dtype=dtype, quant=quant)
         self.stems = nn.ModuleList()
         self.cls_convs = nn.ModuleList()
         self.reg_convs = nn.ModuleList()
@@ -369,18 +414,21 @@ def decode_outputs(outputs, apply_sigmoid: bool = True):
 class YOLOX(nn.Module):
     """Full detector on ``device`` (``cuda`` unless told otherwise).
     ``forward`` returns raw NHWC per-level maps; ``predict`` returns decoded
-    (B, A, 5+C)."""
+    (B, A, 5+C). ``quant``: None, "calib" or "int8" (``models/
+    quantize.py``); the parameters and their keys are the same in every
+    mode."""
 
     def __init__(self, num_classes: int = 80, variant: str = "s",
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, quant=None):
         super().__init__()
         v = YOLOX_VARIANTS[variant]
         self.backbone = YOLOPAFPN(v["depth_mult"], v["width_mult"],
-                                  v["depthwise"], dtype=dtype)
+                                  v["depthwise"], dtype=dtype, quant=quant)
         self.head = YOLOXHead(num_classes, v["width_mult"], v["depthwise"],
-                              dtype=dtype)
+                              dtype=dtype, quant=quant)
         self.num_classes = num_classes
         self.dtype = dtype
+        self.quant = quant
         self.eval()
         self.to(resolve_device(device))
 

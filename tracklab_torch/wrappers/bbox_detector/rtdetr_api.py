@@ -25,12 +25,16 @@ it; ``training_enabled`` stays False, as in the JAX package.
 """
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
 from tracklab_torch.trackers.common import Detections
 from tracklab_torch.wrappers.bbox_detector.yolox_api import (
     YOLOXDetector, _resize_bilinear)
+
+log = logging.getLogger(__name__)
 
 __all__ = ["RTDETRDetector"]
 
@@ -45,6 +49,29 @@ class RTDETRDetector(YOLOXDetector):
     @property
     def _hf_mode(self):
         return self.variant in self.HF_VARIANTS
+
+    def _check_quant(self):
+        """``quant="int8"``: the JAX wrapper's HF variants never calibrate
+        (their ``process`` and fused closure are their own), so they run
+        float, here with a warning; the lightweight variant inherits YOLOX's
+        ``calibrate``, which applies a YOLOX model to RT-DETR's variables and
+        fails at the first batch, so the port raises ValueError at
+        construction."""
+        if self.quant != "int8":
+            return
+        if not self._hf_mode:
+            raise ValueError(
+                f"RTDETRDetector(variant={self.variant!r}, quant='int8'): "
+                "the lightweight RT-DETR has no int8 model; the JAX "
+                "package's wrapper calibrates a YOLOX model on its weights "
+                "and fails at the first batch")
+        log.warning("RTDETRDetector(variant=%r): quant='int8' is ignored "
+                    "for the HF variants (as in the JAX package); the "
+                    "model runs in f32", self.variant)
+
+    @property
+    def _int8(self):
+        return self.quant == "int8" and not self._hf_mode
 
     @property
     def supports_fused_detect(self):

@@ -49,6 +49,17 @@ class RTMDetDetector(YOLOXDetector):
         kwargs.setdefault("min_confidence", 0.45)
         super().__init__(variant=variant, input_size=input_size, **kwargs)
 
+    def _check_quant(self):
+        """``quant="int8"`` raises ValueError: the JAX wrapper inherits
+        YOLOX's ``calibrate``, which builds a YOLOX model and applies it to
+        RTMDet's variables, and fails at the first batch. The port raises
+        at construction, before any batch."""
+        if self._int8:
+            raise ValueError(
+                "RTMDetDetector(quant='int8'): RTMDet has no int8 model; "
+                "the JAX package's wrapper calibrates a YOLOX model on "
+                "RTMDet's weights and fails at the first batch")
+
     def _make_model(self):
         from tracklab_torch.models.rtmdet import RTMDet
         return RTMDet(num_classes=self.num_classes, variant=self.variant,

@@ -5,7 +5,8 @@ through the port's YOLOv8 or YOLO11 and NMS on the card.
 The pipeline surface is ``YOLOXDetector``'s; the models differ, and so does
 the input scale: this family reads pixels divided by 255 (``_preproc``),
 which the staged path and the fused engine's closure share through
-``device_detect_fn``.
+``device_detect_fn``. ``quant="int8"`` quantizes either family as
+``YOLOXDetector`` does (the JAX package's ``yolov8_api.py``).
 
 Weights: ``checkpoint_path`` names a ``torch.save``d state dict, either the
 port's own (``models/convert.py:yolov8_from_flax`` or
@@ -28,14 +29,15 @@ class YOLOv8Detector(YOLOXDetector):
     """``variant`` "n".."x" selects YOLOv8, "11n".."11x" YOLO11 (the family
     the reference's default config loads, yolo11m)."""
 
-    def _make_model(self):
+    def _make_model(self, quant=None):
         if self.variant.startswith("11"):
             from tracklab_torch.models.yolo11 import YOLO11
             return YOLO11(num_classes=self.num_classes,
-                          variant=self.variant[2:], device=self.device)
+                          variant=self.variant[2:], device=self.device,
+                          quant=quant)
         from tracklab_torch.models.yolov8 import YOLOv8
         return YOLOv8(num_classes=self.num_classes, variant=self.variant,
-                      device=self.device)
+                      device=self.device, quant=quant)
 
     @staticmethod
     def _preproc(images):

@@ -14,6 +14,12 @@ package's tree), a Megvii training file, a TorchScript archive or an .onnx
 file; without one, the weights are seeded random (``YOLOX.randomize_(0)``,
 an explicit torch.Generator).
 
+Int8 (``quant="int8"``, ``models/quantize.py``): the first processed batch
+calibrates the activation scales (``calibrate``, which a caller may also
+run first) and inference switches to the int8 model; the fused path's
+``device_detect_fn`` takes the int8 model once calibrated and the float
+model with a warning before, as in the JAX package.
+
 Training: ``train`` fine-tunes the model on a tracking set's ground truth
 (``models/detector_train_engine.py:train_detector``) when a caller invokes
 it, and the next ``process`` detects with the trained weights. As in the JAX
@@ -37,10 +43,6 @@ from tracklab_torch.utils.collate import default_collate
 log = logging.getLogger(__name__)
 
 __all__ = ["YOLOXDetector", "letterbox"]
-
-_NOT_PORTED = ("{} is not ported to tracklab_torch yet (ROADMAP item 6: "
-               "quantization)")
-
 
 def _resize_bilinear(image: np.ndarray, nh: int, nw: int) -> np.ndarray:
     """uint8 (H, W, 3) -> (nh, nw, 3): bilinear with half-pixel centres and
@@ -87,8 +89,6 @@ class YOLOXDetector(ImageLevelModule):
                  class_offset: int = 1, quant: str | None = None,
                  device=None, **kwargs):
         super().__init__(batch_size)
-        if quant is not None:
-            raise NotImplementedError(_NOT_PORTED.format(f"quant={quant!r}"))
         self.variant = variant
         self.num_classes = num_classes
         self.input_size = tuple(input_size)
@@ -98,14 +98,53 @@ class YOLOXDetector(ImageLevelModule):
         self.class_offset = class_offset
         self.checkpoint_path = checkpoint_path
         self.device = resolve_device(device)
+        # quant="int8": int8 convolutions with activation scales calibrated
+        # on the first processed batch (or by calling calibrate first)
+        self.quant = quant
+        self._check_quant()
+        self._scales = None        # the calibrated ascale state
+        self._int8_model = None
         self._model = None
         self._detect = None
         self.id = 0  # global detection row id
 
-    def _make_model(self):
+    def _check_quant(self):
+        """Raise where the family cannot run ``quant`` (subclasses)."""
+
+    @property
+    def _int8(self):
+        return self.quant == "int8"
+
+    def _make_model(self, quant=None):
+        """The family's model in quant mode ``quant`` (every mode builds the
+        same architecture and parameters)."""
         from tracklab_torch.models.yolox import YOLOX
         return YOLOX(num_classes=self.num_classes, variant=self.variant,
-                     device=self.device)
+                     device=self.device, quant=quant)
+
+    def _quant_model(self, quant):
+        """The family's ``quant`` model holding the float model's weights."""
+        model = self._make_model(quant)
+        model.load_state_dict(self._model.state_dict())
+        return model
+
+    def calibrate(self, images):
+        """Pin the int8 activation scales from sample images ((B, H, W, 3)
+        uint8 or float at the model input size, numpy or a tensor) and
+        switch inference to the int8 model. ``process`` calls it on the
+        first batch when ``quant="int8"``."""
+        from tracklab_torch.models.quantize import (calibrate_int8,
+                                                    load_quant_state_dict)
+        if self._model is None:
+            self._build()
+        x = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images)
+                            else images).to(self.device).float()
+        if self._preproc is not None:
+            x = self._preproc(x)
+        self._scales = calibrate_int8(self._quant_model("calib"), [x])
+        self._int8_model = load_quant_state_dict(self._quant_model("int8"),
+                                                 self._scales)
+        self._detect = None
 
     # the family's input scale, applied on the card after the cast to f32:
     # YOLOX reads raw 0-255 pixels
@@ -121,14 +160,14 @@ class YOLOXDetector(ImageLevelModule):
                         "random weights", type(self).__name__)
             model.randomize_(0)
         self._model = model
-        self._detect = self._staged_detect_fn()
+        self._detect = None
 
     def _detect_fn(self):
-        """The staged closure, (re)built where the model is new or was
-        trained since."""
+        """The staged closure, (re)built where the model is new, was
+        trained or was calibrated since."""
         if self._model is None:
             self._build()
-        elif self._detect is None:
+        if self._detect is None:
             self._detect = self._staged_detect_fn()
         return self._detect
 
@@ -144,8 +183,17 @@ class YOLOXDetector(ImageLevelModule):
         from tracklab_torch.engine.fused import make_yolox_detect_fn
         if self._model is None:
             self._build()
+        model = self._model
+        if self._int8:
+            if self._scales is None:
+                log.warning(
+                    "quant='int8' but no calibration has run — the fused "
+                    "program uses the float model; call calibrate(images) "
+                    "before building the fused pipeline to quantize it")
+            else:
+                model = self._int8_model
         return make_yolox_detect_fn(
-            self._model, conf_threshold=self.min_confidence,
+            model, conf_threshold=self.min_confidence,
             iou_threshold=self.nms_iou, max_dets=self.max_dets,
             compute_dtype=torch.float32, preproc=self._preproc)
 
@@ -168,6 +216,8 @@ class YOLOXDetector(ImageLevelModule):
         # the same batch shape on both paths (convolution algorithms, and
         # so their rounding, may depend on the batch size)
         images = batch["image"]
+        if self._int8 and self._scales is None:
+            self.calibrate(images)
         n = len(images)
         if n < self.batch_size:
             images = np.concatenate([images, np.zeros(

@@ -16,7 +16,10 @@ The scan is written over a leading video axis:
   together, one ``*_scan_videos`` step per frame for all of them (the JAX
   package time-concatenates them into one scan instead, for the TPU's
   ``lax.cond`` costs, which the card does not have); ``process`` is its
-  V = 1 case;
+  V = 1 case; with a ``mesh`` (``parallel/mesh.py``, the batched engine's
+  ``use_mesh``) the videos are split over its ``video`` axis, each rank
+  stepping its own (``tracker_videos_sharded``), while the embedding
+  trackers go video by video, as in the JAX package;
 * streaming (``process_online``, the online engine): one step per frame
   with the state kept on the device until ``reset()``; refs stay unique
   across the stream, so a coasting track's stale ref still finds its row.
@@ -235,23 +238,31 @@ class _ScanTrackerBase(VideoLevelModule):
     # ------------------------------------------------------------------
     # multi-video mode (the batched engine)
     # ------------------------------------------------------------------
-    def process_video_batch(self, items):
+    def process_video_batch(self, items, mesh=None):
         """``items``: (detections, metadatas) of V videos. Every video is
         padded to the common frame bucket (the smallest multiple of
         ``n_frame_bucket`` that holds the longest), the V videos are
         stacked on a leading video axis and stepped together, one
         ``*_scan_videos`` step per frame in the tracker's configured mode,
-        and the emissions are read back once. Returns each video's output
-        rows, equal to its own ``process``."""
+        and the emissions are read back once. With a ``mesh``, its
+        ``video`` axis splits the V videos over the ranks
+        (``parallel/mesh.py:tracker_videos_sharded``; V a multiple of its
+        size). Returns each video's output rows, equal to its own
+        ``process``."""
         if not items:
             return []
         longest = max(len(m) for _, m in items)
         bucket = max(-(-longest // self.n_frame_bucket)
                      * self.n_frame_bucket, self.n_frame_bucket)
         per_video = [self._video_inputs(d, m, bucket) for d, m in items]
-        inputs = _move(_stack_videos([p[0] for p in per_video]),
-                       self.device)
-        _, out = self._scan_videos_fn()(self._make_config(), *inputs)
+        inputs = _stack_videos([p[0] for p in per_video])
+        scan = self._scan_videos_fn()
+        if mesh is None:
+            _, out = scan(self._make_config(), *_move(inputs, self.device))
+        else:
+            from tracklab_torch.parallel.mesh import tracker_videos_sharded
+            _, out = tracker_videos_sharded(scan, self._make_config(), mesh,
+                                            axis="video")(*inputs)
         host = {k: x.cpu().numpy() for k, x in out._asdict().items()
                 if k in self._emitted and x is not None}
         return [self._video_rows(
@@ -484,6 +495,13 @@ class _EmbScanTrackerBase(_ScanTrackerBase):
         warps = self._video_warps(metadatas, n_frames, F)
         return ((dets, torch.from_numpy(emb), torch.from_numpy(warps)),
                 n_frames, lut)
+
+    def process_video_batch(self, items, mesh=None):
+        """As the base class's; with a ``mesh``, video by video (the JAX
+        package's embedding trackers do not shard their inputs)."""
+        if mesh is not None:
+            return [self.process(d, m) for d, m in items]
+        return super().process_video_batch(items)
 
     def _online_emb(self, rows: pd.DataFrame):
         """(max_dets, E) embeddings of one frame's rows, in their order: a
