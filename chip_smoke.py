@@ -352,6 +352,17 @@ Then K3's f32 route per layer and the command line:
      panning frames) each equal to its unsharded run, and
      +experiment=batched_8videos with engine.use_mesh true against false
      on the command line; the group destroyed at the end.
+  31. phase orbax, the JAX package's orbax checkpoints (models/orbax_io.py):
+     (a) the committed fixture (tests/data/torch_orbax, written by the JAX
+     package in the OCDBT and use_ocdbt=false layouts) read on the card's
+     host, every leaf equal to expected.npz bit for bit, the zstd route and
+     the ms to read printed; (b) YOLOX-s (seeded) -> yolox_to_flax ->
+     save_checkpoint -> YOLOXDetector(checkpoint_path=...) on the card, its
+     weights equal to the seeded model's; the fused main path (YOLOX-s 640
+     bf16, K3 -> NMS -> OC-SORT, K1 and ORU) over 2 x 32 frames with the
+     loaded and the seeded model: tracks id for id and detections bit for
+     bit equal, 0 host syncs and K3, K1 and ORU launched in the loaded
+     model's run; the seconds to write and to read printed.
 
 The last three lines are the card's name and power limit, a JSON line with
 each kernel's check and times (K1-K4, the ORU replay and ORU-NKF; its
@@ -7386,6 +7397,170 @@ def phase_mesh(torch, dev, card, n_videos=8, n_frames=60, fused_videos=2,
     return stats, stats["cli_use_mesh_true"]["launches"]
 
 
+# ----------------------------------------------------------- phase orbax
+
+FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "torch_orbax"
+
+
+def _orbax_leaves(tree, prefix=()):
+    """(key path joined with '/', leaf) of read_orbax's tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _orbax_leaves(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _orbax_leaves(v, prefix + (str(i),))
+    else:
+        yield "/".join(prefix), tree
+
+
+def phase_orbax(torch, dev, card, chunk=32, n_chunks=2, size=640):
+    """The JAX package's orbax checkpoints in the port (``models/
+    orbax_io.py``), on the card's host and the card.
+
+    (a) The committed fixture (``tests/data/torch_orbax``: a seeded tree
+    the JAX package's ``save_checkpoint`` wrote in the OCDBT layout and in
+    the ``use_ocdbt=False`` layout) read by ``read_orbax``: every leaf
+    equal to ``expected.npz`` in dtype, shape and bits (bf16 as its uint16
+    view); the zstd route (the system libzstd through ctypes) and the ms
+    to read each layout printed.
+    (b) YOLOX-s (seeded, one class) exported by ``yolox_to_flax`` and
+    written by ``save_checkpoint``, then loaded back through
+    ``YOLOXDetector(checkpoint_path=...)`` onto the card (its weights equal
+    to the seeded model's bit for bit); the fused main path, YOLOX-s 640
+    bf16 (K3) -> NMS -> OC-SORT (K1, ORU), over ``n_chunks`` x ``chunk``
+    quasi-static frames with each model: the tracks id for id and the
+    detections bit for bit equal, 0 host syncs in the loaded model's run
+    (after the seeded model's warmed the path), and K3, K1 and ORU launched
+    in it; the seconds to write and to read printed."""
+    import tempfile
+
+    from tracklab_torch.engine.fused import (fused_detect_track,
+                                             make_yolox_detect_fn)
+    from tracklab_torch.models import orbax_io as IO
+    from tracklab_torch.models.convert import save_checkpoint, yolox_to_flax
+    from tracklab_torch.models.yolox import YOLOX
+    from tracklab_torch.trackers.ocsort import (OCSortConfig, ocsort_init,
+                                                ocsort_step)
+    from tracklab_torch.wrappers.bbox_detector import YOLOXDetector
+
+    stats = {}
+    # (a) the fixture on the card's host
+    lib = IO.zstd_library()
+    v = lib.ZSTD_versionNumber()
+    route = (f"system libzstd {v // 10000}.{v // 100 % 100}.{v % 100} "
+             f"({lib._name}) through ctypes")
+    with np.load(FIXTURE / "expected.npz") as z:
+        bf16 = set(z["__bfloat16__"].tolist())
+        want = {k: z[k] for k in z.files if k != "__bfloat16__"}
+    for layout in ("ocdbt", "plain"):
+        t0 = time.perf_counter()
+        tree = IO.read_orbax(FIXTURE / layout)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(_orbax_leaves(tree))
+        check(set(got) == set(want), f"orbax (a) {layout}: keys "
+              f"{sorted(set(got) ^ set(want))} differ")
+        for k, w in want.items():
+            t = got[k]
+            if k in bf16:
+                check(t.dtype == torch.bfloat16, f"orbax (a) {layout} {k}: "
+                      f"{t.dtype}, bfloat16 expected")
+                g = t.view(torch.int16).numpy().view(np.uint16)
+            else:
+                g = t.numpy()
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and np.array_equal(g, w), f"orbax (a) {layout} {k}: "
+                  f"{g.dtype} {g.shape} differs from {w.dtype} {w.shape}")
+        stats[f"fixture_{layout}"] = dict(leaves=len(got), read_ms=ms)
+    stats["zstd_route"] = route
+    log(f"orbax (a) on the card's host: the fixture's {len(want)} leaves "
+        f"bit for bit in both layouts (OCDBT read in "
+        f"{stats['fixture_ocdbt']['read_ms']:.1f} ms, use_ocdbt=false in "
+        f"{stats['fixture_plain']['read_ms']:.1f} ms); zstd: {route}")
+
+    # (b) YOLOX-s through an orbax directory onto the card
+    seeded = YOLOX(num_classes=1, variant="s", device=dev).randomize_(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax_") as tmp:
+        path = Path(tmp) / "yolox_s"
+        t0 = time.perf_counter()
+        save_checkpoint(path, yolox_to_flax(seeded))
+        write_s = time.perf_counter() - t0
+        mib = sum(f.stat().st_size for f in path.rglob("*")
+                  if f.is_file()) / 2 ** 20
+        det = YOLOXDetector(variant="s", num_classes=1, max_dets=32,
+                            checkpoint_path=str(path), device=dev)
+        t0 = time.perf_counter()
+        det._build()
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    loaded = det._model
+    for k, t in seeded.state_dict().items():
+        check(torch.equal(loaded.state_dict()[k], t),
+              f"orbax (b): {k} differs from the seeded model's")
+    models = {}
+    for name, src in (("seeded", seeded), ("loaded", loaded)):
+        m = YOLOX(num_classes=1, variant="s", dtype=torch.bfloat16,
+                  device=dev)
+        m.load_state_dict(src.state_dict())
+        models[name] = m
+    F = n_chunks * chunk
+    g = torch.Generator(device=dev).manual_seed(17)
+    base = torch.randint(0, 235, (1, size, size, 3), generator=g,
+                         device=dev, dtype=torch.uint8)
+    video = base + torch.randint(0, 20, (F, size, size, 3), generator=g,
+                                 device=dev, dtype=torch.uint8)
+    cal = make_yolox_detect_fn(models["seeded"], conf_threshold=0.3,
+                               max_dets=32, compute_dtype=torch.bfloat16)(
+        video[:1])
+    sc = cal.conf[0][cal.valid[0]].sort(descending=True).values.cpu().numpy()
+    conf = round(float(sc[19] + sc[20]) / 2, 6) if sc.size >= 21 else 0.3
+    cfg = OCSortConfig(max_tracks=64, max_dets=32, min_hits=1)
+    step = partial(ocsort_step, cfg)
+    runs = {}
+    counters = _launch_counters()
+    for name in ("seeded", "loaded"):
+        detect = make_yolox_detect_fn(models[name], conf_threshold=conf,
+                                      max_dets=32,
+                                      compute_dtype=torch.bfloat16)
+        for c in counters.values():
+            c.launches = 0
+        (_, dets, out), secs, syncs = _timed_sync_count(
+            torch, fused_detect_track, detect, step,
+            ocsort_init(cfg, device=dev), video, chunk)
+        runs[name] = dict(dets=dets, out=out, seconds=secs, syncs=syncs,
+                          launches={k: c.launches
+                                    for k, c in counters.items()})
+    a, b = runs["loaded"], runs["seeded"]
+    _same_tracks(torch, a["out"], b["out"], "orbax (b) loaded vs seeded")
+    v = b["out"].valid
+    check(torch.equal(a["out"].ltrb[v], b["out"].ltrb[v]),
+          "orbax (b): track boxes differ from the seeded run's")
+    check(all(torch.equal(x, y) for x, y in zip(a["dets"], b["dets"])),
+          "orbax (b): detections differ from the seeded run's")
+    launches = a["launches"]
+    check(a["syncs"] == 0, f"orbax (b): {a['syncs']} host syncs in the "
+          "loaded model's run")
+    check(launches["K3"] == 7 * n_chunks,
+          f"orbax (b): K3 launches {launches['K3']} != 7 per chunk")
+    check(launches["K1"] > 0, "orbax (b): K1 never launched")
+    check(launches["ORU"] == F, f"orbax (b): ORU launches {launches['ORU']} "
+          "!= one per frame")
+    check(a["out"].valid.any().item(), "orbax (b): no tracks")
+    stats["yolox_s"] = dict(
+        checkpoint_mib=mib, write_s=write_s, read_s=read_s, frames=F,
+        conf=conf, fps=F / a["seconds"], seeded_fps=F / b["seconds"],
+        syncs=a["syncs"], launches=launches,
+        tracks_per_frame=a["out"].valid.sum(1).float().mean().item())
+    log(f"orbax (b) on {card}: YOLOX-s written as an orbax directory "
+        f"({mib:.1f} MiB, use_ocdbt=false) in {write_s:.2f} s, read through "
+        f"YOLOXDetector(checkpoint_path=...) onto the card in {read_s:.2f} s; "
+        f"the fused main path (bf16, conf {conf}) over {F} frames equals the "
+        f"seeded model's id for id and bit for bit "
+        f"({stats['yolox_s']['tracks_per_frame']:.2f} tracks/frame), "
+        f"{a['syncs']} host syncs, launches {launches}")
+    return stats
+
+
 def _host_packages():
     """Whether pandas, yaml, cv2, scipy, tqdm and rich import here, with
     their versions."""
@@ -7547,6 +7722,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh, mesh_cli = phase_mesh(torch, dev, smi, cfg5_frames=16, keep=keep)
     log(f"phase mesh: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    orbax = phase_orbax(torch, dev, smi)
+    log(f"phase orbax: {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the path that carries it: K1 and K3 on the
     # single-video main path, K2 on the multi-video path (timed there on the
     # path's own problems; the random-cost timing is kept beside it), K4 on
@@ -7612,6 +7790,7 @@ def main() -> int:
                       "posetrack": posetrack, "zoo": zoo,
                       "reid_zoo": reid_zoo, "train": train,
                       "train_zoo": train_zoo, "int8": int8, "mesh": mesh,
+                      "orbax": orbax,
                       "launches": {"main_path": launches,
                                    "multi_video_path": v_launches,
                                    "parts_path": p_launches,
@@ -7623,6 +7802,8 @@ def main() -> int:
                                    "cli_fused": cli_stats["fused"]["launches"],
                                    "cli_staged":
                                        cli_stats["staged"]["launches"],
+                                   "orbax_yolox_s":
+                                       orbax["yolox_s"]["launches"],
                                    **by_path}}))
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3, k4, oru, oru_nkf]}))

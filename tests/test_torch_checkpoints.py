@@ -3,7 +3,8 @@
 keys under ``model``, ``head.grids``), an mmdet-layout RTMDet file (under
 ``state_dict``), a TorchScript archive and a folded-BN .onnx file (written
 as tests/test_onnx_weights.py writes one), each loaded by both packages with
-equal outputs; the runtime-only formats and an orbax directory raising;
+equal outputs; the runtime-only formats raising, and an empty directory
+raising the orbax reader's error;
 every wrapper's load reading a training checkpoint; and the port's manifests
 against the JAX package's.
 
@@ -218,15 +219,16 @@ def test_rtmdet_mmdet_file_loads_in_both_packages(tmp_path, monkeypatch):
 @pytest.mark.parametrize("suffix", [".engine", ".trt", ".tflite",
                                     ".mlmodel", "_orbax_dir"])
 def test_runtime_formats_and_orbax_raise(tmp_path, suffix):
-    """The runtime-only exports raise in both packages with JAX's words; an
-    orbax directory (the JAX package's format) raises in the port, naming
-    the formats it reads."""
+    """The runtime-only exports raise in both packages with JAX's words; a
+    directory, which both packages take for an orbax checkpoint, raises the
+    port's orbax reader's ValueError where it holds no orbax _METADATA (the
+    port reads the JAX package's orbax directories: test_torch_orbax.py)."""
     path = tmp_path / f"model{suffix}"
     model = YOLOX(num_classes=1, variant="nano", device="cpu")
     if suffix == "_orbax_dir":
         path.mkdir()
         assert JC.checkpoint_kind(path) == TC.checkpoint_kind(path) == "orbax"
-        with pytest.raises(ValueError, match="torchscript.*onnx"):
+        with pytest.raises(ValueError, match="no orbax _METADATA.*OCDBT"):
             TC.load_checkpoint(path, model)
         return
     for package in (TC, JC):

@@ -1,6 +1,7 @@
 """Import guard for the port: tracklab_torch and chip_smoke.py import
-nothing of JAX or of the JAX package, and import without triton, nvcc or a
-GPU."""
+nothing of JAX or of the JAX package (nor orbax, tensorstore, zstandard or
+ml_dtypes), and import without triton, nvcc or a GPU; the port reads the
+JAX package's orbax checkpoints without them."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-BANNED = ("jax", "jaxlib", "flax", "optax", "tracklab_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "tracklab_tpu", "orbax",
+          "tensorstore", "zstandard", "ml_dtypes")
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
                     for p in (ROOT / "tracklab_torch").rglob("*.py")) \
     + ["chip_smoke.py"]
@@ -33,7 +35,8 @@ def test_port_file_imports_nothing_of_jax(rel):
 
 _PROBE = r"""
 import importlib, pkgutil, sys
-BLOCK = {"jax", "jaxlib", "flax", "optax", "tracklab_tpu", "triton"}
+BLOCK = {"jax", "jaxlib", "flax", "optax", "tracklab_tpu", "triton",
+         "orbax", "tensorstore", "zstandard", "ml_dtypes"}
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCK:
         del sys.modules[name]
@@ -51,6 +54,10 @@ names = [m.name for m in pkgutil.walk_packages(tracklab_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from tracklab_torch.models.convert import load_checkpoint
+for layout in ("ocdbt", "plain"):
+    tree = load_checkpoint(f"tests/data/torch_orbax/{layout}")
+    assert tree["params"]["bf16"].dtype.is_floating_point, tree
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCK)
 assert not leaked, leaked
 print(len(names))
@@ -58,8 +65,10 @@ print(len(names))
 
 
 def test_port_imports_in_a_clean_interpreter():
-    """A fresh interpreter that blocks JAX, the JAX package and triton, with
-    no CUDA toolkit on PATH, imports every module of the port."""
+    """A fresh interpreter that blocks JAX, the JAX package, triton, orbax,
+    tensorstore, zstandard and ml_dtypes, with no CUDA toolkit on PATH,
+    imports every module of the port and reads the committed orbax fixture
+    in both layouts."""
     env = dict(os.environ, CUDA_HOME=str(ROOT / "no-cuda-here"),
                PATH=os.path.dirname(sys.executable),
                PYTHONPATH=str(ROOT))
@@ -81,8 +90,8 @@ def test_port_imports_in_a_clean_interpreter():
 # zoo and DeepLabV3 (RTMDet, both RT-DETR families, their converters and
 # wrappers), the ReID backbone zoo, and the training, checkpoint and host
 # utility modules (YOLOX training, its engine, the checkpoint formats and
-# manifests, the SoccerNet baseline, wandb and download), which the checks
-# above must cover
+# manifests, the SoccerNet baseline, wandb and download), and the orbax
+# checkpoint reader and writer, which the checks above must cover
 SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/osnet.py",
                  "tracklab_torch/kernels/oru_replay.py",
@@ -187,7 +196,8 @@ SLICE_MODULES = ("tracklab_torch/ops/embeddings.py",
                  "tracklab_torch/models/rtdetr_train.py",
                  "tracklab_torch/models/pose_train.py",
                  "tracklab_torch/kernels/vit_attention.py",
-                 "tracklab_torch/kernels/jv_rect.py")
+                 "tracklab_torch/kernels/jv_rect.py",
+                 "tracklab_torch/models/orbax_io.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
@@ -198,7 +208,8 @@ def test_slice_modules_are_checked(rel):
 
 _QUICK_START = r"""
 import sys
-BLOCK = {"jax", "jaxlib", "flax", "optax", "tracklab_tpu", "triton"}
+BLOCK = {"jax", "jaxlib", "flax", "optax", "tracklab_tpu", "triton",
+         "orbax", "tensorstore", "zstandard", "ml_dtypes"}
 sys.modules["cv2"] = None      # OpenCV absent: import cv2 raises
 
 

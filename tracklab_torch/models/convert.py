@@ -38,8 +38,13 @@ the JAX package's tree (its ``_generic_torch_key`` names, and
 Checkpoint files (the JAX package's ``load_checkpoint``): ``load_checkpoint``
 reads a torch file, a training checkpoint included (``unwrap_state_dict``),
 a TorchScript archive or an .onnx file (``convert_onnx``) into a port
-model through its family's converter; ``convert_yolox_torch`` reads
-Megvii's YOLOX files.
+model through its family's converter, and the JAX package's orbax
+directories (``models/orbax_io.py``, both layouts) through the family's
+flax map (``_flax_converter_for``); ``convert_yolox_torch`` reads Megvii's
+YOLOX files. ``save_checkpoint`` writes a flax-layout tree as an orbax
+directory that the JAX package's ``load_checkpoint`` restores, and
+``yolox_to_flax`` gives a port YOLOX's flax-layout tree (the inverse of
+``yolox_from_flax``).
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ import torch
 
 from tracklab_torch.device import resolve_device
 
-__all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
+__all__ = ["yolox_from_flax", "yolox_to_flax", "yolox_torch_key",
+           "module_torch_key",
            "state_dict_from_flax", "kpr_from_flax", "kpr_torch_key",
            "convert_kpr_torch",
            "osnet_from_flax", "osnet_torch_key", "convert_osnet_torch",
@@ -65,7 +71,7 @@ __all__ = ["yolox_from_flax", "yolox_torch_key", "module_torch_key",
            "deeplabv3_from_flax", "convert_deeplabv3_torch",
            "reid_backbone_from_flax", "convert_reid_backbone_torch",
            "checkpoint_kind", "unwrap_state_dict", "convert_yolox_torch",
-           "convert_onnx", "load_checkpoint"]
+           "convert_onnx", "load_checkpoint", "save_checkpoint"]
 
 _LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var",
@@ -138,6 +144,50 @@ def _load_checked(sd, model, what, unused_ok=()):
 def yolox_from_flax(variables) -> dict:
     """Flax YOLOX variables -> the Megvii-layout torch state dict."""
     return state_dict_from_flax(variables, yolox_torch_key)
+
+
+_TOP_FROM_TORCH = (("backbone.backbone.", "backbone"), ("backbone.", "neck"),
+                   ("head.", "head"))
+_LEAF_FROM_TORCH = {"bias": ("params", "bias"),
+                    "running_mean": ("batch_stats", "mean"),
+                    "running_var": ("batch_stats", "var")}
+
+
+def yolox_to_flax(model) -> dict:
+    """A port YOLOX (or its Megvii-layout state dict) -> the JAX package's
+    ``{"params", "batch_stats"}`` tree of f32 numpy arrays, the inverse of
+    :func:`yolox_from_flax`: conv weights OIHW -> HWIO kernels, BN weight,
+    bias, running mean and var -> scale, bias, mean and var; an index
+    component joins the module name before it with '__' (``dark2.1`` ->
+    ``dark2__1``)."""
+    sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    out = {}
+    for key, t in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        prefix, top = next((p, t) for p, t in _TOP_FROM_TORCH
+                           if key.startswith(p))
+        *comps, leaf = key[len(prefix):].split(".")
+        arr = torch.as_tensor(t).detach().cpu().float().numpy()
+        if leaf == "weight":
+            coll, name = "params", "kernel" if arr.ndim == 4 else "scale"
+        elif leaf in _LEAF_FROM_TORCH:
+            coll, name = _LEAF_FROM_TORCH[leaf]
+        else:
+            raise ValueError(f"{key}: no flax YOLOX leaf for {leaf!r}")
+        if arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        mods = []
+        for c in comps:
+            if c.isdigit() and mods:
+                mods[-1] += "__" + c
+            else:
+                mods.append(c)
+        node = out.setdefault(coll, {}).setdefault(top, {})
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr)
+    return out
 
 
 _KPR_BARE = ("cls_token", "pos_embed", "sie_embed")
@@ -719,6 +769,16 @@ def reid_backbone_from_flax(variables, backbone, crop_size=(256, 128),
     with torch.device("meta"):
         model = zoo_model(backbone, feat_dim, crop_size)
     model = model.to_empty(device="cpu")
+    _load_checked(_zoo_state_dict(variables, model), model,
+                  f"flax {backbone}")
+    return model.to(resolve_device(device))
+
+
+def _zoo_state_dict(variables, model) -> dict:
+    """The JAX package's tree of a zoo model -> the state dict of
+    ``model`` (its torchreid names): conv kernels HWIO -> OIHW, Dense
+    kernels (in, out) -> (out, in), raw parameters to the model's
+    shapes."""
     q = type(model).__name__ in _Q_MODELS
     sd = {}
     for path, leaf in _flatten(variables):
@@ -728,8 +788,7 @@ def reid_backbone_from_flax(variables, backbone, crop_size=(256, 128),
         if path[-1] == "kernel":
             t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.T
         sd[_zoo_torch_key(path, q)] = t
-    _load_checked(_fit_raw(sd, model), model, f"flax {backbone}")
-    return model.to(resolve_device(device))
+    return _fit_raw(sd, model)
 
 
 def convert_reid_backbone_torch(state_dict, model):
@@ -884,22 +943,88 @@ def convert_onnx(path, model):
     return _torch_converter_for(model)(sd, model)
 
 
-def load_checkpoint(path, model, allow_pickle=False):
+def _flax_converter_for(model):
+    """The flax map of ``model``'s family: ``(tree, model) -> model``, the
+    JAX package's tree (nested dicts of numpy arrays) carried into the
+    port's names by the family's ``*_from_flax`` map and loaded strict
+    (:func:`_load_checked`: a missing, unused or misshaped tensor
+    raises)."""
+    from tracklab_torch.models.osnet import ReidBackbone
+    name = type(model).__name__
+    if isinstance(model, ReidBackbone):
+        def to_state(tree):
+            return _zoo_state_dict(tree, model)
+    else:
+        to_state = {
+            "YOLOX": yolox_from_flax,
+            "YOLOv8": yolov8_from_flax,
+            "YOLO11": yolo11_from_flax,
+            "YOLO11Pose": yolo11_from_flax,
+            "YOLOXPose": yoloxpose_from_flax,
+            "TopDownPose": topdownpose_from_flax,
+            "SimCCPose": simccpose_from_flax,
+            "ViTPose": vitpose_from_flax,
+            "RTMDet": rtmdet_from_flax,
+            "RTDETR": rtdetr_from_flax,
+            "RTDetrHF": rtdetr_hf_from_flax,
+            "OSNet": _osnet_state_dict,
+            "KPR": kpr_from_flax,
+            "PitchSegNet": pitchsegnet_from_flax,
+            "DeepLabV3": deeplabv3_from_flax,
+        }.get(name)
+        if to_state is None:
+            raise ValueError(f"No flax weight map for model family {name!r}; "
+                             "an orbax checkpoint loads into YOLOX, YOLOv8, "
+                             "YOLO11, the pose models, RTMDet, RT-DETR, "
+                             "OSNet, the ReID zoo, KPR, PitchSegNet and "
+                             "DeepLabV3")
+    return lambda tree, model: _load_checked(to_state(tree), model,
+                                             f"flax {name}")
+
+
+def _host_tree(tree):
+    """read_orbax's tree with numpy leaves; bfloat16, which numpy does not
+    hold, widened to float32 (exact)."""
+    if isinstance(tree, Mapping):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_host_tree(v) for v in tree]
+    return (tree.float() if tree.dtype == torch.bfloat16 else tree).numpy()
+
+
+def save_checkpoint(path, variables):
+    """Write ``variables`` (a flax-layout tree: nested dicts of numpy arrays
+    or tensors, as ``yolox_to_flax`` gives) as an orbax directory at
+    ``path`` (the ``use_ocdbt=False`` layout, ``models/orbax_io.py``),
+    which the JAX package's ``load_checkpoint`` restores, with a target or
+    without; raises ValueError where ``path`` exists."""
+    from tracklab_torch.models.orbax_io import write_orbax
+    write_orbax(path, variables)
+
+
+def load_checkpoint(path, model=None, allow_pickle=False):
     """Load the checkpoint at ``path`` into ``model`` (a port model on any
     device) and return it, dispatching by suffix as the JAX package's
     ``load_checkpoint`` does: a torch file (its tensors under ``model``,
     ``state_dict`` or ``ema`` where it is a training checkpoint), a
-    TorchScript archive or an .onnx file, through the family's converter.
-    The JAX package's orbax directories are not read here: they raise
-    ValueError, as the runtime-only exports do."""
+    TorchScript archive or an .onnx file, through the family's converter;
+    anything else is the JAX package's orbax directory (either layout),
+    read by ``models/orbax_io.py`` and carried in by the family's flax map
+    (:func:`_flax_converter_for`). With ``model=None`` an orbax directory's
+    raw tree is returned (CPU tensors in their stored dtypes), as JAX's
+    returns its tree without a target."""
     kind = checkpoint_kind(path)
+    if kind == "orbax":
+        from tracklab_torch.models.orbax_io import read_orbax
+        tree = read_orbax(path)
+        if model is None:
+            return tree
+        return _flax_converter_for(model)(_host_tree(tree), model)
+    if model is None:
+        raise ValueError(f"{path}: a {kind} checkpoint loads into a model; "
+                         "pass the model of its family")
     if kind == "onnx":
         return convert_onnx(path, model)
-    if kind == "orbax":
-        raise ValueError(
-            f"{path}: an orbax checkpoint (the JAX package's format) is not "
-            "read by tracklab_torch; it reads torch .pth/.pt/.bin files, "
-            ".torchscript archives and .onnx files")
     sd = (_torch_state_dict(path, allow_pickle) if kind == "torch"
           else _torchscript_state_dict(path))
     return _torch_converter_for(model)(sd, model)

@@ -12,7 +12,8 @@
   name, :func:`discover_checkpoints` finds the recognisable files under a
   directory, and :func:`validate_checkpoint` loads one
   (``convert.load_checkpoint``) and runs a forward pass on the card (or on
-  the device the caller names).
+  the device the caller names); an entry may name a torch file or an
+  orbax directory.
 """
 from __future__ import annotations
 
@@ -171,10 +172,12 @@ def discover_checkpoints(root="cache"):
 
 @torch.no_grad()
 def validate_checkpoint(path, family: str, device=None):
-    """Load a checkpoint into the family's canonical build on ``device``
-    (``cuda`` unless the caller passes ``"cpu"``) and run one forward pass
-    on zeros; returns its output. Raises on any key or shape mismatch (the
-    converters load strict)."""
+    """Load a checkpoint (a torch, TorchScript or .onnx file, or the JAX
+    package's orbax directory, as ``convert.load_checkpoint`` reads them)
+    into the family's canonical build on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``) and run one forward pass on zeros; returns its
+    output. Raises on any key or shape mismatch (the converters and the
+    flax maps load strict)."""
     from tracklab_torch.device import resolve_device
     from tracklab_torch.models.convert import load_checkpoint
 

@@ -16,8 +16,10 @@ detection -> bbox columns, two model families behind one wrapper.
 Weights: ``checkpoint_path`` names a ``torch.save``d state dict: for the HF
 variants the port's own (``rtdetr_hf_from_flax``) or an HF one, both
 through ``convert_rtdetr_hf_torch``; for the lightweight one the port's own
-(``rtdetr_from_flax``), loaded with ``strict=True``. Without one the
-weights are seeded random, with a warning.
+(``rtdetr_from_flax``), loaded with ``strict=True``; for either family the
+JAX package's orbax checkpoint directory too (mapped by
+``rtdetr_hf_from_flax`` or ``rtdetr_from_flax``). Without one the weights
+are seeded random, with a warning.
 
 Training: ``train`` fine-tunes either family with the set-matching loss
 (``detection_loss_fn``, ``models/rtdetr_train.py``) when a caller invokes

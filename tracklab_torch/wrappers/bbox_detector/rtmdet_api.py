@@ -13,8 +13,9 @@ staged path and the fused engine's closure share through
 Weights: ``checkpoint_path`` names a ``torch.save``d state dict, the
 port's own (``models/convert.py:rtmdet_from_flax`` writes one from the JAX
 package's tree) or an mmdet one, both loaded through
-``convert_rtmdet_torch``. Without one the weights are seeded random, with a
-warning.
+``convert_rtmdet_torch``, or the JAX package's orbax checkpoint directory
+(mapped by ``rtmdet_from_flax``). Without one the weights are seeded
+random, with a warning.
 """
 from __future__ import annotations
 

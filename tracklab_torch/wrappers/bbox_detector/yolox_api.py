@@ -10,9 +10,11 @@ video_id, category_id, bbox_ltwh, bbox_conf) with global row ids.
 Weights: ``checkpoint_path`` names a checkpoint that
 ``models/convert.py:load_checkpoint`` reads: the port's (Megvii's) state
 dict (``models/convert.py:yolox_from_flax`` writes one from the JAX
-package's tree), a Megvii training file, a TorchScript archive or an .onnx
-file; without one, the weights are seeded random (``YOLOX.randomize_(0)``,
-an explicit torch.Generator).
+package's tree), a Megvii training file, a TorchScript archive, an .onnx
+file, or the JAX package's orbax checkpoint directory (either layout, read
+by ``models/orbax_io.py`` and mapped by ``yolox_from_flax``); without one,
+the weights are seeded random (``YOLOX.randomize_(0)``, an explicit
+torch.Generator).
 
 Int8 (``quant="int8"``, ``models/quantize.py``): the first processed batch
 calibrates the activation scales (``calibrate``, which a caller may also

@@ -41,7 +41,9 @@ class PitchLineDetector(ImageLevelModule):
     pitchsegnet_from_flax`` writes one from the JAX package's tree), loaded
     with ``strict=True``, or a torchvision DeepLabV3 (the SoccerNet
     checkpoint, or ``deeplabv3_from_flax``'s), through
-    ``convert_deeplabv3_torch``; without one the weights are seeded random,
+    ``convert_deeplabv3_torch``, or the JAX package's orbax checkpoint
+    directory of either model (mapped by ``pitchsegnet_from_flax`` or
+    ``deeplabv3_from_flax``); without one the weights are seeded random,
     with a warning."""
 
     input_columns = {"image": [], "detection": []}

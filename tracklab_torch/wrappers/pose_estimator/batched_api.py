@@ -11,6 +11,10 @@ this module between a fused detector and a detections-only tracker in one
 device program (``engine/fused.py:run_fused_pose_video``); its crops then
 come from the detector's letterboxed frames, which are this module's work
 image when the work size equals the detector's input and the frame size.
+
+Weights: ``checkpoint_path`` as ``TopDownPoseEstimator``'s
+(``topdown_api.build_topdown_model``): the port's state dict or the JAX
+package's orbax checkpoint directory.
 """
 from __future__ import annotations
 

@@ -14,8 +14,9 @@ program (``engine/fused.py:run_fused_bottomup_video``).
 Weights: ``checkpoint_path`` names a ``torch.save``d state dict of the
 port's model (``models/convert.py:yoloxpose_from_flax`` /
 ``yolo11_from_flax`` write one from the JAX package's tree; an ultralytics
-pose state dict loads into YOLO11-Pose through ``convert_yolov8_torch``);
-without one the weights are seeded random (``randomize_(0)``).
+pose state dict loads into YOLO11-Pose through ``convert_yolov8_torch``),
+or the JAX package's orbax checkpoint directory (mapped by the same flax
+maps); without one the weights are seeded random (``randomize_(0)``).
 """
 from __future__ import annotations
 

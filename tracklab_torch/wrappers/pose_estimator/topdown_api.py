@@ -13,7 +13,9 @@ heatmaps; K3 on its dense CSPLayers), "simcc" (``SimCCPose``) or "vit"
 Weights: ``checkpoint_path`` names a ``torch.save``d state dict of the
 port's model (``models/convert.py``'s ``*_from_flax`` write one from the
 JAX package's tree; for "vit" an HF VitPose state dict has the same keys),
-loaded with ``strict=True``; without one the weights are seeded random.
+loaded with ``strict=True``, or the JAX package's orbax checkpoint
+directory (mapped by the same flax maps); without one the weights are
+seeded random.
 """
 from __future__ import annotations
 

@@ -10,6 +10,10 @@ this module between a fused detector and an embedding tracker in one device
 program (``engine/fused.py:run_fused_reid_video``); its crops then come
 from the detector's letterboxed frames, which are this module's work image
 when the work size equals the detector's input and the frame size.
+
+Weights: ``checkpoint_path`` as ``OSNetReId``'s (``osnet_api.build_osnet``):
+the port's or a torchreid state dict, or the JAX package's orbax checkpoint
+directory.
 """
 from __future__ import annotations
 

@@ -34,7 +34,8 @@ detector's input and the frame size.
 Weights: ``checkpoint_path`` names a ``torch.save``d state dict, either the
 port's (``models/convert.py:kpr_from_flax`` builds one from the JAX
 package's tree) or a reference KPR checkpoint (loaded through
-``convert_kpr_torch``); without one the weights are seeded random
+``convert_kpr_torch``), or the JAX package's orbax checkpoint directory
+(mapped by ``kpr_from_flax``); without one the weights are seeded random
 (``KPR.randomize_(0)``).
 """
 from __future__ import annotations

@@ -26,8 +26,9 @@ and NASNet-A mobile): parts and keypoint prompts are off, and
 Weights: ``checkpoint_path`` names a ``torch.save``d state dict, either the
 port's (``models/convert.py:osnet_from_flax`` / ``reid_backbone_from_flax``
 build the model from the JAX package's tree) or a torchreid one (loaded
-through ``convert_osnet_torch`` / ``convert_reid_backbone_torch``); without
-one the weights are seeded random (``randomize_(0)``).
+through ``convert_osnet_torch`` / ``convert_reid_backbone_torch``), or the
+JAX package's orbax checkpoint directory (mapped by the same flax maps);
+without one the weights are seeded random (``randomize_(0)``).
 
 Training: ``main.py`` calls ``train`` under ``train_tracking=true``
 (``training_enabled``, as in the JAX package); it trains an OSNet on the
