@@ -6,10 +6,12 @@ Phases (any failure exits non-zero):
   0. report whether pandas, yaml, cv2, scipy, tqdm and rich import, and
      their versions (no branch depends on it);
   1. build the CUDA kernels from tracklab_torch/csrc (one nvcc per source,
-     all started together), and check with cuobjdump -sass that the bf16
-     kernels (csp_mma_kernel, vit_attention_mma_kernel) run on the tensor
-     cores: each lists HMMA instructions; and that every JV warp kernel
-     (jv, jv_rect) lists REDUX (the argmin's redux.sync) and no BAR.SYNC;
+     all started together), and check with cuobjdump -sass that K3's and
+     K4's kernels run on the tensor cores: each lists HMMA instructions,
+     and the f32 ones (3xTF32: csp_staged_mma_kernel for float,
+     vit_attention_tf32_kernel) HMMA on TF32 operands; and that
+     every JV warp kernel (jv, jv_rect) lists REDUX (the argmin's
+     redux.sync) and no BAR.SYNC;
   2. K1 (square JV assignment) against its plain version: identical col2row
      on random and tie-heavy costs, at S = 1, on a forced-matching square
      at S = 128, on -0.0 beside +0.0 and on rows all equal, and a batched
@@ -28,13 +30,14 @@ Phases (any failure exits non-zero):
      (8, 64, 300) costs;
   4. K3 (fused CSPLayer) against the plain layer at the seven YOLOX-s 640
      shapes and at two YOLOX-tiny 416 layers whose sizes do not divide into
-     whole tiles (dark3 52x52, dark5 13x13), batch 8: f32 rel <= 1e-4 (TF32
+     whole tiles (dark3 52x52, dark5 13x13), batch 8: f32 (3xTF32, the
+     staged route at every layer) rel <= 1e-4 of the plain layer (TF32
      off); bf16 rel <= 3e-2 and no farther from f32 than the plain bf16
-     layer (x1.5), with the planner's tile, with bf16's compact ring and
-     with the staged route (f32 too); the planner's shared memory equal to
-     the kernel's; at two layers only the compact ring fits (YOLOX-l dark3,
-     YOLOX-x dark5 at 640) and three no tile fits (YOLOX-l dark4, YOLOX-x
-     dark3 and dark4), batch 2, bf16 no farther from f32 than the plain
+     layer (x1.5), with the planner's tile, with the compact ring and with
+     the staged route; the planner's shared memory equal to the bf16
+     kernel's with both rings; at two layers only the compact ring fits
+     (YOLOX-l dark3, YOLOX-x dark5 at 640) and three no tile fits
+     (YOLOX-l dark4, YOLOX-x dark3 and dark4), batch 2, bf16 no farther from f32 than the plain
      bf16 layer and f32 (the staged route) rel <= 1e-4, each timed by the
      planner's route, the staged route and plain; then the seven YOLOX-s
      layers timed at batch 128, also with the largest tile that fits
@@ -72,7 +75,10 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13, 15, 17 and 16 after them:
      qkv tensor, in both softmax modes (f32, and the compute dtype's
      against vit_attention_compute_plain); then timed in bf16 at B = 384
      in both modes beside the plain version and SDPA (a yardstick only:
-     the port never calls it);
+     the port never calls it), and in f32 (3xTF32) at (512, 193, 12, 64),
+     the command line's KPR shape, beside the plain version and SDPA in
+     f32 (TF32 off), with its bound (3xTF32's operations or the bytes)
+     and the kernel required faster than the plain version;
  10. the ViT-B KPR (bf16, erfpoly GELU, seeded weights) at batch 64 once
      per attn_impl name, through K4 in that name's softmax mode and
      through the same mode's plain version on the card: embeddings within
@@ -146,10 +152,11 @@ Phases 9-11 and 14 run before 7 and 8; 12, 13, 15, 17 and 16 after them:
      2 of its batched inputs.
 
 Then K3's f32 route per layer and the command line:
- 18. K3 f32 route per dense CSPLayer of YOLOX-s at 640, batch 8 (the
-     command line's detector): the planner's route and tile, K3's time
-     against the plain layer (cuDNN convolutions) on the layer's own input,
-     and K3 within rel 1e-4 of it;
+ 18. K3 f32 per dense CSPLayer of YOLOX-s at 640, batch 8 (the command
+     line's detector): the planner's route (the staged one) timed against
+     the plain layer (cuDNN convolutions) on the layer's own input and
+     held within rel 1e-4 of it; the seven layers' sum beside their bound
+     (3xTF32's operations or the bytes);
  19. phase cli: ``tracklab_torch.main.main`` in this process, (a) the
      quick start (synthetic.yaml, GT -> oc_sort.yaml) on the card, HOTA,
      MOTA and IDF1 100.0 and IDSW 0, equal to the same run with device=cpu
@@ -387,7 +394,7 @@ from pathlib import Path
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-PEAK = {"bf16": 989e12, "f32": 67e12}
+PEAK = {"bf16": 989e12, "f32": 67e12, "tf32": 494.7e12}
 # tracker steps per torch.profiler window (32 on the main path and 16
 # elsewhere before phase zoo: the profiler's post-processing of each window
 # took 10-37 s, and the room went to that phase)
@@ -430,12 +437,26 @@ def bound_ms(nbytes, ops, peak):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def bound_ms_f32(nbytes, ops):
+    """The bound of f32 work that a kernel may run on CUDA cores or in
+    3xTF32 on the tensor cores (three TF32 products for each f32 one):
+    max(bytes, min(ops / f32 peak, 3 ops / TF32 peak)). Returns (ms,
+    "bytes" or "operations", the term that set the operations' time)."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_cuda, t_tf32 = (ops / PEAK["f32"] * 1e3, 3 * ops / PEAK["tf32"] * 1e3)
+    t_o = min(t_cuda, t_tf32)
+    return (max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            "3xTF32 tensor cores" if t_tf32 <= t_cuda else "f32 CUDA cores")
+
+
 def check_sass(torch):
-    """Every bf16 kernel (``*_mma_kernel``) of csp and vit_attention lists
-    HMMA (tensor-core) instructions in its SASS; every JV kernel of jv and
-    jv_rect (one warp per problem) lists REDUX (the argmin's redux.sync)
-    and no BAR.SYNC (no block barrier anywhere, so none in the step
-    loop). Returns the counts."""
+    """Every tensor-core kernel of csp and vit_attention (``*_mma_kernel``
+    in both types, ``*_tf32_kernel``) lists HMMA instructions in its SASS,
+    and every f32 one (K3's staged float instantiations, K4's tf32 kernel)
+    lists HMMA on TF32 operands (3xTF32); every JV kernel of jv and jv_rect
+    (one warp per problem) lists REDUX (the argmin's redux.sync) and no
+    BAR.SYNC (no block barrier anywhere, so none in the step loop).
+    Returns the counts."""
     from pathlib import Path
 
     from tracklab_torch.kernels import _build
@@ -449,16 +470,25 @@ def check_sass(torch):
         return [(f.split(None, 1)[0], f)
                 for f in sass.split("Function : ")[1:]]
 
-    counts = {}
+    counts, f32_kernels = {}, []
     for name in ("csp", "vit_attention"):
         for fname, f in functions(name):
-            if "mma_kernel" in fname:
-                counts[fname] = f.count("HMMA")
+            if "mma_kernel" in fname or "tf32_kernel" in fname:
+                hmma = [ln for ln in f.splitlines() if "HMMA" in ln]
+                counts[fname] = dict(HMMA=len(hmma), TF32=sum(
+                    ".TF32" in ln for ln in hmma))
+                # the float instantiations (mangled "...kernelIf...")
+                if "tf32_kernel" in fname or "mma_kernelIf" in fname:
+                    f32_kernels.append(fname)
         check(any(name in f for f in counts),
               f"{name}: no mma kernel in the SASS")
-    log(f"SASS: HMMA count per bf16 kernel {counts}")
+    log(f"SASS: HMMA and TF32 HMMA count per tensor-core kernel {counts}")
     for fname, c in counts.items():
-        check(c > 0, f"{fname}: no HMMA in its SASS")
+        check(c["HMMA"] > 0, f"{fname}: no HMMA in its SASS")
+    # K3: the staged route's three stage kinds; K4: two widths
+    check(len(f32_kernels) == 5, f"f32 tensor-core kernels {f32_kernels}")
+    for fname in f32_kernels:
+        check(counts[fname]["TF32"] > 0, f"{fname}: no TF32 HMMA")
     jv_counts = {}
     for name in ("jv", "jv_rect"):
         funcs = [(n, f) for n, f in functions(name) if "warp_kernel" in n]
@@ -695,12 +725,12 @@ CSP_SHAPES = [("dark3__1", 80, 128, 128, 3, True),
 # 64-wide chunk, a partial 64-channel block) and ch = 192
 CSP_RAGGED = [("tiny416 dark3__1", 52, 96, 96, 3, True),
               ("tiny416 dark5__2", 13, 384, 384, 1, False)]
-# two layers only bf16's compact ring fits (in f32 no tile fits: the staged
-# route): YOLOX-l dark3 at 640 (ch 128, n 9) and YOLOX-x dark5 at 640 (ch
-# 640, n 4), checked at batch 2
+# two layers only bf16's compact ring fits (f32 takes the staged route
+# everywhere): YOLOX-l dark3 at 640 (ch 128, n 9) and YOLOX-x dark5 at 640
+# (ch 640, n 4), checked at batch 2
 CSP_COMPACT = [("l640 dark3__1", 80, 256, 256, 9, True),
                ("x640 dark5__2", 20, 1280, 1280, 4, False)]
-# the three layers no tile fits in either type (the staged route): YOLOX-l
+# the three layers no bf16 tile fits (the staged route): YOLOX-l
 # dark4 (ch 256, n 9), YOLOX-x dark3 (ch 160, n 12) and dark4 (ch 320, n 12)
 # at 640, checked at batch 2
 CSP_STAGED = [("l640 dark4__1", 40, 512, 512, 9, True),
@@ -761,16 +791,16 @@ def _rel(got, want):
             / want.float().abs().clamp(min=1.0)).max().item()
 
 
-def _largest_tile(H, W, n, ch, dtype, ring):
-    """The output tile with the most pixels (squarest on a tie) that fits
-    with ``ring``: the simpler rule that choose_tile's cost model is timed
-    against."""
+def _largest_tile(H, W, n, ch, ring):
+    """The bf16 output tile with the most pixels (squarest on a tie) that
+    fits with ``ring``: the simpler rule that choose_tile's cost model is
+    timed against."""
     from tracklab_torch.kernels.csp import SMEM_LIMIT, smem_bytes
 
     best = None
     for th in range(1, H + 1):
         for tw in range(1, W + 1):
-            if smem_bytes(th, tw, n, ch, dtype, ring) > SMEM_LIMIT:
+            if smem_bytes(th, tw, n, ch, ring) > SMEM_LIMIT:
                 break
             key = (th * tw, -abs(th - tw))
             if best is None or key > best[0]:
@@ -791,7 +821,8 @@ def phase_k3(torch, dev, time_batch):
     the depth: the CSP_COMPACT and CSP_STAGED layers (n = 9 and 12, ch up
     to 640) are held to the f32 comparison only, and the compact ring (with
     the largest tile it fits) and the staged route to both checks at the
-    nine other shapes, the staged route in f32 too."""
+    nine other shapes. f32 (3xTF32) takes the staged route at every
+    shape."""
     import ctypes
 
     from tracklab_torch.kernels import _build
@@ -808,7 +839,7 @@ def phase_k3(torch, dev, time_batch):
             k3_mod.choose_tile = choose_tile
 
     cu_smem = _build.load("csp").tl_csp_smem_bytes
-    cu_smem.argtypes = [ctypes.c_int] * 6
+    cu_smem.argtypes = [ctypes.c_int] * 5
     cu_smem.restype = ctypes.c_longlong
     worst = {"f32": 0.0, "bf16": 0.0}
     max_abs = 0.0
@@ -819,15 +850,15 @@ def phase_k3(torch, dev, time_batch):
     for i, (name, hw, cin, cout, n, sc) in enumerate(
             CSP_SHAPES + CSP_RAGGED + CSP_COMPACT + CSP_STAGED):
         for th, tw, ring in ((5, 7, 0), (5, 7, 1)):
-            check(cu_smem(th, tw, n, cout // 2, 1, ring)
-                  == smem_bytes(th, tw, n, cout // 2, torch.bfloat16, ring)
-                  and cu_smem(th, tw, n, cout // 2, 0, 0)
-                  == smem_bytes(th, tw, n, cout // 2, torch.float32),
+            check(cu_smem(th, tw, n, cout // 2, ring)
+                  == smem_bytes(th, tw, n, cout // 2, ring),
                   f"K3 {name}: the kernel's shared memory differs from the "
                   "planner's")
         plans = {str(dt)[6:]: choose_tile(hw, hw, n, cin, cout // 2, cout, dt)
                  for dt in (torch.bfloat16, torch.float32)}
         staged = (hw, hw, STAGED)
+        check(plans["float32"] == staged,
+              f"K3 {name} f32: plan {plans['float32']}, not the staged route")
         g = torch.Generator().manual_seed(100 + i)
         x = torch.randn(8 if i < n_fit else 2, cin, hw, hw, generator=g).to(
             dev).contiguous(memory_format=torch.channels_last)
@@ -846,17 +877,12 @@ def phase_k3(torch, dev, time_batch):
                 f32_note = (f"f32 rel {r32:.3e}; to f64: kernel {k64:.3e}, "
                             f"plain f32 {p64:.3e} (tol x1.5)")
                 del want64
-            if i < n_fit:   # the staged route forced where a tile fits
-                r32s = with_plan(staged, lambda: _rel(fused_csplayer(l32, x),
-                                                      want32))
-                f32_note += f", staged route {r32s:.3e}"
-                r32 = max(r32, r32s)
             x16 = x.to(torch.bfloat16)
             got16, want16 = fused_csplayer(m16, x16), m16.forward_plain(x16)
             truth = m32.forward_plain(x)
             outs = {plans["bfloat16"]: got16}
             if i < n_fit:
-                small = _largest_tile(hw, hw, n, cout // 2, torch.bfloat16, 1)
+                small = _largest_tile(hw, hw, n, cout // 2, 1)
                 for plan in (small, staged):
                     outs[plan] = with_plan(plan,
                                            lambda: fused_csplayer(m16, x16))
@@ -914,7 +940,7 @@ def phase_k3(torch, dev, time_batch):
             f"{flops * time_batch / k_ms / 1e9:.1f} TFLOP/s")
         # the planner's cost model against the largest tile that fits, timed
         # cost, largest, largest, cost
-        big = _largest_tile(hw, hw, n, ch, torch.bfloat16, 0)
+        big = _largest_tile(hw, hw, n, ch, 0)
         order = [("cost model", plans["bfloat16"]), ("largest tile", big)]
         with torch.no_grad():
             for j, (rule, plan) in enumerate(order + order[::-1]):
@@ -1513,6 +1539,9 @@ def _k2_on_path(torch, cfg, dets, n_keep=8, oru=None):
 # ---------------------------------------------------------------- phase 9: K4
 K4_SHAPES = [((384, 193, 12, 64), None), ((8, 256, 12, 64), 193),
              ((5, 37, 3, 64), None), ((2, 193, 12, 64), 100)]
+# the attention of the command line's f32 KPR as phase posetrack (c)
+# records it
+K4_F32_SHAPE = (512, 193, 12, 64)
 
 
 def _packed_qkv(torch, shape, dtype, dev, seed):
@@ -1566,11 +1595,29 @@ def _k4_bound(torch, q):
 
 
 def phase_k4(torch, dev):
-    from tracklab_torch.kernels.vit_attention import (vit_attention,
-                                                      vit_attention_plain)
+    import ctypes
 
+    from tracklab_torch.kernels import _build
     from tracklab_torch.kernels.vit_attention import (
-        vit_attention_compute_plain)
+        MAX_HEAD_DIM, f32_smem_bytes, vit_attention,
+        vit_attention_compute_plain, vit_attention_plain)
+
+    # route()'s plan of the f32 kernel's shared memory against the kernel's
+    # own, at every Dh and at N of K4_SHAPES and the route's edge (N = 256,
+    # where Dh > 112 does not fit); 0 on the C side where route() raises
+    cu_smem = _build.load("vit_attention").tl_vit_attention_f32_smem_bytes
+    cu_smem.argtypes = [ctypes.c_int] * 2
+    cu_smem.restype = ctypes.c_longlong
+    for N in sorted({s[0][1] for s in K4_SHAPES} | {256}):
+        for Dh in range(1, MAX_HEAD_DIM + 1):
+            check(cu_smem(N, Dh) == (f32_smem_bytes(N, Dh) or 0),
+                  f"K4 f32 at N={N}, Dh={Dh}: the kernel's shared memory "
+                  f"{cu_smem(N, Dh)}, route()'s {f32_smem_bytes(N, Dh)}")
+    check(f32_smem_bytes(256, 112) and not f32_smem_bytes(256, 120),
+          "K4 f32: the route's edge moved from N = 256, Dh = 112")
+    log("K4 f32 shared memory: route()'s plan equals the kernel's at N in "
+        f"{sorted({s[0][1] for s in K4_SHAPES} | {256})}, Dh 1.."
+        f"{MAX_HEAD_DIM}")
 
     max_abs = 0.0
     for i, (shape, n_valid) in enumerate(K4_SHAPES):
@@ -1597,12 +1644,33 @@ def phase_k4(torch, dev):
         f"softmax), {cd_ms:.4f} ms (compute-dtype softmax); plain "
         f"{plain_ms:.4f} / {cd_plain_ms:.4f} ms, SDPA (yardstick) "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # f32 (3xTF32) at the command line's KPR shape, beside its plain version
+    # and SDPA in f32 (TF32 off, as main() sets it)
+    q, k, v = _packed_qkv(torch, K4_F32_SHAPE, torch.float32, dev, 41)
+    f_err = _check_k4(torch, q, k, v, None, f"{K4_F32_SHAPE} n_valid=None")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    with torch.no_grad():
+        f_ms = cuda_ms(lambda: vit_attention(q, k, v), 10)
+        f_plain = cuda_ms(lambda: vit_attention_plain(q, k, v), 3)
+        f_lib = cuda_ms(lambda: sdpa(qt, kt, vt), 10)
+    B, N, H, Dh = q.shape
+    fb_ms, fb_by, fb_term = bound_ms_f32(4 * B * N * H * Dh * 4,
+                                         4 * B * H * N * N * Dh)
+    log(f"K4 timing at {K4_F32_SHAPE} f32 (3xTF32): kernel {f_ms:.4f} ms, "
+        f"plain {f_plain:.4f} ms, SDPA f32 (TF32 off, yardstick) "
+        f"{f_lib:.4f} ms, bound {fb_ms:.4f} ms ({fb_by}; operations at the "
+        f"{fb_term} rate)")
+    check(f_ms < f_plain, f"K4 f32: kernel {f_ms} ms, plain {f_plain} ms")
     return dict(name="K4 vit_attention", route="cuda",
                 source="tracklab_torch/csrc/vit_attention.cu",
                 replaces="tracklab_tpu/ops/vit_attention_pallas.py:91",
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
-                compute_softmax=dict(ms=cd_ms, plain_ms=cd_plain_ms))
+                compute_softmax=dict(ms=cd_ms, plain_ms=cd_plain_ms),
+                f32=dict(shape=list(K4_F32_SHAPE), max_abs_err=f_err,
+                         ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
+                         bound_ms=fb_ms, bound_by=fb_by,
+                         bound_term=fb_term))
 
 
 # ------------------------------------------------------ phase 10: KPR model
@@ -5513,17 +5581,18 @@ def phase_posetrack(torch, dev, card, n_videos=2, n_frames=60, n_objects=14,
         plain_ms = cuda_ms(lambda: plain(q, k, v, n_valid), 3)
         lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt), 10)
     B, N, H, Dh = q.shape
-    b_ms, b_by = bound_ms(4 * B * N * H * Dh * q.element_size(),
-                          4 * B * H * N * N * Dh, PEAK["f32"])
+    b_ms, b_by, b_term = bound_ms_f32(4 * B * N * H * Dh * q.element_size(),
+                                      4 * B * H * N * N * Dh)
     k4_f32 = dict(shape=[B, N, H, Dh], dtype="f32", softmax=softmax,
                   layers_checked=len(errs), max_abs_err=max(errs), ms=ms,
                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                  bound_by=b_by)
+                  bound_by=b_by, bound_term=b_term)
     log(f"posetrack (c): K4 f32 ({softmax} softmax) on the path's "
         f"{len(errs)} layers within {max(errs):.2e} of its plain version; at "
         f"{tuple(q.shape)}: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA f32 (yardstick) "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; operations at the "
+        f"{b_term} rate)")
     recorded.clear()
     stats["k4_f32_on_path"] = k4_f32
     return stats, k4_f32
@@ -5698,11 +5767,12 @@ def _typed_apart(fused, staged):
 
 
 def phase_k3_routes_f32(torch, dev, batch=8, size=640):
-    """K3's f32 route for each dense CSPLayer of YOLOX-s at ``size``, batch
-    ``batch`` (the CLI detector's shapes): the planner's route, K3's time
-    and the plain layer's (cuDNN convolutions) on the layer's own input
-    from one seeded forward, and K3 within rel 1e-4 of the plain layer."""
-    from tracklab_torch.kernels.csp import choose_tile
+    """K3's f32 route (3xTF32, the staged one) for each dense CSPLayer of
+    YOLOX-s at ``size``, batch ``batch`` (the CLI detector's shapes), on
+    the layer's own input from one seeded forward: timed beside the plain
+    layer (cuDNN convolutions, TF32 off) and held within rel 1e-4 of it;
+    the seven layers' sum beside their bound."""
+    from tracklab_torch.kernels.csp import STAGED, choose_tile
     from tracklab_torch.models.yolox import CSP_MAX_PIXELS, YOLOX, CSPLayer
 
     model = YOLOX(num_classes=1, variant="s", device=dev).randomize_(0)
@@ -5718,34 +5788,40 @@ def phase_k3_routes_f32(torch, dev, batch=8, size=640):
         model(x)
     for h in hooks:
         h.remove()
-    rows, tot = [], dict(k3_ms=0.0, plain_ms=0.0)
+    rows, tot = [], dict(k3_ms=0.0, plain_ms=0.0, bytes=0, flops=0)
     for name, mod, inp in taken:
         H, W = inp.shape[2:]
         if mod.depthwise or H * W > CSP_MAX_PIXELS:
             continue
         w1, w3 = mod.conv1.conv.weight, mod.conv3.conv.weight
-        tile = choose_tile(H, W, len(mod.m), w1.shape[1], w1.shape[0],
-                           w3.shape[0], mod.dtype)
-        route = ("wide ring", "compact ring", "staged")[tile[2]]
+        cin, ch, cout, n = w1.shape[1], w1.shape[0], w3.shape[0], len(mod.m)
+        plan = choose_tile(H, W, n, cin, ch, cout, mod.dtype)
+        check(plan == (H, W, STAGED),
+              f"K3 f32 {name}: plan {plan}, not the staged route")
         with torch.no_grad():
-            got, want = mod(inp), mod.forward_plain(inp)
-            r = _rel(got, want)
-            k3 = cuda_ms(lambda: mod(inp), 10)
+            want = mod.forward_plain(inp)
             plain = cuda_ms(lambda: mod.forward_plain(inp), 10)
+            r = _rel(mod(inp), want)
+            ms = cuda_ms(lambda: mod(inp), 10)
         check(r <= 1e-4, f"K3 f32 {name}: rel {r:.2e} from the plain layer")
-        rows.append(dict(layer=name, hw=[H, W], cin=w1.shape[1],
-                         n=len(mod.m), route=route, tile=list(tile[:2]),
-                         k3_ms=k3, plain_ms=plain, rel=r))
-        tot["k3_ms"] += k3
+        rows.append(dict(layer=name, hw=[H, W], cin=cin, n=n, route="staged",
+                         k3_ms=ms, plain_ms=plain, rel=r))
+        tot["k3_ms"] += ms
         tot["plain_ms"] += plain
+        tot["bytes"] += batch * H * W * (cin + cout) * 4
+        tot["flops"] += batch * 2 * H * W * ch * (2 * cin + 10 * n * ch
+                                                  + 2 * cout)
     for r in rows:
         log(f"K3 f32 YOLOX-s {size} batch {batch} {r['layer']} "
             f"{r['hw'][0]}x{r['hw'][1]} cin {r['cin']} n {r['n']}: "
-            f"{r['route']} tile {r['tile']}, K3 {r['k3_ms']:.3f} ms, plain "
-            f"(cuDNN) {r['plain_ms']:.3f} ms, rel {r['rel']:.1e}")
+            f"{r['route']} route, K3 {r['k3_ms']:.3f} ms, plain (cuDNN) "
+            f"{r['plain_ms']:.3f} ms, rel {r['rel']:.1e}")
+    b_ms, b_by, b_term = bound_ms_f32(tot["bytes"], tot["flops"])
     log(f"K3 f32 YOLOX-s {size} batch {batch}: {len(rows)} layers, K3 "
-        f"{tot['k3_ms']:.3f} ms against plain {tot['plain_ms']:.3f} ms")
-    return dict(layers=rows, **tot)
+        f"{tot['k3_ms']:.3f} ms against plain {tot['plain_ms']:.3f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by}; operations at the {b_term} rate)")
+    return dict(layers=rows, k3_ms=tot["k3_ms"], plain_ms=tot["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, bound_term=b_term)
 
 
 def _kernel_ms_in(torch, fn, name, top=8):
@@ -7730,6 +7806,8 @@ def main() -> int:
     # path's own problems; the random-cost timing is kept beside it), K4 on
     # the parts path
     k1["launches"], k3["launches"] = launches["K1"], launches["K3"]
+    k3["f32_yolox_s_640_b8"] = {k: v for k, v in k3_f32.items()
+                                if k != "layers"}
     k2["launches"] = v_launches["K2"]
     k4["launches"] = p_launches["K4"]
     oru["launches"] = launches["ORU"]

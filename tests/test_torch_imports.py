@@ -1,7 +1,7 @@
-"""Import guard for the port: tracklab_torch and chip_smoke.py import
-nothing of JAX or of the JAX package (nor orbax, tensorstore, zstandard or
-ml_dtypes), and import without triton, nvcc or a GPU; the port reads the
-JAX package's orbax checkpoints without them."""
+"""Import guard for the port: tracklab_torch, chip_smoke.py and tools/
+import nothing of JAX or of the JAX package (nor orbax, tensorstore,
+zstandard or ml_dtypes), and import without triton, nvcc or a GPU; the
+port reads the JAX package's orbax checkpoints without them."""
 import ast
 import os
 import subprocess
@@ -15,7 +15,8 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "tracklab_tpu", "orbax",
           "tensorstore", "zstandard", "ml_dtypes")
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
                     for p in (ROOT / "tracklab_torch").rglob("*.py")) \
-    + ["chip_smoke.py"]
+    + ["chip_smoke.py"] + sorted(p.relative_to(ROOT).as_posix()
+                                 for p in (ROOT / "tools").glob("*.py"))
 
 
 def _imports(tree):

@@ -111,7 +111,7 @@ def test_k3_takes_every_layer_the_jax_kernel_takes(dtype, monkeypatch):
             if ring == K3.STAGED:
                 assert (th, tw) == (H, H), (variant, name)
             else:
-                assert K3.smem_bytes(th, tw, n, ch, dtype, ring) \
+                assert K3.smem_bytes(th, tw, n, ch, ring) \
                     <= K3.SMEM_LIMIT, (variant, name)
 
 

@@ -82,8 +82,9 @@ def test_wrapper_runs_plain_on_cpu_and_checks_shapes():
 
 
 def test_route_by_dtype_and_shape():
-    """bf16 runs the tensor-core kernel and needs Dh % 16 == 0; f32 runs the
-    CUDA-core kernel; shapes neither takes raise, with no fallback."""
+    """bf16 runs the bf16 kernel and needs Dh % 16 == 0; f32 runs the
+    3xTF32 kernel (both on the tensor cores), which needs its staged K and
+    V in shared memory; shapes neither takes raise, with no fallback."""
     assert route(torch.bfloat16, 193, 64) == "tl_vit_attention_bf16_mma"
     assert route(torch.bfloat16, 256, 128) == "tl_vit_attention_bf16_mma"
     assert route(torch.float32, 193, 64) == "tl_vit_attention_f32"
@@ -98,6 +99,9 @@ def test_route_by_dtype_and_shape():
             route(dt, 193, MAX_HEAD_DIM + 16)
     with pytest.raises(TypeError):
         route(torch.float16, 193, 64)
+    # f32: K and V of 256 keys at Dh 128 exceed shared memory
+    with pytest.raises(ValueError):
+        route(torch.float32, 256, 128)
 
 
 def test_packed_qkv_views_are_read_in_place():

@@ -28,7 +28,7 @@
 // for a 16x16 tile at n = 3), which kernels/csp.py's tile planner weighs
 // against shared memory.
 //
-// bf16 (every path): csp_mma_kernel, on the tensor cores. Each stage is a
+// csp_mma_kernel, bf16's tiled route, on the tensor cores. Each stage is a
 // GEMM on mma.sync m16n8k16 (bf16 in, f32 accumulate): M = the pixels of the
 // stage's rectangle, N = output channels, K = input channels. A CTA tile is
 // 256 x 64 (wide ring): sixteen warps of 32 x 32, four to a scheduler, since
@@ -56,21 +56,32 @@
 // row's pixel is a multiply-high, and the SiLU uses the fast exp and
 // division intrinsics (the result is rounded to bf16 right after).
 //
-// f32: csp_kernel on CUDA cores (f32 on tensor cores would be TF32): each
-// thread a block of 8 pixels x 4 channels, weights [in, out] read from
-// global memory as 4-wide vectors.
+// The staged route (csp_staged_mma_kernel), for a bf16 layer whose haloed
+// buffers exceed shared memory at every tile (the region of a single output
+// pixel, (2n + 1)^2 pixels of a and t, is already too large: YOLOX-l dark4,
+// YOLOX-x dark3 and dark4) and for every f32 layer: a, s and t live in
+// device memory (scratch the caller passes; 6.1 MB for YOLOX-x dark4 at
+// batch 2 in bf16, 13 MB a buffer for YOLOX-s dark3 at batch 8 in f32,
+// within the 50 MB L2), and the layer's 2n + 3 stages run as GEMMs over all
+// B*H*W pixels, one grid per stage in stream order, so there is no halo and
+// nothing is recomputed. The stages use the tiled kernel's mma.sync
+// fragments with the A rows gathered by cp.async (the 3x3's taps as pixel
+// shifts, zero-filled outside the frame). Rounding and the residual are as
+// in the tiled kernel.
 //
-// The staged route, for a layer whose haloed buffers exceed shared memory at
-// every tile (the region of a single output pixel, (2n + 1)^2 pixels of a and
-// t, is already too large: YOLOX-l dark4, YOLOX-x dark3 and dark4 in bf16,
-// more in f32): a, s and t live in device memory (scratch the caller passes;
-// 6.1 MB for YOLOX-x dark4 at batch 2, within the 50 MB L2), and the
-// layer's 2n + 3 stages run as GEMMs over all B*H*W pixels, one grid per
-// stage in stream order, so there is no halo and nothing is recomputed. bf16
-// stages (csp_staged_mma_kernel) use the same mma.sync fragments with the A
-// rows gathered by cp.async (the 3x3's taps as pixel shifts, zero-filled
-// outside the frame); f32 stages (csp_staged_f32_kernel) the CUDA-core work
-// item above. Rounding and the residual are as in the tiled kernels.
+// f32 (the command line's YOLOX) runs the staged route in 3xTF32: one TF32
+// product keeps 10 mantissa bits (~3 decimal digits), too few for f32; so
+// each fragment register x is split with cvt.rna.tf32.f32 into hi =
+// tf32(x) and lo = tf32(x - hi), and each product runs as three mma.sync
+// m16n8k8 (lo hi, hi lo, then hi hi) into a fresh accumulator, added to the
+// running sum with a rounded f32 add each k step (the tensor core truncates
+// as it accumulates: mma_step). The m16n8k8 TF32 fragments lie on the same
+// bytes as the m16n8k16 bf16 ones (a k step is 32 bytes in both), so the
+// two types share every address. f32 has no tiled route: its haloed
+// buffers take twice the bytes, so the tiles that fit are small and
+// recompute much of the halo; the tiled kernel in 3xTF32 was slower than
+// the staged route at each of the seven YOLOX-s layers at batch 8 on the
+// H100.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,22 +90,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int PB = 8;  // pixels per work item
-constexpr int CB = 4;  // output channels per work item
-
-__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
 
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
@@ -115,155 +110,9 @@ struct CspArgs {
   int H, W, cin, ch, cout, n, shortcut, th, tw, tiles_x;
 };
 
-// acc[i][cc] += sum_k src[i][k] * w[k * N + c + cc], k in [0, K), K % 4 == 0
-template <typename T>
-__device__ __forceinline__ void mac(float (&acc)[PB][CB], const T* const (&src)[PB],
-                                    const T* __restrict__ w, int K, int N, int c) {
-  for (int k = 0; k < K; k += 4) {
-    float wv[4][CB];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) load4(w + (size_t)(k + kk) * N + c, wv[kk]);
-#pragma unroll
-    for (int i = 0; i < PB; ++i) {
-      float av[4];
-      load4(src[i] + k, av);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int cc = 0; cc < CB; ++cc) acc[i][cc] = fmaf(av[kk], wv[kk][cc], acc[i][cc]);
-    }
-  }
-}
-
 enum Stage { kProjA, kBottle1x1, kBottle3x3, kProjS, kFinal };
 
-// One stage over the region rectangle [r0, r1) x [c0, c1) and N output
-// channels. Region pixel (r, q) is image pixel (gy0 + r, gx0 + q).
-template <typename T, int STAGE>
-__device__ void run_stage(const CspArgs<T>& A, const T* __restrict__ xb, T* sm_a, T* sm_t,
-                          T* __restrict__ outb, int r0, int r1, int c0, int c1, int gy0,
-                          int gx0, const T* __restrict__ w, const float* __restrict__ bias,
-                          int N) {
-  const int RW = A.tw + 2 * A.n;
-  const int cols = c1 - c0;
-  const int npix = (r1 - r0) * cols;
-  const int ngroups = N / CB;
-  const int nwork = ngroups * ((npix + PB - 1) / PB);
-  for (int work = threadIdx.x; work < nwork; work += kThreads) {
-    const int c = (work % ngroups) * CB;
-    const int pb = work / ngroups;
-    int pr[PB];
-    int gpix[PB];
-    bool inside[PB];
-    float acc[PB][CB];
-    float bv[CB];
-#pragma unroll
-    for (int cc = 0; cc < CB; ++cc) bv[cc] = bias[c + cc];
-#pragma unroll
-    for (int i = 0; i < PB; ++i) {
-      const int pix = pb * PB + i;
-      const bool ok = pix < npix;
-      const int r = r0 + (ok ? pix / cols : 0);
-      const int q = c0 + (ok ? pix % cols : 0);
-      const int gy = gy0 + r, gx = gx0 + q;
-      pr[i] = ok ? r * RW + q : -1;
-      inside[i] = ok && gy >= 0 && gy < A.H && gx >= 0 && gx < A.W;
-      gpix[i] = inside[i] ? gy * A.W + gx : 0;
-#pragma unroll
-      for (int cc = 0; cc < CB; ++cc) acc[i][cc] = bv[cc];
-    }
-    if (STAGE == kProjA || STAGE == kProjS) {
-      const T* src[PB];
-#pragma unroll
-      for (int i = 0; i < PB; ++i) src[i] = xb + (size_t)gpix[i] * A.cin;
-      mac(acc, src, w, A.cin, N, c);
-    } else if (STAGE == kBottle1x1) {
-      const T* src[PB];
-#pragma unroll
-      for (int i = 0; i < PB; ++i) src[i] = sm_a + (pr[i] < 0 ? 0 : pr[i]) * A.ch;
-      mac(acc, src, w, A.ch, N, c);
-    } else if (STAGE == kBottle3x3) {
-      for (int dy = 0; dy < 3; ++dy) {
-        for (int dx = 0; dx < 3; ++dx) {
-          const int shift = (dy - 1) * RW + (dx - 1);
-          const T* src[PB];
-#pragma unroll
-          for (int i = 0; i < PB; ++i)
-            src[i] = sm_t + (pr[i] < 0 ? 0 : pr[i] + shift) * A.ch;
-          mac(acc, src, w + (size_t)(dy * 3 + dx) * A.ch * N, A.ch, N, c);
-        }
-      }
-    } else {  // kFinal: concat([a, s]) @ Wf
-      const T* src[PB];
-#pragma unroll
-      for (int i = 0; i < PB; ++i) src[i] = sm_a + (pr[i] < 0 ? 0 : pr[i]) * A.ch;
-      mac(acc, src, w, A.ch, N, c);
-#pragma unroll
-      for (int i = 0; i < PB; ++i) src[i] = sm_t + (pr[i] < 0 ? 0 : pr[i]) * A.ch;
-      mac(acc, src, w + (size_t)A.ch * N, A.ch, N, c);
-    }
-    // epilogue
-#pragma unroll
-    for (int i = 0; i < PB; ++i) {
-      if (pr[i] < 0) continue;
-      float v[CB];
-#pragma unroll
-      for (int cc = 0; cc < CB; ++cc) v[cc] = silu(acc[i][cc]);
-      if (STAGE == kFinal) {
-        if (inside[i]) store4(outb + (size_t)gpix[i] * A.cout + c, v);
-      } else if (STAGE == kBottle3x3) {
-        T* dst = sm_a + pr[i] * A.ch + c;
-        if (A.shortcut) {
-          float old[CB];
-          load4(dst, old);
-#pragma unroll
-          for (int cc = 0; cc < CB; ++cc) v[cc] += old[cc];
-        }
-        store4(dst, v);
-      } else {
-        T* dst = (STAGE == kProjA ? sm_a : sm_t) + pr[i] * A.ch + c;
-        if (!inside[i]) {
-#pragma unroll
-          for (int cc = 0; cc < CB; ++cc) v[cc] = 0.f;
-        }
-        store4(dst, v);
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) csp_kernel(CspArgs<T> A) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int RH = A.th + 2 * A.n, RW = A.tw + 2 * A.n;
-  T* sm_a = reinterpret_cast<T*>(smem_raw);
-  T* sm_t = sm_a + (size_t)RH * RW * A.ch;
-  const int b = blockIdx.y;
-  const int ty = blockIdx.x / A.tiles_x, tx = blockIdx.x % A.tiles_x;
-  const int gy0 = ty * A.th - A.n, gx0 = tx * A.tw - A.n;
-  const T* xb = A.x + (size_t)b * A.H * A.W * A.cin;
-  T* outb = A.out + (size_t)b * A.H * A.W * A.cout;
-  const int ch = A.ch, n = A.n;
-
-  run_stage<T, kProjA>(A, xb, sm_a, sm_t, outb, 0, RH, 0, RW, gy0, gx0, A.wm, A.bm, ch);
-  __syncthreads();
-  for (int i = 0; i < n; ++i) {
-    run_stage<T, kBottle1x1>(A, xb, sm_a, sm_t, outb, i, RH - i, i, RW - i, gy0, gx0,
-                             A.w1 + (size_t)i * ch * ch, A.b1 + (size_t)i * ch, ch);
-    __syncthreads();
-    run_stage<T, kBottle3x3>(A, xb, sm_a, sm_t, outb, i + 1, RH - i - 1, i + 1, RW - i - 1,
-                             gy0, gx0, A.w3 + (size_t)i * 9 * ch * ch,
-                             A.b3 + (size_t)i * ch, ch);
-    __syncthreads();
-  }
-  run_stage<T, kProjS>(A, xb, sm_a, sm_t, outb, n, n + A.th, n, n + A.tw, gy0, gx0, A.ws,
-                       A.bs, ch);
-  __syncthreads();
-  run_stage<T, kFinal>(A, xb, sm_a, sm_t, outb, n, n + A.th, n, n + A.tw, gy0, gx0, A.wf,
-                       A.bf, A.cout);
-}
-
-// ------------------------------------------------ bf16 on the tensor cores
+// ------------------------------------------------------ the tensor cores
 typedef __nv_bfloat16 bf16;
 
 constexpr int kMT = 2;              // m16 tiles per warp (warp tile 16 kMT x 32)
@@ -290,13 +139,11 @@ struct Ring {
 using Wide = Ring<8, 32, 64, 3>;
 using Compact = Ring<2, 16, 32, 2>;
 
-__host__ __device__ inline size_t mma_smem_bytes(int th, int tw, int n, int ch, int ring) {
+// a and t: (th + 2n) x (tw + 2n) pixels of ch + 8 elements each (the 8 pad
+// columns zero), then the ring
+__host__ __device__ inline size_t smem_bytes(int th, int tw, int n, int ch, int ring) {
   return 2 * (size_t)(th + 2 * n) * (tw + 2 * n) * (ch + 8) * sizeof(bf16) +
          (ring ? Compact::kBytes : Wide::kBytes);
-}
-
-__host__ __device__ inline size_t f32_smem_bytes(int th, int tw, int n, int ch) {
-  return 2 * (size_t)(th + 2 * n) * (tw + 2 * n) * ch * sizeof(float);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -608,6 +455,127 @@ __global__ void __launch_bounds__(C::kThreads) csp_mma_kernel(CspArgs<bf16> A) {
                        A.bf, A.cout);
 }
 
+// ---------------------------------------- the staged route's two products
+// Element counts of the storage type T: kE<T> elements make 16 bytes (one
+// cp.async piece, one ldmatrix row, the row padding), kKs<T> one mma k step
+// (32 bytes: m16n8k16 in bf16, m16n8k8 in TF32). The fragments of both
+// products lie on the same bytes: ldmatrix row r, 4-byte word t of a 16-byte
+// piece holds bf16 elements 2t, 2t + 1 or the f32 element t, and those are
+// what lane 4r + t's fragment register of the product holds.
+template <typename T>
+constexpr int kE = 16 / (int)sizeof(T);
+template <typename T>
+constexpr int kKs = 32 / (int)sizeof(T);
+
+// c += a (16x8, row) * b (8x8, col), TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a (16x8, row) * b (8x8, col), TF32 in, from a zero accumulator
+__device__ __forceinline__ void mma_tf32_z(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// the f32 bits in x split into TF32 hi and lo (10 mantissa bits each, to
+// nearest, ties away: cvt.rna); x - hi is exact in f32
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(__uint_as_float(x)));
+  asm("cvt.rna.tf32.f32 %0, %1;\n"
+      : "=r"(lo)
+      : "f"(__uint_as_float(x) - __uint_as_float(hi)));
+}
+
+template <int R>
+__device__ __forceinline__ void split_frag(const uint32_t (&x)[R], uint32_t (&hi)[R],
+                                           uint32_t (&lo)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// The product of one k step for a warp tile of kMT m16 tiles x 4 n8 tiles:
+// af[mt] the A fragments, bfr[np] the B fragments of n8 tiles 2 np and
+// 2 np + 1, as ldmatrix gave them. bf16: one m16n8k16 each. f32: 3xTF32,
+// each operand split into hi + lo, the small products first, then hi hi (lo
+// lo, below f32's last bit, is left out), into a fresh accumulator that is
+// then added to acc in f32: the tensor core truncates as it accumulates,
+// and over a long K (576 in a 3x3 of 64 channels, through a chain of
+// bottlenecks) that bias reached 2e-4 of the plain layer, where one
+// rounded add per k step keeps f32's ~3e-5. Only the first mts m16 tiles
+// and nps n8 pairs are multiplied (a ragged edge skips the rest).
+template <typename T>
+__device__ __forceinline__ void mma_step(float (&acc)[kMT][4][4], const uint32_t (&af)[kMT][4],
+                                         const uint32_t (&bfr)[2][4], int mts, int nps) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      if (mt >= mts) continue;
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        if (np >= nps) continue;
+        mma_bf16(acc[mt][2 * np], af[mt], bfr[np][0], bfr[np][1]);
+        mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[np][2], bfr[np][3]);
+      }
+    }
+  } else {
+    uint32_t ah[kMT][4], al[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) split_frag(af[mt], ah[mt], al[mt]);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      if (np >= nps) continue;
+      uint32_t bh[4], bl[4];
+      split_frag(bfr[np], bh, bl);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (mt >= mts) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float c[4];
+          mma_tf32_z(c, al[mt], bh[2 * h], bh[2 * h + 1]);
+          mma_tf32(c, ah[mt], bl[2 * h], bl[2 * h + 1]);
+          mma_tf32(c, ah[mt], bh[2 * h], bh[2 * h + 1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][2 * np + h][e] += c[e];
+        }
+      }
+    }
+  }
+}
+
+// SiLU of the epilogue: bf16 with the fast exp and division intrinsics (a
+// few ulp of f32; the result is rounded to bf16 next), f32 exact as the
+// plain layer's
+template <typename T>
+__device__ __forceinline__ float silu_t(float x) {
+  if constexpr (sizeof(T) == 2)
+    return silu_fast(x);
+  else
+    return silu(x);
+}
+
+// two adjacent elements of the storage type as f32, and back (rounded)
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // ------------------------------------------------------ the staged route
 // One stage of a layer no tile fits, over all B*H*W pixels at once:
 //   dst[m, :N] = silu(sum over segments of src_seg[m] W_seg + bias) (+ dst[m])
@@ -619,7 +587,7 @@ template <typename T>
 struct StagedArgs {
   const T* src0;
   const T* src1;
-  const T* w;      // segment s at w + s * seg_w, rows of ldw (bf16) or N (f32)
+  const T* w;      // [out, in]: segment s at w + s * seg_w, rows of ldw
   const float* bias;
   T* dst;
   int M, H, W, K, N, ldw, seg_w, res;
@@ -635,18 +603,24 @@ __device__ __forceinline__ int staged_row(int m, int y, int x, int seg, int H, i
   return yy >= 0 && yy < H && xx >= 0 && xx < W ? m + dy * W + dx : -1;
 }
 
-// bf16 on the tensor cores: one CTA per 128 x 64 output tile, eight warps of
-// 32 x 32, the A rows (gathered with the tap's shift) and the weights
-// streaming through a four-slot cp.async ring in K chunks of 32. Rows past
-// M, channels past N and K tails are zero-filled, so the chunk loop has no
-// guards; the epilogue stores what lies inside.
-constexpr int kSBM = 128, kSKC = 32, kSSlots = 4, kSThreads = 256;
-constexpr int kSLd = kSKC + 8;  // padded slot row (conflict-free ldmatrix)
-constexpr int kSSlotBytes = (kSBM + kBN) * kSLd * 2;
+// One CTA per 128 x 64 output tile, eight warps of 32 x 32, the A rows
+// (gathered with the tap's shift) and the weights streaming through a
+// four-slot cp.async ring in K chunks of 64 bytes. Rows past M, channels past
+// N and K tails are zero-filled, so the chunk loop has no guards; the
+// epilogue stores what lies inside.
+constexpr int kSBM = 128, kSKCB = 64, kSSlots = 4, kSThreads = 256;
+constexpr int kSLdB = kSKCB + 16;  // padded slot row in bytes (conflict-free ldmatrix)
+constexpr int kSSlotBytes = (kSBM + kBN) * kSLdB;
 constexpr size_t kStagedSmem = (size_t)kSSlots * kSSlotBytes;
 
-template <int SEGS>
-__global__ void __launch_bounds__(kSThreads) csp_staged_mma_kernel(StagedArgs<bf16> S) {
+// f32 at two CTAs an SM (at most 128 registers a thread): its split
+// fragments took 132 registers and one CTA an SM, 15-20 % slower over the
+// seven YOLOX-s layers on the H100. bf16 keeps one.
+template <typename T, int SEGS>
+__global__ void __launch_bounds__(kSThreads, sizeof(T) == 4 ? 2 : 1)
+    csp_staged_mma_kernel(StagedArgs<T> S) {
+  constexpr int kSz = sizeof(T), kEl = kE<T>;
+  constexpr int kSKC = kSKCB / kSz;  // chunk elements
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t ring_s = smem_u32(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -658,8 +632,8 @@ __global__ void __launch_bounds__(kSThreads) csp_staged_mma_kernel(StagedArgs<bf
   const int K = S.K, kch = (K + kSKC - 1) / kSKC, total = SEGS * kch;
 
   // this thread's copies: A rows tid / 4 and tid / 4 + 64, B row tid / 4,
-  // each the 16-byte piece tid % 4 of a 32-wide chunk row
-  const int piece = (tid & 3) * 8;
+  // each the 16-byte piece tid % 4 of a chunk row
+  const int piece = (tid & 3) * kEl;
   int am[2], ay[2], ax[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -673,17 +647,17 @@ __global__ void __launch_bounds__(kSThreads) csp_staged_mma_kernel(StagedArgs<bf
   int lseg = 0, lk0 = 0, lslot = 0;
   auto load = [&]() {
     const uint32_t slot = ring_s + (uint32_t)lslot * kSSlotBytes;
-    const bf16* src = SEGS == 2 && lseg == 1 ? S.src1 : S.src0;
+    const T* src = SEGS == 2 && lseg == 1 ? S.src1 : S.src0;
     const int k = lk0 + piece;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int r = am[j] < 0 ? -1 : staged_row<SEGS>(am[j], ay[j], ax[j], lseg, S.H, S.W);
       const bool ok = r >= 0 && k < K;
-      cp_async16(slot + (uint32_t)(((tid >> 2) + 64 * j) * kSLd + piece) * 2,
+      cp_async16(slot + (uint32_t)(((tid >> 2) + 64 * j) * kSLdB + (tid & 3) * 16),
                  ok ? src + (size_t)r * K + k : src, ok);
     }
     const bool okb = bn < S.N && k < K;
-    cp_async16(slot + (uint32_t)(kSBM * kSLd + bn_row * kSLd + piece) * 2,
+    cp_async16(slot + (uint32_t)((kSBM + bn_row) * kSLdB + (tid & 3) * 16),
                okb ? S.w + (size_t)lseg * S.seg_w + (size_t)bn * S.ldw + k : S.w, okb);
     lk0 += kSKC;
     if (lk0 >= K) {
@@ -721,25 +695,19 @@ __global__ void __launch_bounds__(kSThreads) csp_staged_mma_kernel(StagedArgs<bf
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     const uint32_t slot = ring_s + (uint32_t)cslot * kSSlotBytes;
 #pragma unroll
-    for (int kk = 0; kk < kSKC / 16; ++kk) {
+    for (int kk = 0; kk < kSKCB / 32; ++kk) {
       uint32_t af[kMT][4], bfr[2][4];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
-        ldsm_x4(slot + (uint32_t)((wm * 32 + mt * 16 + (lane & 15)) * kSLd + kk * 16 +
-                                  (lane >> 4) * 8) * 2,
+        ldsm_x4(slot + (uint32_t)((wm * 32 + mt * 16 + (lane & 15)) * kSLdB + kk * 32 +
+                                  (lane >> 4) * 16),
                 af[mt]);
 #pragma unroll
       for (int np = 0; np < 2; ++np)
-        ldsm_x4(slot + (uint32_t)((kSBM + wn * 32 + np * 16 + (mi >> 1) * 8 + mr) * kSLd +
-                                  kk * 16 + (mi & 1) * 8) * 2,
+        ldsm_x4(slot + (uint32_t)((kSBM + wn * 32 + np * 16 + (mi >> 1) * 8 + mr) * kSLdB +
+                                  kk * 32 + (mi & 1) * 16),
                 bfr[np]);
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          mma_bf16(acc[mt][2 * np], af[mt], bfr[np][0], bfr[np][1]);
-          mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[np][2], bfr[np][3]);
-        }
+      mma_step<T>(acc, af, bfr, kMT, 2);
     }
     cslot = cslot == kSSlots - 1 ? 0 : cslot + 1;
   }
@@ -755,79 +723,17 @@ __global__ void __launch_bounds__(kSThreads) csp_staged_mma_kernel(StagedArgs<bf
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         if (nw + nt * 8 >= S.N) continue;
-        __nv_bfloat162* d =
-            reinterpret_cast<__nv_bfloat162*>(S.dst + (size_t)m * S.N + nw + nt * 8 + 2 * t);
-        float v0 = silu_fast(acc[mt][nt][2 * half] + bv[nt].x);
-        float v1 = silu_fast(acc[mt][nt][2 * half + 1] + bv[nt].y);
+        T* d = S.dst + (size_t)m * S.N + nw + nt * 8 + 2 * t;
+        float v0 = silu_t<T>(acc[mt][nt][2 * half] + bv[nt].x);
+        float v1 = silu_t<T>(acc[mt][nt][2 * half + 1] + bv[nt].y);
         if (S.res) {
-          const float2 old = __bfloat1622float2(*d);
+          const float2 old = load2(d);
           v0 += old.x;
           v1 += old.y;
         }
-        *d = __floats2bfloat162_rn(v0, v1);
+        store2(d, v0, v1);
       }
     }
-  }
-}
-
-// f32 on CUDA cores: each thread 8 pixels x 4 channels, weights [in, out]
-// (segment s at w + s * K * N) read as 4-wide vectors, as csp_kernel does.
-template <int SEGS>
-__global__ void __launch_bounds__(kThreads) csp_staged_f32_kernel(StagedArgs<float> S) {
-  const int ngroups = S.N / CB;
-  const int work = blockIdx.x * kThreads + threadIdx.x;
-  if (work >= ngroups * ((S.M + PB - 1) / PB)) return;
-  const int c = (work % ngroups) * CB;
-  const int m0 = work / ngroups * PB;
-  const int HW = S.H * S.W;
-  int py[PB], px[PB];
-  float acc[PB][CB];
-#pragma unroll
-  for (int i = 0; i < PB; ++i) {
-    const int m = m0 + i;
-    const int p = m - (m / HW) * HW;
-    py[i] = p / S.W;
-    px[i] = p - py[i] * S.W;
-#pragma unroll
-    for (int cc = 0; cc < CB; ++cc) acc[i][cc] = S.bias[c + cc];
-  }
-  for (int seg = 0; seg < SEGS; ++seg) {
-    const float* src = SEGS == 2 && seg == 1 ? S.src1 : S.src0;
-    const float* w = S.w + (size_t)seg * S.K * S.N;
-    int r[PB];
-#pragma unroll
-    for (int i = 0; i < PB; ++i)
-      r[i] = m0 + i < S.M ? staged_row<SEGS>(m0 + i, py[i], px[i], seg, S.H, S.W) : -1;
-    for (int k = 0; k < S.K; k += 4) {
-      float wv[4][CB];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) load4(w + (size_t)(k + kk) * S.N + c, wv[kk]);
-#pragma unroll
-      for (int i = 0; i < PB; ++i) {
-        if (r[i] < 0) continue;
-        float av[4];
-        load4(src + (size_t)r[i] * S.K + k, av);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int cc = 0; cc < CB; ++cc) acc[i][cc] = fmaf(av[kk], wv[kk][cc], acc[i][cc]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < PB; ++i) {
-    if (m0 + i >= S.M) continue;
-    float* d = S.dst + (size_t)(m0 + i) * S.N + c;
-    float v[CB];
-#pragma unroll
-    for (int cc = 0; cc < CB; ++cc) v[cc] = silu(acc[i][cc]);
-    if (S.res) {
-      float old[CB];
-      load4(d, old);
-#pragma unroll
-      for (int cc = 0; cc < CB; ++cc) v[cc] += old[cc];
-    }
-    store4(d, v);
   }
 }
 
@@ -836,19 +742,19 @@ cudaError_t staged_stage(const T* src0, const T* src1, const T* w, const float* 
                          int M, int H, int W, int K, int N, int ldw, int seg_w, int res,
                          cudaStream_t stream) {
   StagedArgs<T> S{src0, src1, w, bias, dst, M, H, W, K, N, ldw, seg_w, res};
-  if constexpr (sizeof(T) == 2) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        csp_staged_mma_kernel<SEGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kStagedSmem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((M + kSBM - 1) / kSBM, (N + kBN - 1) / kBN);
-    csp_staged_mma_kernel<SEGS><<<grid, kSThreads, kStagedSmem, stream>>>(S);
-  } else {
-    const long long items = (long long)(N / CB) * ((M + PB - 1) / PB);
-    csp_staged_f32_kernel<SEGS><<<(unsigned)((items + kThreads - 1) / kThreads), kThreads, 0,
-                                  stream>>>(S);
-  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(csp_staged_mma_kernel<T, SEGS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kStagedSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + kSBM - 1) / kSBM, (N + kBN - 1) / kBN);
+  csp_staged_mma_kernel<T, SEGS><<<grid, kSThreads, kStagedSmem, stream>>>(S);
   return cudaGetLastError();
+}
+
+// channel counts must be multiples of one 16-byte piece: 8 (bf16) or 4 (f32)
+template <typename T>
+bool channels_ok(int cin, int ch, int cout) {
+  return cin % kE<T> == 0 && ch % kE<T> == 0 && cout % kE<T> == 0;
 }
 
 // The whole layer by the staged route: a, s and t (M x ch each) in
@@ -858,9 +764,7 @@ int launch_staged(const void* x, void* out, const void* wm, const float* bm, con
                   const float* bs, const void* w1, const float* b1, const void* w3,
                   const float* b3, const void* wf, const float* bf, void* scratch, int B, int H,
                   int W, int cin, int ch, int cout, int n, int shortcut, void* stream) {
-  constexpr bool kMma = sizeof(T) == 2;
-  constexpr int kMult = kMma ? 8 : 4;
-  if (B < 1 || H < 1 || W < 1 || n < 1 || cin % kMult || ch % kMult || cout % kMult ||
+  if (B < 1 || H < 1 || W < 1 || n < 1 || !channels_ok<T>(cin, ch, cout) ||
       (long long)B * H * W >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   const int M = B * H * W;
@@ -869,9 +773,7 @@ int launch_staged(const void* x, void* out, const void* wm, const float* bm, con
   T* a = static_cast<T*>(scratch);
   T* s = a + (size_t)M * ch;
   T* t = s + (size_t)M * ch;
-  // bf16 weights are [out, in] (rows of K, the final's of 2 ch with s at
-  // column ch); f32 weights are [in, out] (segment s at s K N)
-  const int ldf = kMma ? 2 * ch : cout, segf = kMma ? ch : ch * cout;
+  // weights [out, in]: rows of K, the final's of 2 ch with s at column ch
   cudaError_t err = staged_stage<1, T>(xs, xs, static_cast<const T*>(wm), bm, a, M, H, W, cin,
                                        ch, cin, 0, 0, st);
   if (err == cudaSuccess)
@@ -887,32 +789,30 @@ int launch_staged(const void* x, void* out, const void* wm, const float* bm, con
   }
   if (err == cudaSuccess)
     err = staged_stage<2, T>(a, s, static_cast<const T*>(wf), bf, static_cast<T*>(out), M, H,
-                             W, ch, cout, ldf, segf, 0, st);
+                             W, ch, cout, 2 * ch, ch, 0, st);
   return (int)err;
 }
 
-template <typename T>
+// bf16's tiled route
 int launch(const void* x, void* out, const void* wm, const float* bm, const void* ws,
            const float* bs, const void* w1, const float* b1, const void* w3,
            const float* b3, const void* wf, const float* bf, int B, int H, int W, int cin,
            int ch, int cout, int n, int shortcut, int th, int tw, int ring, void* stream) {
-  constexpr bool kMma = sizeof(T) == 2;
-  constexpr int kMult = kMma ? 8 : 4;  // channel counts must be multiples
-  if (B < 1 || H < 1 || W < 1 || n < 1 || th < 1 || tw < 1 || cin % kMult ||
-      ch % kMult || cout % kMult || ring < 0 || ring > (kMma ? 1 : 0))
+  if (B < 1 || H < 1 || W < 1 || n < 1 || th < 1 || tw < 1 ||
+      !channels_ok<bf16>(cin, ch, cout) || ring < 0 || ring > 1)
     return (int)cudaErrorInvalidValue;
-  CspArgs<T> A;
-  A.x = static_cast<const T*>(x);
-  A.out = static_cast<T*>(out);
-  A.wm = static_cast<const T*>(wm);
+  CspArgs<bf16> A;
+  A.x = static_cast<const bf16*>(x);
+  A.out = static_cast<bf16*>(out);
+  A.wm = static_cast<const bf16*>(wm);
   A.bm = bm;
-  A.ws = static_cast<const T*>(ws);
+  A.ws = static_cast<const bf16*>(ws);
   A.bs = bs;
-  A.w1 = static_cast<const T*>(w1);
+  A.w1 = static_cast<const bf16*>(w1);
   A.b1 = b1;
-  A.w3 = static_cast<const T*>(w3);
+  A.w3 = static_cast<const bf16*>(w3);
   A.b3 = b3;
-  A.wf = static_cast<const T*>(wf);
+  A.wf = static_cast<const bf16*>(wf);
   A.bf = bf;
   A.H = H;
   A.W = W;
@@ -925,17 +825,10 @@ int launch(const void* x, void* out, const void* wm, const float* bm, const void
   A.tw = tw;
   A.tiles_x = (W + tw - 1) / tw;
   const int tiles_y = (H + th - 1) / th;
-  const size_t smem =
-      kMma ? mma_smem_bytes(th, tw, n, ch, ring) : f32_smem_bytes(th, tw, n, ch);
+  const size_t smem = smem_bytes(th, tw, n, ch, ring);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  void (*kern)(CspArgs<T>);
-  int threads = kThreads;
-  if constexpr (kMma) {
-    kern = ring ? csp_mma_kernel<Compact> : csp_mma_kernel<Wide>;
-    threads = ring ? Compact::kThreads : Wide::kThreads;
-  } else {
-    kern = csp_kernel<T>;
-  }
+  void (*kern)(CspArgs<bf16>) = ring ? csp_mma_kernel<Compact> : csp_mma_kernel<Wide>;
+  const int threads = ring ? Compact::kThreads : Wide::kThreads;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -946,32 +839,27 @@ int launch(const void* x, void* out, const void* wm, const float* bm, const void
 
 }  // namespace
 
-// x (B, H, W, cin) and out (B, H, W, cout) NHWC, th x tw output tiles.
-// Weights in the storage type, biases f32, all contiguous on the device:
-//   f32 (CUDA cores): [in, out]: wm, ws (cin, ch); w1 (n, ch, ch); w3 (n, 9,
-//     ch, ch) with tap = dy * 3 + dx; wf (2 ch, cout), rows [a; s];
-//   bf16 (tensor cores): [out, in]: wm, ws (ch, cin); w1 (n, ch, ch); w3 (n,
-//     9, ch, ch); wf (cout, 2 ch), columns [a; s].
-// ring: for bf16, 0 the wide cp.async ring, 1 the compact one; 0 for f32.
-// Channel counts must be multiples of 4 (f32) or 8 (bf16). Returns
-// cudaGetLastError() after the launch, cudaErrorInvalidValue for shapes the
-// kernel does not take or a plan over the shared-memory limit.
-#define TL_CSP_ENTRY(NAME, T)                                                        \
-  extern "C" int NAME(const void* x, void* out, const void* wm, const float* bm,     \
-                      const void* ws, const float* bs, const void* w1, const float* b1, \
-                      const void* w3, const float* b3, const void* wf, const float* bf, \
-                      int B, int H, int W, int cin, int ch, int cout, int n,          \
-                      int shortcut, int th, int tw, int ring, void* stream) {        \
-    return launch<T>(x, out, wm, bm, ws, bs, w1, b1, w3, b3, wf, bf, B, H, W, cin, ch, \
-                     cout, n, shortcut, th, tw, ring, stream);                       \
-  }
+// bf16, the tiled route. x (B, H, W, cin) and out (B, H, W, cout) NHWC, th x
+// tw output tiles. Weights packed [out, in] (K-contiguous), biases f32, all
+// contiguous on the device: wm, ws (ch, cin); w1 (n, ch, ch); w3 (n, 9, ch,
+// ch) with tap = dy * 3 + dx; wf (cout, 2 ch), columns [a; s]. ring: 0 the
+// wide cp.async ring, 1 the compact one. Channel counts must be multiples of
+// 8. Returns cudaGetLastError() after the launch, cudaErrorInvalidValue for
+// shapes the kernel does not take or a plan over the shared-memory limit.
+extern "C" int tl_csp_bf16_mma(const void* x, void* out, const void* wm, const float* bm,
+                               const void* ws, const float* bs, const void* w1,
+                               const float* b1, const void* w3, const float* b3,
+                               const void* wf, const float* bf, int B, int H, int W, int cin,
+                               int ch, int cout, int n, int shortcut, int th, int tw, int ring,
+                               void* stream) {
+  return launch(x, out, wm, bm, ws, bs, w1, b1, w3, b3, wf, bf, B, H, W, cin, ch, cout, n,
+                shortcut, th, tw, ring, stream);
+}
 
-TL_CSP_ENTRY(tl_csp_f32, float)
-TL_CSP_ENTRY(tl_csp_bf16_mma, __nv_bfloat16)
-
-// The staged route, for a layer no tile fits: the same layout and rules,
-// and `scratch`, 3 B H W ch elements of the storage type on the device
-// (a, s and t). Runs 2n + 3 stage grids on `stream`.
+// The staged route, f32's only one and bf16's for a layer no tile fits: the
+// same layout and rules (channel counts multiples of 8 in bf16, 4 in f32),
+// and `scratch`, 3 B H W ch elements of the storage type on the device (a, s
+// and t). Runs 2n + 3 stage grids on `stream`.
 #define TL_CSP_STAGED_ENTRY(NAME, T)                                                     \
   extern "C" int NAME(const void* x, void* out, const void* wm, const float* bm,         \
                       const void* ws, const float* bs, const void* w1, const float* b1,  \
@@ -985,10 +873,8 @@ TL_CSP_ENTRY(tl_csp_bf16_mma, __nv_bfloat16)
 TL_CSP_STAGED_ENTRY(tl_csp_f32_staged, float)
 TL_CSP_STAGED_ENTRY(tl_csp_bf16_mma_staged, __nv_bfloat16)
 
-// The shared memory a launch with th x tw tiles asks for: mma = 1 for the
-// bf16 tensor-core kernel with the given ring, 0 for the f32 kernel.
-// kernels/csp.py's smem_bytes plans the same sum.
-extern "C" long long tl_csp_smem_bytes(int th, int tw, int n, int ch, int mma, int ring) {
-  return (long long)(mma ? mma_smem_bytes(th, tw, n, ch, ring)
-                         : f32_smem_bytes(th, tw, n, ch));
+// The shared memory a launch of tl_csp_bf16_mma with th x tw tiles asks for,
+// with the given ring. kernels/csp.py's smem_bytes plans the same sum.
+extern "C" long long tl_csp_smem_bytes(int th, int tw, int n, int ch, int ring) {
+  return (long long)smem_bytes(th, tw, n, ch, ring);
 }

@@ -5,14 +5,17 @@ Replaces the Pallas TPU kernel ``tracklab_tpu/ops/csp_pallas.py``
 (``_make_kernel`` behind ``fused_csplayer``). The CUDA kernels run one CTA
 per (frame, spatial tile) with an n-pixel halo and keep the layer's
 intermediates in shared memory; they are bound by operations (~600 FLOP/B
-at YOLOX-s 640). bf16 runs on the tensor cores (``mma.sync`` with
-``ldmatrix`` and a ``cp.async`` ring), f32 on CUDA cores; see the source
-note in ``csrc/csp.cu``.
+at YOLOX-s 640). Both run on the tensor cores (``mma.sync`` with
+``ldmatrix`` and a ``cp.async`` ring).
 
-A layer whose haloed region exceeds shared memory at every tile takes the
-staged route (:data:`STAGED`): its intermediates in device memory and its
-2n + 3 stages run as GEMMs over the whole batch, so K3 takes every dense
-layer the JAX kernel takes.
+The staged route (:data:`STAGED`) keeps the intermediates in device memory
+and runs the layer's 2n + 3 stages as GEMMs over the whole batch. bf16
+takes it where the haloed region exceeds shared memory at every tile, so
+K3 takes every dense layer the JAX kernel takes; f32 takes it at every
+layer, in 3xTF32 (each operand split into two TF32 parts, three
+products): its haloed buffers take twice the bytes, and the tiles that fit
+lost to the staged route at every YOLOX-s layer timed. See the source note
+in ``csrc/csp.cu``.
 
 The plain version is the unfused layer, ``CSPLayer.forward_plain``
 (``models/yolox.py``). :func:`fused_csplayer` runs it for CPU tensors and
@@ -35,16 +38,14 @@ __all__ = ["fold_convbn", "pack_csplayer", "smem_bytes", "choose_tile",
            "route", "fused_csplayer", "SMEM_LIMIT", "STAGED"]
 
 SMEM_LIMIT = 232448    # bytes of shared memory one Hopper CTA may use
-# the tensor-core kernel's two cp.async rings (csrc/csp.cu: Wide, Compact):
+# the bf16 tiled kernel's two cp.async rings (csrc/csp.cu: Wide, Compact):
 # (CTA tile rows, ring bytes); each slot holds a rows x KX chunk of x and a
 # 64 x KX chunk of weights, rows padded by 8 elements
 _RINGS = ((256, 3 * (256 + 64) * (32 + 8) * 2),    # KX 32, three slots
           (64, 2 * (64 + 64) * (16 + 8) * 2))      # KX 16, two slots
 _MMA_BN = 64          # CTA tile channels of both rings
-STAGED = 2            # the plan's ring for the staged route (no tile)
-# the CUDA-core kernel's work item: 8 pixels x 4 channels
-_FMA_TILE = (8, 4)
-_ITEM = {torch.float32: 4, torch.bfloat16: 2}
+STAGED = 2            # the plan's ring for the staged route
+_MULT = {torch.float32: 4, torch.bfloat16: 8}     # channel multiples
 
 
 def fold_convbn(m):
@@ -58,12 +59,11 @@ def fold_convbn(m):
 
 
 def pack_csplayer(layer, dtype) -> dict:
-    """Fold a CSPLayer's weights and lay them out for the kernel of
-    ``dtype``, in ``dtype``; biases f32. bf16 (tensor cores) takes them
-    K-contiguous, [out, in] (the col-major B operand): ``wm``/``ws`` (ch,
-    cin), ``w1`` (n, ch, ch), ``w3`` (n, 9, ch, ch) with tap dy * 3 + dx,
-    ``wf`` (cout, 2 ch) with columns [main; short]. f32 (CUDA cores) takes
-    each transposed, [in, out], read as 4-wide vectors of output channels."""
+    """Fold a CSPLayer's weights and lay them out for the kernel, in
+    ``dtype``; biases f32. Both types take them K-contiguous, [out, in]
+    (the col-major B operand): ``wm``/``ws`` (ch, cin), ``w1`` (n, ch, ch),
+    ``w3`` (n, 9, ch, ch) with tap dy * 3 + dx, ``wf`` (cout, 2 ch) with
+    columns [main; short]."""
     def one_by_one(m):
         w, b = fold_convbn(m)
         return w[:, :, 0, 0], b
@@ -81,7 +81,6 @@ def pack_csplayer(layer, dtype) -> dict:
         w3.append(w.permute(2, 3, 0, 1).reshape(9, co, ci))
         b3.append(b)
     def cast(t):
-        t = t if dtype == torch.bfloat16 else t.transpose(-1, -2)
         return t.to(dtype).contiguous()
 
     f32 = lambda t: t.float().contiguous()             # noqa: E731
@@ -91,26 +90,23 @@ def pack_csplayer(layer, dtype) -> dict:
                 wf=cast(wf), bf=f32(bf))
 
 
-def smem_bytes(th, tw, n, ch, dtype, ring=0) -> int:
-    """Shared memory one CTA of the kernel for ``dtype`` asks for with
-    th x tw output tiles: the two haloed (th + 2n) x (tw + 2n) x ch buffers
-    (a and t), in bf16 with 8 elements of row padding and cp.async ring
-    ``ring`` (0 wide, 1 compact; f32 has none). ``csrc/csp.cu`` computes
-    the same sum and refuses a launch over :data:`SMEM_LIMIT`."""
+def smem_bytes(th, tw, n, ch, ring=0) -> int:
+    """Shared memory one CTA of the bf16 tiled kernel asks for with th x tw
+    output tiles: the two haloed (th + 2n) x (tw + 2n) x ch buffers (a and
+    t) with 8 elements of row padding, and cp.async ring ``ring`` (0 wide,
+    1 compact). ``csrc/csp.cu`` computes the same sum
+    (``tl_csp_smem_bytes``) and refuses a launch over :data:`SMEM_LIMIT`."""
     region = (th + 2 * n) * (tw + 2 * n)
-    if dtype == torch.bfloat16:
-        return 2 * region * (ch + 8) * 2 + _RINGS[ring][1]
-    return 2 * region * ch * _ITEM[dtype]
+    return 2 * region * (ch + 8) * 2 + _RINGS[ring][1]
 
 
-def _work(th, tw, H, W, n, cin, ch, cout, tile):
-    """The kernel's work for one frame with th x tw tiles, counted in its
-    own units: each stage's GEMM rounded up to whole (rows x channels)
-    tiles, times K. It counts the halo's recomputation and ragged tiles."""
-    bm, bn = tile
-
+def _work(th, tw, H, W, n, cin, ch, cout, bm):
+    """The kernel's work for one frame with th x tw tiles and bm-row CTA
+    tiles, counted in its own units: each stage's GEMM rounded up to whole
+    (bm x 64) tiles, times K. It counts the halo's recomputation and ragged
+    tiles."""
     def gemm(pix, N, K):
-        return math.ceil(pix / bm) * math.ceil(N / bn) * K
+        return math.ceil(pix / bm) * math.ceil(N / _MMA_BN) * K
 
     RH, RW = th + 2 * n, tw + 2 * n
     w = gemm(RH * RW, ch, cin) + gemm(th * tw, ch, cin) \
@@ -123,50 +119,46 @@ def _work(th, tw, H, W, n, cin, ch, cout, tile):
 
 @functools.cache
 def choose_tile(H, W, n, cin, ch, cout, dtype):
-    """(th, tw, ring): the output tile whose plan fits in
-    :data:`SMEM_LIMIT` and needs the least work (:func:`_work`), larger
-    tiles first on a tie, with bf16's wide ring where any tile fits with it
-    and its compact ring otherwise (ring 0 for f32). Where no tile fits
-    (the region of a single output pixel, (2n + 1)^2 pixels of a and t, is
-    already too large, as for dark4 of YOLOX-l and dark3 and dark4 of
-    YOLOX-x in bf16), (H, W, :data:`STAGED`): the staged route, whose
-    shared memory does not depend on the layer."""
-    rings = range(len(_RINGS)) if dtype == torch.bfloat16 else (0,)
-    for ring in rings:
-        tile = ((_RINGS[ring][0], _MMA_BN) if dtype == torch.bfloat16
-                else _FMA_TILE)
-        best = None
-        for th in range(1, H + 1):
-            for tw in range(1, W + 1):
-                if smem_bytes(th, tw, n, ch, dtype, ring) > SMEM_LIMIT:
-                    break
-                key = (_work(th, tw, H, W, n, cin, ch, cout, tile), -th * tw)
-                if best is None or key < best[0]:
-                    best = (key, (th, tw, ring))
-        if best is not None:
-            return best[1]
+    """(th, tw, ring): the plan K3 runs the layer with.
+
+    bf16: the output tile whose plan fits in :data:`SMEM_LIMIT` and needs
+    the least work (:func:`_work`), larger tiles first on a tie, with the
+    wide ring where any tile fits with it and the compact ring otherwise;
+    where no tile fits (the region of a single output pixel, (2n + 1)^2
+    pixels of a and t, is already too large, as for dark4 of YOLOX-l and
+    dark3 and dark4 of YOLOX-x), (H, W, :data:`STAGED`): the staged route,
+    whose shared memory does not depend on the layer. f32: the staged
+    route."""
+    if dtype == torch.bfloat16:
+        for ring, (bm, _) in enumerate(_RINGS):
+            best = None
+            for th in range(1, H + 1):
+                for tw in range(1, W + 1):
+                    if smem_bytes(th, tw, n, ch, ring) > SMEM_LIMIT:
+                        break
+                    key = (_work(th, tw, H, W, n, cin, ch, cout, bm),
+                           -th * tw)
+                    if best is None or key < best[0]:
+                        best = (key, (th, tw, ring))
+            if best is not None:
+                return best[1]
     return H, W, STAGED
 
 
 def route(dtype, cin, ch, cout) -> str:
-    """The C entry point that runs a CSPLayer in ``dtype`` on the card:
-    bf16 runs on the tensor cores and needs channel counts that are
-    multiples of 8, f32 runs on CUDA cores and needs multiples of 4.
-    Raises for what neither takes; never picks another type's kernel or
-    the plain layer."""
-    if dtype == torch.bfloat16:
-        if cin % 8 or ch % 8 or cout % 8:
-            raise ValueError("K3's bf16 kernel needs channel counts that are "
-                             f"multiples of 8; got cin={cin}, ch={ch}, "
-                             f"cout={cout}")
-        return "tl_csp_bf16_mma"
-    if dtype == torch.float32:
-        if cin % 4 or ch % 4 or cout % 4:
-            raise ValueError("K3's f32 kernel needs channel counts that are "
-                             f"multiples of 4; got cin={cin}, ch={ch}, "
-                             f"cout={cout}")
-        return "tl_csp_f32"
-    raise TypeError(f"K3 takes f32 or bf16, not {dtype}")
+    """The C entry point that runs a CSPLayer in ``dtype`` on the card's
+    tensor cores (the staged route's carries ``_staged`` after it, and is
+    f32's only one): bf16 needs channel counts that are multiples of 8, f32
+    (3xTF32) multiples of 4 (one 16-byte piece). Raises for what neither
+    takes; never picks another type's kernel or the plain layer."""
+    if dtype not in _MULT:
+        raise TypeError(f"K3 takes f32 or bf16, not {dtype}")
+    mult = _MULT[dtype]
+    if cin % mult or ch % mult or cout % mult:
+        raise ValueError(f"K3's {str(dtype)[6:]} kernel needs channel counts "
+                         f"that are multiples of {mult}; got cin={cin}, "
+                         f"ch={ch}, cout={cout}")
+    return "tl_csp_bf16_mma" if dtype == torch.bfloat16 else "tl_csp_f32"
 
 
 @functools.cache

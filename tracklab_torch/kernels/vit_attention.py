@@ -6,9 +6,10 @@ Replaces the Pallas TPU kernel ``tracklab_tpu/ops/vit_attention_pallas.py``
 batch element and head, scores and softmax in f32, the probabilities
 rounded to the input dtype before the product with v, an optional static
 count ``n_valid`` of real keys. The CUDA kernels run one CTA per (batch
-element, head) and follow the JAX kernel's order of operations: bf16 on the
-tensor cores (``mma.sync`` with ``ldmatrix`` and ``cp.async``), f32 on CUDA
-cores; see the source note in ``csrc/vit_attention.cu``.
+element, head), all on the tensor cores (``mma.sync`` with ``ldmatrix``
+and ``cp.async``): bf16 in the JAX kernel's order of operations, f32 in
+3xTF32 (each operand split into two TF32 parts, three products) with an
+online softmax; see the source note in ``csrc/vit_attention.cu``.
 
 :func:`vit_attention` is the wrapper: for CPU tensors it runs
 :func:`vit_attention_plain`, for CUDA tensors it launches the kernel that
@@ -40,11 +41,28 @@ import torch
 
 __all__ = ["vit_attention", "vit_attention_plain",
            "vit_attention_compute_plain", "attention_probs", "VitAttentionFn",
-           "route", "MAX_TOKENS", "MAX_HEAD_DIM", "SOFTMAX_MODES"]
+           "route", "f32_smem_bytes", "MAX_TOKENS", "MAX_HEAD_DIM",
+           "SOFTMAX_MODES", "SMEM_LIMIT"]
 
 MAX_TOKENS = 256      # keys and queries one CTA takes
 MAX_HEAD_DIM = 128
 SOFTMAX_MODES = ("f32", "compute")
+SMEM_LIMIT = 232448   # bytes of shared memory one Hopper CTA may use
+
+
+def f32_smem_bytes(N: int, Dh: int) -> int | None:
+    """Shared memory the f32 kernel asks for at (N, Dh), or None where it
+    does not fit: K and V staged with rows of pad8(Dh) + 4 floats, else
+    pad8(Dh), else pad4(Dh), the first that fits, in an allocation of
+    max(2 N, N + 8) rows and 16 floats (``csrc/vit_attention.cu``:
+    ``tf32_ld``, ``tf32_smem_bytes``)."""
+    p8, p4 = -(-Dh // 8) * 8, -(-Dh // 4) * 4
+    rows = max(2 * N, N + 8)
+    for ld in (p8 + 4, p8, p4):
+        nbytes = (rows * ld + 16) * 4
+        if nbytes <= SMEM_LIMIT:
+            return nbytes
+    return None
 
 
 def vit_attention_plain(q, k, v, n_valid: int | None = None):
@@ -87,10 +105,11 @@ def vit_attention_compute_plain(q, k, v, n_valid: int | None = None):
 
 def route(dtype, N: int, Dh: int, softmax: str = "f32") -> str:
     """The C entry point that takes (B, N, H, Dh) attention in ``dtype`` on
-    the card with the ``softmax`` mode: bf16 runs on the tensor cores and
-    needs ``Dh % 16 == 0``, f32 runs on CUDA cores (where both modes are
-    the same function). Raises for what neither takes; never picks another
-    type's kernel or the plain version."""
+    the card with the ``softmax`` mode: bf16 needs ``Dh % 16 == 0``, f32
+    (3xTF32, where both modes are the same function) needs its staged K
+    and V to fit in shared memory (:func:`f32_smem_bytes`). Raises for what
+    neither takes; never picks another type's kernel or the plain
+    version."""
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got "
                          f"{softmax!r}")
@@ -104,6 +123,9 @@ def route(dtype, N: int, Dh: int, softmax: str = "f32") -> str:
         return ("tl_vit_attention_bf16_mma_cd" if softmax == "compute"
                 else "tl_vit_attention_bf16_mma")
     if dtype == torch.float32:
+        if f32_smem_bytes(N, Dh) is None:
+            raise ValueError(f"K4's f32 kernel: K and V at N={N}, Dh={Dh} "
+                             f"exceed {SMEM_LIMIT} bytes of shared memory")
         return "tl_vit_attention_f32"
     raise TypeError(f"K4 takes f32 or bf16 q, k, v, got {dtype}")
 
@@ -192,8 +214,9 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors run :func:`vit_attention_plain` or
     :func:`vit_attention_compute_plain`. CUDA tensors launch the kernel
     :func:`route` names: f32 or bf16, N <= 256, Dh <= 128 and, in
-    bf16, Dh % 16 == 0. Views whose rows start on 16 bytes (the q, k and v
-    slices of one packed qkv tensor) are read in place. Where a gradient is
+    bf16, Dh % 16 == 0, in f32 K and V within shared memory. Views whose
+    rows start on 16 bytes (the q, k and v slices of one packed qkv
+    tensor) are read in place. Where a gradient is
     wanted, the call goes through :class:`VitAttentionFn`."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("q, k, v must share one (B, N, H, Dh) shape, got "
